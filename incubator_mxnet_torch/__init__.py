@@ -7,20 +7,28 @@ package.  Entry points run on `gpu(0)` (the CUDA card) unless the caller
 asks for `cpu()`; without CUDA they raise instead of carrying on on the
 CPU.
 
-This slice serves BERT: Gluon blocks on `torch.nn.Module`, the BERT
+It serves and trains BERT: Gluon blocks on `torch.nn.Module`, the BERT
 models, `deploy.export_serving`/`load_serving` and the
-`serving.ServingRuntime` front end, with attention in the short CUDA
-kernel of `ops/flash_attention.py`.
+`serving.ServingRuntime` front end; `autograd`, the losses, SGD and
+Adam, `gluon.Trainer` and `parallel.ParallelTrainer` on one device.
+Attention runs in the short CUDA kernels of `ops/flash_attention.py`
+(the inference form, and the training form that saves p for the
+backward).
 """
 from .base import MXNetError, get_env
 from .context import Context, cpu, gpu, current_context, num_gpus
 from . import random
 from .random import seed
+from . import autograd
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import initializer
 from . import initializer as init
+from . import optimizer
+from .optimizer import lr_scheduler
 from . import gluon
+from . import parallel
 from . import models
 
 __version__ = "0.1.0"

@@ -6,7 +6,9 @@ Parameters with deferred init, `collect_params`, the structural names of
 `_collect_params_with_prefix` (the checkpoint keys) and
 `save/load_parameters`.  `HybridBlock.forward` calls
 `hybrid_forward(F, *args, **params)` with `F` the `nd` namespace, on
-NDArrays; called with torch tensors it returns torch tensors.
+NDArrays; called with torch tensors it returns torch tensors.  Called
+on NDArrays it keeps a graph only inside `autograd.record()`; called on
+torch tensors it follows torch's grad mode.
 
 `hybridize()` is accepted and does nothing yet: PyTorch runs eagerly,
 and the CachedOp counterpart (a CUDA graph of the forward) is later
@@ -20,6 +22,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..autograd import grad_scope
 from ..ndarray import NDArray
 from .. import ndarray as F
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
@@ -211,8 +214,10 @@ class HybridBlock(Block):
                 for a in args]
         kwargs = {k: NDArray(v) if isinstance(v, torch.Tensor) else v
                   for k, v in kwargs.items()}
-        out = self._eager_forward(*args, **kwargs)
-        return _to_tensors(out) if tensors_in else out
+        if tensors_in:
+            return _to_tensors(self._eager_forward(*args, **kwargs))
+        with grad_scope():
+            return self._eager_forward(*args, **kwargs)
 
     def _eager_forward(self, *args, **kwargs):
         try:

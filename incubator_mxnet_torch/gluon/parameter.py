@@ -7,6 +7,11 @@ Once initialized its data is one `torch.nn.Parameter` on one device.
 Every Block that holds the Parameter as an attribute also registers that
 `nn.Parameter` in its own `_parameters` under the attribute name, so
 `named_parameters()`, `state_dict()` and `.to()` see the weights.
+
+Its gradient is the `nn.Parameter`'s `.grad`, a zero buffer until the
+first backward.  `grad_req` "write" makes each `autograd.backward`
+overwrite it, "add" accumulates across backward calls, "null" keeps no
+gradient (`requires_grad` off).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from collections import OrderedDict
 import torch
 
 from ..base import MXNetError, torch_dtype, dtype_name
+from ..ndarray.ndarray import _GRAD_REQS
 from ..context import as_device
 from .. import initializer as init_mod
 from ..ndarray import NDArray
@@ -35,7 +41,11 @@ class Parameter:
         self.dtype = dtype_name(dtype)
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self.grad_req = grad_req if differentiable else "null"
+        if grad_req not in _GRAD_REQS:
+            raise MXNetError(f"invalid grad_req {grad_req!r}")
+        self._grad_req = grad_req if differentiable else "null"
+        self.lr_mult = 1.0
+        self.wd_mult = 1.0
         self._data = None           # nn.Parameter once initialized
         self._deferred_init = None  # (init, device, default_init)
         self._owners = []           # (weakref to Block, attribute name)
@@ -43,6 +53,18 @@ class Parameter:
     @property
     def shape(self):
         return self._shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in _GRAD_REQS:
+            raise MXNetError(f"invalid grad_req {req!r}")
+        self._grad_req = req
+        if self._data is not None:
+            self._set_tensor(self._data)
 
     @shape.setter
     def shape(self, new_shape):
@@ -70,6 +92,7 @@ class Parameter:
         self._data = torch.nn.Parameter(
             t.detach(), requires_grad=self.grad_req != "null"
             and t.is_floating_point())
+        self._data._grad_req = self.grad_req
         for ref, attr in self._owners:
             block = ref()
             if block is not None:
@@ -119,6 +142,24 @@ class Parameter:
     def data(self, ctx=None):
         self._check_initialized()
         return NDArray(self._data)
+
+    def grad(self, ctx=None):
+        """The gradient as an NDArray over the `.grad` buffer (zeros
+        before the first backward)."""
+        self._check_initialized()
+        if not self._data.requires_grad:
+            raise MXNetError(
+                f"cannot get gradient of {self.name}: grad_req is 'null'")
+        if self._data.grad is None:
+            self._data.grad = torch.zeros_like(self._data)
+        return NDArray(self._data.grad)
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self._data is not None and self._data.grad is not None:
+            self._data.grad.zero_()
 
     def set_data(self, data, ctx=None):
         """Replace the values.  An initialized parameter keeps its device
@@ -214,6 +255,10 @@ class ParameterDict:
         for p in self.values():
             p.initialize(None, ctx, default_init=init or init_mod.Uniform(),
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
 
     def __repr__(self):
         body = "\n".join(f"  {v}" for v in self.values())

@@ -2,7 +2,8 @@
 registered op (this module is the `F` of `HybridBlock.hybrid_forward`)."""
 import sys as _sys
 
-from .ndarray import NDArray, array, zeros, save, load, to_numpy
+from .ndarray import (NDArray, array, zeros, zeros_like, ones_like,
+                      save, load, to_numpy)
 from .. import ops as _ops
 from ..ops import registry as _registry
 

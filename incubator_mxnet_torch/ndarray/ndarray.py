@@ -1,12 +1,18 @@
 """NDArray: MXNet's array over a `torch.Tensor`.
 
 Counterpart of `incubator_mxnet_tpu/ndarray/ndarray.py`, with the
-surface the Gluon blocks and BERT use: arithmetic, `reshape` with
-MXNet's special codes, `expand_dims`, `slice_axis`, `astype`,
-`asnumpy`, `shape`/`dtype`/`context`, and the creation functions
-`array`/`zeros`.  `save`/`load` keep named tensors in one `.npz`; numpy
-has no bfloat16, so such tensors are stored as their uint16 bit
-patterns and their dtypes recorded beside them.
+surface the Gluon blocks, BERT and the imperative training loop use:
+arithmetic, `reshape` with MXNet's special codes, `expand_dims`,
+`slice_axis`, `astype`, `asnumpy`, `shape`/`dtype`/`context`,
+`attach_grad`/`grad`/`backward`/`detach`/`wait_to_read`, in-place
+assignment `x[key] = y`, and the creation functions
+`array`/`zeros`/`zeros_like`/`ones_like`.  Operations record a graph
+only inside `autograd.record()`.  Assignment writes into the tensor
+itself (the JAX package rebinds an immutable array), so every holder
+of the NDArray sees the new values.  `save`/`load` keep
+named tensors in one `.npz`; numpy has no bfloat16, so such tensors are
+stored as their uint16 bit patterns and their dtypes recorded beside
+them.
 """
 from __future__ import annotations
 
@@ -17,8 +23,12 @@ import torch
 
 from ..base import MXNetError, torch_dtype, dtype_name
 from ..context import Context, as_device
+from ..autograd import grad_scope
 
-__all__ = ["NDArray", "array", "zeros", "save", "load", "to_numpy"]
+__all__ = ["NDArray", "array", "zeros", "zeros_like", "ones_like", "save",
+           "load", "to_numpy"]
+
+_GRAD_REQS = ("write", "add", "null")
 
 
 class NDArray:
@@ -60,12 +70,54 @@ class NDArray:
     def asnumpy(self):
         return to_numpy(self._data)
 
+    def asscalar(self):
+        if self.size != 1:
+            raise MXNetError(f"asscalar needs one element, got {self.shape}")
+        return self.asnumpy().reshape(()).item()
+
     def astype(self, dtype, copy=True):
-        out = self._data.to(torch_dtype(dtype))
-        return NDArray(out.clone() if copy and out is self._data else out)
+        with grad_scope():
+            out = self._data.to(torch_dtype(dtype))
+            return NDArray(out.clone() if copy and out is self._data
+                           else out)
 
     def as_in_context(self, ctx):
-        return NDArray(self._data.to(as_device(ctx)))
+        with grad_scope():
+            return NDArray(self._data.to(as_device(ctx)))
+
+    def wait_to_read(self):
+        """Block until the values are computed (the device's queue)."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+        return self
+
+    # -- autograd ------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Make this array a leaf that receives a gradient: a zero buffer
+        of its shape, overwritten ("write") or accumulated ("add") by
+        each `backward`."""
+        if grad_req not in _GRAD_REQS:
+            raise MXNetError(f"invalid grad_req {grad_req!r}")
+        t = self._data.detach()
+        if grad_req != "null":
+            t.requires_grad_(True)
+            t.grad = torch.zeros_like(t)
+        t._grad_req = grad_req
+        self._data = t
+
+    @property
+    def grad(self):
+        """The gradient buffer, or None without `attach_grad`."""
+        g = self._data.grad
+        return None if g is None else NDArray(g)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    def detach(self):
+        return NDArray(self._data.detach())
 
     def __repr__(self):
         return (f"\n{self.asnumpy()!r}\n<NDArray {'x'.join(map(str, self.shape))}"
@@ -77,37 +129,49 @@ class NDArray:
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key._data
-        return NDArray(self._data[key])
+        with grad_scope():
+            return NDArray(self._data[key])
+
+    def __setitem__(self, key, value):
+        """In-place assignment, outside any recorded graph."""
+        if isinstance(key, NDArray):
+            key = key._data
+        with torch.no_grad():
+            self._data[key] = self._raw(value)
 
     # -- arithmetic ----------------------------------------------------
     @staticmethod
     def _raw(o):
         return o._data if isinstance(o, NDArray) else o
 
+    def _op(self, fn, *others):
+        with grad_scope():
+            return NDArray(fn(self._data, *map(self._raw, others)))
+
     def __add__(self, o):
-        return NDArray(self._data + self._raw(o))
+        return self._op(torch.add, o)
 
     __radd__ = __add__
 
     def __sub__(self, o):
-        return NDArray(self._data - self._raw(o))
+        return self._op(torch.sub, o)
 
     def __rsub__(self, o):
-        return NDArray(self._raw(o) - self._data)
+        return self._op(lambda a, b: b - a, o)
 
     def __mul__(self, o):
-        return NDArray(self._data * self._raw(o))
+        return self._op(torch.mul, o)
 
     __rmul__ = __mul__
 
     def __truediv__(self, o):
-        return NDArray(self._data / self._raw(o))
+        return self._op(torch.div, o)
 
     def __rtruediv__(self, o):
-        return NDArray(self._raw(o) / self._data)
+        return self._op(lambda a, b: b / a, o)
 
     def __neg__(self):
-        return NDArray(-self._data)
+        return self._op(torch.neg)
 
     # -- shape ---------------------------------------------------------
     def reshape(self, *shape, **kwargs):
@@ -115,16 +179,16 @@ class NDArray:
             shape = tuple(shape[0])
         shape = kwargs.pop("shape", shape)
         from ..ops.shape import reshape
-        return NDArray(reshape(self._data, shape=shape,
-                               reverse=kwargs.pop("reverse", False)))
+        reverse = kwargs.pop("reverse", False)
+        return self._op(lambda t: reshape(t, shape=shape, reverse=reverse))
 
     def expand_dims(self, axis):
-        return NDArray(self._data.unsqueeze(axis))
+        return self._op(lambda t: t.unsqueeze(axis))
 
     def slice_axis(self, axis, begin, end):
         from ..ops.shape import slice_axis
-        return NDArray(slice_axis(self._data, axis=axis, begin=begin,
-                                  end=end))
+        return self._op(lambda t: slice_axis(t, axis=axis, begin=begin,
+                                             end=end))
 
 
 def to_numpy(t):
@@ -148,7 +212,10 @@ def array(source_array, ctx=None, dtype=None):
         src = _np.asarray(source_array)
         if dtype is None and src.dtype == _np.float64:
             src = src.astype(_np.float32)
-        t = torch.from_numpy(_np.ascontiguousarray(src))
+        src = _np.ascontiguousarray(src)
+        if not src.flags.writeable:
+            src = src.copy()
+        t = torch.from_numpy(src)
     dev = as_device(ctx)
     return NDArray(t.to(device=dev, dtype=None if dtype is None
                         else torch_dtype(dtype)))
@@ -159,6 +226,14 @@ def zeros(shape, ctx=None, dtype="float32"):
         shape = (shape,)
     return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
                                device=as_device(ctx)))
+
+
+def zeros_like(a):
+    return NDArray(torch.zeros_like(NDArray._raw(a)))
+
+
+def ones_like(a):
+    return NDArray(torch.ones_like(NDArray._raw(a)))
 
 
 _DTYPES_KEY = "__dtypes__"

@@ -2,15 +2,18 @@
 `incubator_mxnet_tpu/ops/attention.py`: `multi_head_attention` and
 `gelu_fused`).
 
-`multi_head_attention` routes to the short CUDA kernel behind the same
+`multi_head_attention` routes to the short CUDA kernels behind the same
 gate as the JAX dispatcher, with "the query is a CUDA tensor" in place
 of "the platform is a TPU": self-attention with Tq == Tk <= 512,
-T % 128 == 0, d <= 256, no additive mask, no train-time dropout, and the
-same `MXNET_FLASH_ATTENTION*` switches.  Everything else takes the
-einsum path.  Long sequences (T >= MXNET_FLASH_ATTENTION_MIN_LEN), which
-the JAX package sends to its streaming kernel, take the einsum path too
-until that kernel is ported; ring attention and the BTHD route are not
-ported (ROADMAP.md).
+T % 128 == 0, d <= 256, no additive mask, no attention dropout in train
+mode, and the same `MXNET_FLASH_ATTENTION*` switches.  Inside
+`autograd.record()` the kernel route is the training form with its
+backward (`FlashShort`).  Everything else takes the einsum path, which
+applies attention dropout to the probabilities in train mode.  Long
+sequences (T >= MXNET_FLASH_ATTENTION_MIN_LEN), which the JAX package
+sends to its streaming kernel, take the einsum path too until that
+kernel is ported; ring attention and the BTHD route are not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -18,14 +21,16 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register
+from .. import autograd
 from ..base import get_env
+from ..random import generator
 
 
 @register("multi_head_attention")
 def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
                          num_heads, causal=False, dropout=0.0, scale=None):
-    """Fused MHA on batch-major (N, T, E) tensors.  `dropout` acts only
-    in training, which is not ported yet, so here it never applies."""
+    """Fused MHA on batch-major (N, T, E) tensors.  `dropout` drops
+    attention probabilities in train mode (`autograd.is_training()`)."""
     N, Tq, E = query.shape
     d = E // num_heads
     Tk = key.shape[1]
@@ -34,10 +39,12 @@ def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
         return t.reshape(N, T, num_heads, d).transpose(1, 2)
     s = scale if scale is not None else 1.0 / (d ** 0.5)
 
+    train_dropout = dropout > 0.0 and autograd.is_training()
     short_ok = (get_env("MXNET_FLASH_ATTENTION_SHORT", "1") != "0"
                 and Tq == Tk and Tq <= 512)
     if (get_env("MXNET_FLASH_ATTENTION", "1") != "0"
-            and mask is None and query.is_cuda and short_ok
+            and mask is None and not train_dropout and query.is_cuda
+            and short_ok
             and Tq % 128 == 0 and d <= 256):
         from .flash_attention import flash_attention
         out = flash_attention(split(query, Tq), split(key, Tk),
@@ -64,6 +71,12 @@ def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
             m = m.unsqueeze(1)
         logits = torch.where(m, logits, big_neg)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(query.dtype)
+    if train_dropout:
+        keep = torch.rand(probs.shape, generator=generator(probs.device),
+                          device=probs.device) < 1.0 - dropout
+        probs = torch.where(keep, probs / (1.0 - dropout),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device)).to(probs.dtype)
     out = torch.einsum("nhqk,nhkd->nhqd", probs, v)
     return out.transpose(1, 2).reshape(N, Tq, E)
 

@@ -4,7 +4,8 @@ attributes keyword-only).
 
 PyTorch counterpart of `incubator_mxnet_tpu/ops/registry.py`
 (`register`, `apply_op`).  PyTorch runs eagerly, so there is no
-executable cache: `apply_op` unwraps NDArrays, calls the function and
+executable cache: `apply_op` unwraps NDArrays, calls the function under
+`autograd.grad_scope()` (a graph is kept only inside `record()`) and
 wraps what it returns.  The `nd` namespace, which is the `F` that
 `HybridBlock.hybrid_forward` receives, is generated from this table.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
+from ..autograd import grad_scope
 
 __all__ = ["register", "get_op", "list_ops", "apply_op", "make_nd_function"]
 
@@ -57,8 +59,9 @@ def _wrap(out):
 def apply_op(name, *inputs, **attrs):
     """Run a registered op on NDArrays (or tensors); returns NDArrays."""
     impl = get_op(name)
-    out = impl(*[_unwrap(a) for a in inputs],
-               **{k: _unwrap(v) for k, v in attrs.items()})
+    with grad_scope():
+        out = impl(*[_unwrap(a) for a in inputs],
+                   **{k: _unwrap(v) for k, v in attrs.items()})
     return _wrap(out)
 
 

@@ -1,6 +1,6 @@
 """Shape and indexing ops (counterpart of
 `incubator_mxnet_tpu/ops/shape.py`): reshape with MXNet's special codes,
-expand_dims, slice_axis, Embedding."""
+expand_dims, slice_axis, pick, Embedding."""
 from __future__ import annotations
 
 import torch
@@ -70,6 +70,17 @@ def slice_axis(data, *, axis, begin=0, end=None):
     end = size if end is None else end
     begin, end = (b + size if b < 0 else b for b in (begin, end))
     return data.narrow(axis, begin, end - begin)
+
+
+@register("pick")
+def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
+    """data's element at `index` along `axis`; indices outside the axis
+    clamp to it ("clip")."""
+    size = data.shape[axis]
+    idx = index.to(torch.int64)
+    idx = idx.clamp(0, size - 1) if mode == "clip" else idx % size
+    out = data.gather(axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)
 
 
 @register("Embedding")

@@ -9,7 +9,12 @@ conftest (which imports JAX):
 Tolerances: float32 1e-4 (both sides in full f32, TF32 off, sums in
 another order); bfloat16 2e-2 (p is rounded to bfloat16 before p·v on
 both sides; a rounding that flips on a last-bit difference of the f32
-score moves an output by up to ~2^-8 of its scale).
+score moves an output by up to ~2^-8 of its scale).  The saved p: 1e-6
+in float32, one bfloat16 step below 1, 2^-8, in bfloat16.  Gradients of
+`FlashShort` against torch autograd through the plain version, relative
+to the largest reference gradient: float32 1e-4; bfloat16 2e-2 (the
+backward reads the bfloat16 p and rounds ds to bfloat16, autograd
+through the plain version keeps both in float32).
 """
 import numpy as np
 import pytest
@@ -19,11 +24,28 @@ import incubator_mxnet_torch as mx
 from incubator_mxnet_torch.models import get_model
 from incubator_mxnet_torch.ops.attention import multi_head_attention
 from incubator_mxnet_torch.ops.flash_attention import (
-    flash_short_fwd, flash_short_reference, launch_counts,
-    reset_launch_counts)
+    FlashShort, flash_attention, flash_short_fwd, flash_short_fwd_train,
+    flash_short_reference, launch_counts, reset_launch_counts)
 
 pytestmark = pytest.mark.cuda
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+P_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["float32", "bfloat16"])
+
+
+def _qkv(card, shape, dtype, seed, zero_len=True):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    n = shape[1]
+    lo = 0 if zero_len else 1
+    lengths = torch.randint(lo, n + 1, (shape[0],), generator=gen,
+                            device=card, dtype=torch.int32)
+    lengths[0] = lo
+    lengths[-1] = n
+    return q, k, v, lengths
 
 
 @pytest.fixture
@@ -109,3 +131,100 @@ def test_bert_forward_with_kernel_matches_plain_attention(card, monkeypatch):
         ref = net(*ins)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(720, 128, 64), (16, 128, 64),
+                                   (3, 48, 40), (2, 7, 8), (2, 256, 256)])
+def test_training_form_matches_plain_version(card, dtype, causal, shape):
+    """Row 1b: o and the saved p of `flash_short_fwd_train`, the
+    training shape (BH = 60*12, T = 128, d = 64) among others."""
+    q, k, v, lengths = _qkv(card, shape, dtype, sum(shape) + 1)
+    scale = shape[2] ** -0.5
+    reset_launch_counts()
+    o, p = flash_short_fwd_train(q, k, v, lengths, scale, causal)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_short_fwd": 0,
+                             "flash_short_fwd_train": 1}
+    ro, rp = flash_short_reference(q, k, v, lengths, scale, causal,
+                                   save_p=True)
+    assert o.dtype == p.dtype == dtype and p.shape == (shape[0], shape[1],
+                                                      shape[1])
+    assert (o.float() - ro.float()).abs().max().item() <= ATOL[dtype]
+    assert (p.float() - rp.float()).abs().max().item() <= P_ATOL[dtype]
+    # the inference form gives the same o
+    assert torch.equal(flash_short_fwd(q, k, v, lengths, scale, causal), o)
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(720, 128, 64), (6, 48, 40)])
+def test_flash_short_grads_match_autograd_through_plain(card, dtype, causal,
+                                                        shape):
+    """dq, dk, dv of `FlashShort` (kernel forward, `_bwd_short` in torch)
+    against torch autograd through the plain version, every kv_length
+    > 0 (a fully masked row's JAX gradient is not the plain version's;
+    the CPU tests hold that case against the JAX package)."""
+    q, k, v, lengths = _qkv(card, shape, dtype, 7 + sum(shape),
+                            zero_len=False)
+    do = torch.randn(shape, device=card).to(dtype)
+    scale = shape[2] ** -0.5
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    FlashShort.apply(*a, lengths, scale, causal).backward(do)
+    flash_short_reference(*b, lengths, scale, causal).backward(do)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_short_fwd_train"] == 1
+    for name, x, y in zip("qkv", a, b):
+        assert x.grad.dtype == dtype
+        err = (x.grad.float() - y.grad.float()).abs().max().item()
+        ref = y.grad.float().abs().max().item()
+        assert err <= GRAD_RTOL[dtype] * ref, (name, err, ref)
+
+
+def test_launch_counters_follow_grad_mode(card):
+    q, k, v, _ = _qkv(card, (2, 3, 128, 64), torch.bfloat16, 11)
+    q.requires_grad_()
+    reset_launch_counts()
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert launch_counts == {"flash_short_fwd": 1,
+                             "flash_short_fwd_train": 0}
+    flash_attention(q, k, v).float().sum().backward()
+    assert launch_counts == {"flash_short_fwd": 1,
+                             "flash_short_fwd_train": 1}
+    assert q.grad is not None and q.grad.dtype == torch.bfloat16
+
+
+def test_bert_train_step_runs_the_training_kernel(card):
+    """ParallelTrainer steps of a 4-layer BERT in bf16: one training
+    launch per layer and step, no inference launch, finite losses.  (The
+    first step also runs one forward outside autograd to give the
+    classifier's deferred Dense its shape, as the JAX package's abstract
+    warm-up does; that forward takes the inference form.)"""
+    mx.seed(0)
+    net = get_model("bert_classifier", model_name="bert_mini",
+                    num_classes=2, dropout=0.0, vocab_size=1000,
+                    max_length=128)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = mx.parallel.ParallelTrainer(
+        net, lambda o, y: loss(o.astype("float32"), y), "adam",
+        {"learning_rate": 2e-5})
+    rng = np.random.RandomState(0)
+    batch = (rng.randint(0, 1000, (8, 128)).astype(np.float32),
+             np.zeros((8, 128), np.float32),
+             rng.randint(0, 2, 8).astype(np.float32))
+    reset_launch_counts()
+    first = tr.step(*batch).asscalar()
+    assert launch_counts == {"flash_short_fwd": 4,
+                             "flash_short_fwd_train": 4}
+    reset_launch_counts()
+    out = tr.run_steps(2, *batch).asscalar()
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_short_fwd": 0,
+                             "flash_short_fwd_train": 8}
+    assert np.isfinite(first) and np.isfinite(out)

@@ -22,7 +22,11 @@ def test_import_pulls_in_no_jax():
     # (tests/conftest.py seeds it for every test)
     code = ("import sys, incubator_mxnet_torch, "
             "incubator_mxnet_torch.deploy, incubator_mxnet_torch.serving, "
-            "incubator_mxnet_torch.convert, incubator_mxnet_torch._kernels\n"
+            "incubator_mxnet_torch.convert, incubator_mxnet_torch._kernels, "
+            "incubator_mxnet_torch.autograd, incubator_mxnet_torch.optimizer, "
+            "incubator_mxnet_torch.parallel, "
+            "incubator_mxnet_torch.gluon.trainer, "
+            "incubator_mxnet_torch.gluon.loss\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\n"
@@ -60,12 +64,28 @@ def test_no_forbidden_import_in_source(path):
 
 
 @pytest.mark.parametrize("entry", ["initialize", "array", "zeros",
-                                   "load_serving"])
+                                   "load_serving", "default_mesh",
+                                   "ParallelTrainer", "Updater.set_states"])
 def test_entry_point_without_ctx_raises_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     with pytest.raises(mx.MXNetError, match="CUDA is not available"):
-        if entry == "initialize":
+        if entry == "default_mesh":
+            mx.parallel.default_mesh()
+        elif entry == "ParallelTrainer":
+            net = get_model("bert_classifier", model_name="bert_tiny",
+                            vocab_size=10, max_length=8)
+            net.initialize(ctx=mx.cpu())
+            mx.parallel.ParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam")
+        elif entry == "Updater.set_states":
+            up = mx.optimizer.get_updater(mx.optimizer.create("sgd",
+                                                              momentum=0.9))
+            with mx.cpu():
+                up(0, nd.zeros((2,)), nd.zeros((2,)))
+            mx.optimizer.get_updater(mx.optimizer.create("sgd")).set_states(
+                up.get_states())
+        elif entry == "initialize":
             net = get_model("bert_classifier", model_name="bert_tiny",
                             vocab_size=10, max_length=8)
             net.initialize()
@@ -91,6 +111,29 @@ def test_default_context_is_the_card_and_cpu_is_explicit():
                         vocab_size=10, max_length=8)
         net.initialize()
         assert all(p.device.type == "cpu" for p in net.parameters())
+
+
+def test_trainers_on_cpu_keep_everything_on_cpu():
+    """Asked for cpu(), both trainers keep weights, gradients and
+    optimizer states there."""
+    net = get_model("bert_classifier", model_name="bert_tiny",
+                    vocab_size=10, max_length=8, dropout=0.0)
+    net.initialize(ctx=mx.cpu())
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.cpu():
+        x, y = nd.zeros((2, 8)), nd.array([0.0, 1.0])
+    tr = mx.parallel.ParallelTrainer(
+        net, loss, "adam", mesh=mx.parallel.default_mesh(ctx=mx.cpu()))
+    tr.step(x, x, y)
+    assert {s.device.type for st in tr._states for s in st} == {"cpu"}
+    gtr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                           {"momentum": 0.9})
+    with mx.autograd.record():
+        l = loss(net(x, x), y)
+    l.backward()
+    gtr.step(2)
+    assert {s.context for s in gtr._states} == {mx.cpu()}
+    assert all(p.device.type == "cpu" for p in net.parameters())
 
 
 def test_hybridize_is_accepted_and_changes_nothing():
