@@ -8,26 +8,36 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. Device and build: the card's name and power limit (nvidia-smi), then
    every CUDA kernel of the port built from `incubator_mxnet_torch/csrc/`,
    one nvcc per source, all started together.
-2. Kernels against their plain PyTorch versions at the serving shape
-   (BH = 128*12, T = 128, d = 64), bfloat16 and float32, causal on and
-   off, kv_length random with 0 and T among them: max error, kernel time,
-   plain-version time, one PyTorch library call's time and the card's
-   bound for the same work.
-3. The main path: BERT-base (bert_12_768_12, T = 128) classifier in
-   bfloat16 with seeded Normal(0.02) weights on cuda:0, exported with
+2. The short kernel (row 1) against its plain PyTorch version at the
+   serving shape (BH = 128*12, T = 128, d = 64), bfloat16 and float32,
+   causal on and off, kv_length random with 0 and T among them: max
+   error, kernel time, plain-version time, one PyTorch library call's
+   time and the card's bound for the same work.
+3. The short kernel's training form (row 1b) at the training shape
+   (BH = 60*12, T = 128, d = 64): o and p, and dq, dk, dv of
+   `FlashShort` against torch autograd through the plain version; the
+   kernel's, the plain version's and the backward's times and the bound.
+4. The streaming FlashAttention-2 kernels (rows 2-4: `flash_fwd`,
+   `flash_bwd_dq`, `flash_bwd_dkv`) against their plain versions at the
+   long training shape (BH = 4*12, T = 2048, d = 64), bfloat16 and
+   float32, causal on and off, plus cross attention (Tq = 1024,
+   Tk = 2048) and T = 1152 (JAX blocks 384), kv_length random with 0 and
+   T among them: o, lse (exactly -1e30 on fully masked rows), dq, dk,
+   dv, and `Flash`'s gradients against torch autograd through the plain
+   forward; then each kernel's time, its plain version's, SDPA's (the
+   backward of one SDPA call for rows 3+4 together) and the bound.
+5. Serving at T = 128: BERT-base (bert_12_768_12) classifier in bfloat16
+   with seeded Normal(0.02) weights on cuda:0, exported with
    `deploy.export_serving` (capacity 128 rows), served by
    `serving.ServingRuntime` over HTTP on 127.0.0.1, answering 12 POST
    /predict requests of 1-64 rows (8 of them concurrent).  Every answer
-   is checked against a direct forward of the same rows with plain
-   attention on the card, and the kernel's launch counter must have
-   risen by 12 (one per encoder layer) for each served batch.
-4. The training kernel (the short kernel's `save_p` form, kernel row
-   1b) against its plain version at the training shape (BH = 60*12,
-   T = 128, d = 64), bfloat16 and float32, causal on and off, kv_length
-   random with 0 and T among them: o and p, and dq, dk, dv of
-   `FlashShort` against torch autograd through the plain version; the
-   kernel's, the plain version's and the backward's times and the bound.
-5. The training path: BERT-base classifier, dropout 0, seeded
+   is checked against a direct forward of the same rows with einsum
+   attention on the card, and the short kernel must launch 12 times
+   (one per encoder layer) for each served batch, no streaming kernel.
+6. Serving at T = 2048 (`[serve-long]`): the same model with
+   max_length 2048, capacity 16 rows, 6 requests of 1-16 rows; 12
+   `flash_fwd` launches per batch and no short-kernel launch.
+7. Training at T = 128: BERT-base classifier, dropout 0, seeded
    Normal(0.02) weights cast to bfloat16, Adam at lr 2e-5, a seeded
    batch of 60 x 128 tokens on cuda:0 (`bench.py`'s `bench_bert`).  Step
    1's loss and the gradients of layer 0's and layer 11's qkv weight on
@@ -35,10 +45,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    attention); then `ParallelTrainer.step` 3 times and `run_steps(10)`
    (timed with CUDA events), a by-kernel profile of one step, and 2
    iterations of the imperative `autograd.record()` / `backward()` /
-   `gluon.Trainer(..., "adam", lr 2e-5).step(60)` loop.  Losses must be finite and the
-   training kernel must launch 12 times (one per layer) per step, the
-   inference kernel never.
-6. A JSON line describing each kernel, then the card line, then the
+   `gluon.Trainer(..., "adam", lr 2e-5).step(60)` loop.  Losses must be
+   finite and the training kernel must launch 12 times (one per layer)
+   per step, no other kernel.
+8. Training at T = 2048 (`[train-long]`, `bench_bert` with
+   BENCH_SEQLEN=2048 BENCH_BATCH=4): the same checks with 3 steps,
+   `run_steps(5)` and one imperative iteration; 12 launches of each of
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` per step, no other.
+9. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -65,13 +79,17 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 BH_BATCH, HEADS, T, D = 128, 12, 128, 64
 TRAIN_BATCH, LAYERS = 60, 12
+# the long paths: training 4 x 2048, serving capacity 16 x 2048
+LONG_T, LONG_TRAIN_BATCH, LONG_CAPACITY = 2048, 4, 16
+LONG_REQUEST_ROWS = (1, 16, 5, 3, 11, 16)
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the saved p: float32 agrees to rounding; bfloat16 to one step below 1
 P_ATOL = {torch.bfloat16: 2 ** -8, torch.float32: 1e-6}
-# FlashShort's gradients against torch autograd through the plain
-# version, relative to the largest reference gradient: the backward
-# reads the bfloat16 p and rounds ds to bfloat16 where autograd through
-# the plain version keeps both in float32
+# FlashShort's and Flash's gradients against torch autograd through the
+# plain version, and the streaming backward kernels against their plain
+# versions, relative to the largest reference gradient: the backward
+# rounds p and ds to bfloat16 where autograd through the plain version
+# keeps both in float32
 GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # Step 1 of BERT-base bf16 on the kernel route against einsum attention:
 # the einsum route rounds the scores to bfloat16 before the softmax
@@ -79,6 +97,10 @@ GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # through 12 layers forward and back.  Loss: 1e-2 absolute (1.4% of
 # ln 2, the loss at this initialization); gradients: 5e-2 relative
 # (Frobenius norm of the difference over the einsum route's norm).
+# The streaming forward's lse on rows with kv_length > 0 (float32 on both
+# sides, sums in another order); a fully masked row's lse is exactly
+# -1e30 on both.
+LSE_ATOL = 1e-4
 STEP1_LOSS_ATOL = 1e-2
 STEP1_GRAD_RTOL = 5e-2
 # Served logits against a direct forward with plain attention: both in
@@ -278,8 +300,193 @@ def phase_train_kernels():
     return records[(torch.bfloat16, False)]
 
 
-def phase_train(card):
-    """The training path; returns the training kernel's launches."""
+def _stream_inputs(gen, batch, tq, tk, dtype):
+    """q, k, v, do for `batch` x HEADS batch-heads, and kv_length random
+    per batch element with 0 and Tk among them."""
+    bh = batch * HEADS
+    q, do = (torch.randn(bh, tq, D, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, tk, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    per_row = torch.randint(0, tk + 1, (batch,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    per_row[0], per_row[1] = 0, tk
+    return q, k, v, do, per_row.repeat_interleave(HEADS)
+
+
+def _check_stream_case(fa, dtype, causal, tq, tk, gen):
+    """One case of rows 2-4 against their plain versions; returns the
+    kernels' max errors {name: err}."""
+    bq, bk = fa._fit_block(512, tq), fa._fit_block(1024, tk)
+    q, k, v, do, lengths = _stream_inputs(gen, LONG_TRAIN_BATCH, tq, tk,
+                                          dtype)
+    live = lengths > 0
+    scale = D ** -0.5
+    what = (f"{str(dtype)[6:]} causal={causal} Tq={tq} Tk={tk} "
+            f"blocks=({bq}, {bk})")
+    o, lse = fa.flash_fwd(q, k, v, lengths, scale, causal, bq, bk)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, lengths, scale, causal, bq,
+                                      bk)
+    torch.cuda.synchronize()
+    o_err = _max_err(o, ro)
+    lse_err = _max_err(lse[live], rlse[live])
+    if not (o_err <= ATOL[dtype] and lse_err <= LSE_ATOL
+            and torch.all(lse[~live] == -1e30)
+            and torch.isfinite(o.float()).all()):
+        raise AssertionError(
+            f"flash_fwd disagrees with its plain version: {what}: o "
+            f"{o_err} (atol {ATOL[dtype]}), lse {lse_err} (atol {LSE_ATOL})"
+            f", fully masked rows' lse {lse[~live].unique().tolist()}")
+    delta = (do.float() * ro.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, rlse, delta, lengths, scale, causal, bq, bk)
+    got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    plain = (fa.flash_bwd_dq_reference(*args),
+             *fa.flash_bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": o_err}
+    for name, x, y in zip(("dq", "dk", "dv"), got, plain):
+        err, top = _max_err(x, y), y.float().abs().max().item()
+        if not err <= GRAD_RTOL[dtype] * top:
+            raise AssertionError(f"flash_bwd {name} disagrees with its plain "
+                                 f"version: {what}: {err} > "
+                                 f"{GRAD_RTOL[dtype]} x {top}")
+        key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+        errs[key] = max(errs.get(key, 0.0), err)
+    # Flash (kernel forward, delta, both backward kernels) against torch
+    # autograd through the plain forward on the batch-heads with
+    # kv_length > 0; a fully masked batch-head follows the JAX rule
+    # (p = 1 on the visited keys), so there it is held to the plain
+    # backward versions
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.Flash.apply(*a, lengths, scale, causal, bq, bk).backward(do)
+    fa.flash_fwd_reference(*b, lengths, scale, causal, bq, bk)[0] \
+        .backward(do)
+    torch.cuda.synchronize()
+    shown = []
+    for name, x, y, z in zip("qkv", a, b, plain):
+        for rows, ref in ((live, y.grad), (~live, z)):
+            err = _max_err(x.grad[rows], ref[rows])
+            top = ref[rows].float().abs().max().item()
+            if not err <= GRAD_RTOL[dtype] * top:
+                raise AssertionError(
+                    f"Flash d{name} disagrees: {what}: {err} > "
+                    f"{GRAD_RTOL[dtype]} x {top}")
+        shown.append(f"{_max_err(x.grad[live], y.grad[live]):.2e}")
+    log(f"[kernel] flash_fwd/flash_bwd_dq/flash_bwd_dkv {what} BH="
+        f"{q.shape[0]} d={D}: o {o_err:.3e} (atol {ATOL[dtype]}), lse "
+        f"{lse_err:.3e} (atol {LSE_ATOL}, -1e30 on kv_length 0), dq "
+        f"{errs['flash_bwd_dq']:.3e}, dk/dv {errs['flash_bwd_dkv']:.3e} "
+        f"(rtol {GRAD_RTOL[dtype]}); Flash dq/dk/dv vs autograd "
+        f"{'/'.join(shown)}")
+    return errs
+
+
+def _sdpa_backend(fn):
+    """(name, backend) of the first SDPA backend that runs fn() on these
+    inputs, flash first."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                fn()
+        except RuntimeError:
+            continue
+        return backend.name, backend
+    raise AssertionError("no SDPA backend ran")
+
+
+def phase_stream_kernels():
+    """Kernel rows 2-4 against their plain versions, then their times at
+    the long training shape; returns {name: record}."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+    from incubator_mxnet_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(dtype, causal, LONG_T, LONG_T)
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal in (False, True)]
+    cases += [(torch.bfloat16, causal, tq, tk) for tq, tk in
+              ((LONG_T // 2, LONG_T), (1152, 1152)) for causal in (False, True)]
+    main_errs = None
+    for dtype, causal, tq, tk in cases:
+        errs = _check_stream_case(fa, dtype, causal, tq, tk, gen)
+        if main_errs is None:
+            main_errs = errs          # bf16, non-causal, 4 x 2048
+        torch.cuda.empty_cache()
+
+    # times at the path's shape: every kv_length T, non-causal
+    bh, scale = LONG_TRAIN_BATCH * HEADS, D ** -0.5
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, _ = _stream_inputs(gen, LONG_TRAIN_BATCH, LONG_T, LONG_T,
+                                        dtype)
+        full = torch.full((bh,), LONG_T, dtype=torch.int32, device="cuda")
+        blocks = (512, 1024)
+        o, lse = fa.flash_fwd(q, k, v, full, scale, False, *blocks)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        args = (q, k, v, do, lse, delta, full, scale, False, *blocks)
+        ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(
+                  q, k, v, full, scale, False, *blocks)),
+              "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args)),
+              "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(*args))}
+        plain_ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd_reference(
+                        q, k, v, full, scale, False, *blocks), 5, 1),
+                    "flash_bwd_dq": time_ms(
+                        lambda: fa.flash_bwd_dq_reference(*args), 5, 1),
+                    "flash_bwd_dkv": time_ms(
+                        lambda: fa.flash_bwd_dkv_reference(*args), 5, 1)}
+        # library yardstick: one SDPA call, no mask (every kv_length is
+        # T), and its backward through autograd less its forward (rows
+        # 3 and 4 together); timed only, the port never calls it
+        q4, k4, v4, do4 = (t.view(LONG_TRAIN_BATCH, HEADS, -1, D)
+                           for t in (q, k, v, do))
+        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            return torch.autograd.grad(out, leaves, do4)
+        name, backend = _sdpa_backend(sdpa_fwd_bwd)
+        with sdpa_kernel(backend):
+            lib_fwd = time_ms(sdpa)
+            lib_bwd = time_ms(sdpa_fwd_bwd) - lib_fwd
+        io = q.numel() * q.element_size()       # one (BH, T, d) tensor
+        rows = bh * LONG_T * 4                  # one (BH, T) f32 vector
+        work = bh * LONG_T * LONG_T * D
+        bounds = {"flash_fwd": _bound(4 * io + rows + bh * 4, 4 * work,
+                                      dtype),
+                  "flash_bwd_dq": _bound(5 * io + 2 * rows + bh * 4,
+                                         6 * work, dtype),
+                  "flash_bwd_dkv": _bound(6 * io + 2 * rows + bh * 4,
+                                          8 * work, dtype)}
+        lib = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+        for kname in ms:
+            bound_ms, bound_by = bounds[kname]
+            rec = {"max_abs_err": main_errs[kname], "ms": ms[kname],
+                   "plain_ms": plain_ms[kname], "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": lib[kname]}
+            if dtype == torch.bfloat16:
+                records[kname] = rec
+            log(f"[kernel] {kname} {str(dtype)[6:]} BH={bh} T={LONG_T} d={D} "
+                f"non-causal, every kv_length T: kernel {ms[kname]:.4f} ms, "
+                f"plain {plain_ms[kname]:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}); sdpa ({name}) "
+                f"{'forward' if kname == 'flash_fwd' else 'backward (dq+dk+dv)'}"
+                f" {lib[kname]:.4f} ms")
+        del q, k, v, do, o, lse, delta, args, leaves
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_train(card, rows, seqlen, run_k, iterations, per_step, tag):
+    """A training path: BERT-base bf16 on `rows` x `seqlen` tokens; every
+    step must launch each kernel of `per_step` once per layer and no
+    other kernel.  Returns the launch counts of the path's run."""
     import incubator_mxnet_torch as mx
     from incubator_mxnet_torch import autograd, gluon, nd, parallel
     from incubator_mxnet_torch.models import get_model
@@ -287,14 +494,14 @@ def phase_train(card):
 
     rng = np.random.RandomState(0)
     batch = [nd.array(a, ctx=mx.gpu(0)) for a in (
-        rng.randint(0, 30522, (TRAIN_BATCH, T)).astype(np.float32),
-        np.zeros((TRAIN_BATCH, T), np.float32),
-        rng.randint(0, 2, TRAIN_BATCH).astype(np.float32))]
+        rng.randint(0, 30522, (rows, seqlen)).astype(np.float32),
+        np.zeros((rows, seqlen), np.float32),
+        rng.randint(0, 2, rows).astype(np.float32))]
     t0 = time.time()
     mx.seed(0)
     net = get_model("bert_classifier", model_name="bert_12_768_12",
                     num_classes=2, dropout=0.0, vocab_size=30522,
-                    max_length=T)
+                    max_length=seqlen)
     net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
     net.cast("bfloat16")
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
@@ -324,7 +531,7 @@ def phase_train(card):
         del os.environ["MXNET_FLASH_ATTENTION"]
     grad_rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
                 for a, b in zip(k_grads, e_grads)]
-    log(f"[train] BERT-base bf16 {TRAIN_BATCH}x{T} built in "
+    log(f"{tag} BERT-base bf16 {rows}x{seqlen} built in "
         f"{time.time() - t0:.1f} s; step 1 kernel route vs einsum "
         f"attention: loss {k_loss:.6f} vs {e_loss:.6f} (atol "
         f"{STEP1_LOSS_ATOL}), qkv.weight grad rel. error layer 0 "
@@ -335,18 +542,18 @@ def phase_train(card):
         raise AssertionError("step 1 on the kernel route disagrees with "
                              "einsum attention")
     del k_grads, e_grads
+    torch.cuda.empty_cache()
 
     def checked(run, steps, what):
         before = dict(counts)
         lval = run()
         torch.cuda.synchronize()
-        got = counts["flash_short_fwd_train"] - \
-            before["flash_short_fwd_train"]
-        infer = counts["flash_short_fwd"] - before["flash_short_fwd"]
-        if got != layers * steps or infer != 0:
-            raise AssertionError(
-                f"{what}: {got} training and {infer} inference kernel "
-                f"launches for {steps} step(s) of {layers} layers")
+        got = {n: counts[n] - before[n] for n in counts}
+        want = {n: layers * steps if n in per_step else 0 for n in counts}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got} for {steps} "
+                                 f"step(s) of {layers} layers, expected "
+                                 f"{want}")
         if not np.isfinite(lval):
             raise AssertionError(f"{what}: loss {lval} is not finite")
         return lval
@@ -355,41 +562,37 @@ def phase_train(card):
                       f"step {i + 1}") for i in range(3)]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    last = checked(lambda: tr.run_steps(10, *batch).asscalar(), 10,
-                   "run_steps(10)")
+    last = checked(lambda: tr.run_steps(run_k, *batch).asscalar(), run_k,
+                   f"run_steps({run_k})")
     end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / 10
+    step_ms = start.elapsed_time(end) / run_k
     shown = ", ".join(f"{x:.4f}" for x in losses)
-    log(f"[train] ParallelTrainer adam: losses {shown} "
-        f"after steps 1-3, {last:.4f} after run_steps(10) (num_update "
-        f"{tr.num_update}); {layers} flash_short_fwd_train launches per "
-        f"step, none of flash_short_fwd")
-    log(f"[train] step {step_ms:.2f} ms, "
-        f"{TRAIN_BATCH * T / step_ms * 1e3:.0f} tokens/s over "
-        f"run_steps(10) ({card})")
+    log(f"{tag} ParallelTrainer adam: losses {shown} "
+        f"after steps 1-3, {last:.4f} after run_steps({run_k}) (num_update "
+        f"{tr.num_update}); {layers} launches of each of "
+        f"{', '.join(per_step)} per step, no other kernel")
+    log(f"{tag} step {step_ms:.2f} ms, "
+        f"{rows * seqlen / step_ms * 1e3:.0f} tokens/s over "
+        f"run_steps({run_k}) ({card})")
     log_profile(lambda: checked(lambda: tr.step(*batch).asscalar(), 1,
                                 "profiled step"),
-                f"one {TRAIN_BATCH}x{T} training step", tag="[train]")
+                f"one {rows}x{seqlen} training step", tag=tag)
 
     # the imperative loop on the same model
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": 2e-5})
-    for i in range(2):
+    for i in range(iterations):
         def iteration():
             with autograd.record():
                 l = loss_of(net(*batch[:2]), batch[2])
             l.backward()
-            trainer.step(TRAIN_BATCH)
+            trainer.step(rows)
             return float(l.asnumpy().mean())
         lval = checked(iteration, 1, f"imperative iteration {i + 1}")
-        log(f"[train] imperative record/backward/gluon.Trainer.step "
+        log(f"{tag} imperative record/backward/gluon.Trainer.step "
             f"iteration {i + 1}: mean loss {lval:.4f}")
-    launches = counts["flash_short_fwd_train"]
-    if counts["flash_short_fwd"] != 0:
-        raise AssertionError("the training path launched the inference "
-                             "kernel")
-    return launches
+    return dict(counts)
 
 
 def _http(port, method, path, body=None):
@@ -437,15 +640,18 @@ def log_profile(fn, what, tag="[profile]", top=12):
                 f"x{e.count:<4d} {e.key[:70]}")
 
 
-def log_forward_profile(block, inputs):
+def log_forward_profile(block, inputs, what):
     def fwd():
         with torch.inference_mode():
             block(*inputs)
-    log_profile(fwd, f"one 128x{T} forward")
+    log_profile(fwd, f"one {what} forward")
 
 
-def phase_serve(card):
-    """The main path; returns the kernel launches it made."""
+def phase_serve(card, seqlen, capacity, request_rows, n_sequential, kernel,
+                tag):
+    """A serving path: BERT-base bf16 at `seqlen` tokens, batch capacity
+    `capacity`; every served batch must launch `kernel` once per layer
+    and no other kernel.  Returns the launch counts of the path's run."""
     import incubator_mxnet_torch as mx
     from incubator_mxnet_torch import deploy
     from incubator_mxnet_torch.models import get_model
@@ -455,10 +661,10 @@ def phase_serve(card):
     rng = np.random.RandomState(0)
 
     def rows(n):
-        tokens = rng.randint(0, 30522, (n, T)).astype(np.int32)
-        types = rng.randint(0, 2, (n, T)).astype(np.int32)
-        valid = rng.randint(0, T + 1, (n,)).astype(np.int32)
-        valid[0] = T
+        tokens = rng.randint(0, 30522, (n, seqlen)).astype(np.int32)
+        types = rng.randint(0, 2, (n, seqlen)).astype(np.int32)
+        valid = rng.randint(0, seqlen + 1, (n,)).astype(np.int32)
+        valid[0] = seqlen
         if n > 2:
             valid[1] = 0
         return [tokens, types, valid]
@@ -471,27 +677,27 @@ def phase_serve(card):
         mx.seed(0)
         net = get_model("bert_classifier", model_name="bert_12_768_12",
                         num_classes=2, dropout=0.0, vocab_size=30522,
-                        max_length=T)
+                        max_length=seqlen)
         net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
         net.cast("bfloat16")
-        deploy.export_serving(net, rows(128), art)
+        deploy.export_serving(net, rows(capacity), art)
         del net
         rt = ServingRuntime(art, config=ServeConfig(
             concurrency=2, queue_limit=64, batch_window_ms=5.0))
         port = rt.start(0, "127.0.0.1")
-        log(f"[serve] BERT-base bf16 built, exported and loaded in "
+        log(f"{tag} BERT-base bf16 T={seqlen} built, exported and loaded in "
             f"{time.time() - t0:.1f} s; serving on 127.0.0.1:{port}")
         for path in ("/-/healthz", "/-/readyz"):
             status = _http(port, "GET", path)[0]
             if status != 200:
                 raise AssertionError(f"{path} answered {status}")
 
-        reqs = [rows(n) for n in REQUEST_ROWS]
+        reqs = [rows(n) for n in request_rows]
         results = [None] * len(reqs)
-        launches0 = fa.launch_counts["flash_short_fwd"]
+        launches0 = dict(fa.launch_counts)
         calls0 = rt.model_calls
         t_req = time.perf_counter()
-        for i in range(N_SEQUENTIAL):
+        for i in range(n_sequential):
             results[i] = _post(port, reqs[i])
         errors = []
 
@@ -501,7 +707,7 @@ def phase_serve(card):
             except Exception as e:   # noqa: BLE001 — re-raised below
                 errors.append(e)
         threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(N_SEQUENTIAL, len(reqs))]
+                   for i in range(n_sequential, len(reqs))]
         for t in threads:
             t.start()
         for t in threads:
@@ -512,18 +718,20 @@ def phase_serve(card):
         if any(t.is_alive() for t in threads) or None in results:
             raise AssertionError("a request did not complete")
         batches = rt.model_calls - calls0
-        launched = fa.launch_counts["flash_short_fwd"] - launches0
+        launched = {n: fa.launch_counts[n] - launches0[n]
+                    for n in fa.launch_counts}
         block = rt._slot.model.block
         layers = len(block.bert.encoder.layers)     # one launch each
-        log(f"[serve] {len(reqs)} requests ({sum(REQUEST_ROWS)} rows) in "
-            f"{batches} batch(es); flash_short_fwd launches {launched} "
+        log(f"{tag} {len(reqs)} requests ({sum(request_rows)} rows) in "
+            f"{batches} batch(es); {kernel} launches {launched[kernel]} "
             f"({layers} encoder layers)")
-        if batches < 1 or launched != layers * batches:
+        want = {n: layers * batches if n == kernel else 0 for n in launched}
+        if batches < 1 or launched != want:
             raise AssertionError(
-                f"expected {layers} kernel launches per batch: "
-                f"{launched} launches for {batches} batches")
+                f"expected {layers} {kernel} launches per batch and no other "
+                f"kernel: {launched} for {batches} batches")
 
-        # the same rows through the loaded block with plain attention
+        # the same rows through the loaded block with einsum attention
         os.environ["MXNET_FLASH_ATTENTION"] = "0"
         try:
             worst = 0.0
@@ -545,18 +753,19 @@ def phase_serve(card):
                                  f"forward by {worst} > {LOGIT_ATOL}")
         lat = sorted(r[2] for r in results)
         p50 = lat[len(lat) // 2] * 1e3
-        tok_s = sum(REQUEST_ROWS) * T / wall
-        log(f"[serve] served logits vs direct forward (plain attention): "
+        tok_s = sum(request_rows) * seqlen / wall
+        log(f"{tag} served logits vs direct forward (einsum attention): "
             f"max|err|={worst:.3e} (atol {LOGIT_ATOL})")
-        log(f"[serve] p50 request latency {p50:.1f} ms, {tok_s:.0f} "
+        log(f"{tag} p50 request latency {p50:.1f} ms, {tok_s:.0f} "
             f"tokens/s over {wall:.2f} s ({card})")
-        main_launches = fa.launch_counts["flash_short_fwd"]
-        if fa.launch_counts["flash_short_fwd_train"] != 0:
-            raise AssertionError("serving launched the training kernel")
+        path_counts = dict(fa.launch_counts)
+        others = {n: c for n, c in path_counts.items() if n != kernel and c}
+        if others:
+            raise AssertionError(f"{tag} launched other kernels: {others}")
 
-        # where a request's time goes: one full 128-row batch through the
-        # loaded model, on the device alone and through the numpy call
-        full = rows(128)
+        # where a request's time goes: one full batch through the loaded
+        # model, on the device alone and through the numpy call
+        full = rows(capacity)
         ts = [torch.from_numpy(a).cuda() for a in full]
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: block(*ts), iters=5, warmup=1)
@@ -569,16 +778,18 @@ def phase_serve(card):
         for _ in range(5):
             rt._slot.model(*full)
         call_ms = (time.perf_counter() - t0) / 5 * 1e3
-        log(f"[serve] 128x{T} batch: forward {fwd_ms:.2f} ms on the device "
-            f"({layers} x flash_short_fwd), {plain_fwd_ms:.2f} ms with "
-            f"plain attention; numpy-in/numpy-out model call {call_ms:.2f} "
-            f"ms ({card})")
-        log_forward_profile(block, ts)
+        what = f"{capacity}x{seqlen}"
+        log(f"{tag} {what} batch: forward {fwd_ms:.2f} ms on the device "
+            f"({layers} x {kernel}), {plain_fwd_ms:.2f} ms with einsum "
+            f"attention; numpy-in/numpy-out model call {call_ms:.2f} ms "
+            f"({card})")
+        log_forward_profile(block, ts, what)
     finally:
         if rt is not None:
             rt.close()
         shutil.rmtree(art, ignore_errors=True)
-    return main_launches
+        torch.cuda.empty_cache()
+    return path_counts
 
 
 def main():
@@ -594,15 +805,36 @@ def main():
     phase_build()
     rec = phase_kernels()
     train_rec = phase_train_kernels()
-    launches = phase_serve(card)
-    train_launches = phase_train(card)
-    source = {"route": "cuda",
-              "source": "incubator_mxnet_torch/csrc/flash_short_fwd.cu",
-              "replaces": "incubator_mxnet_tpu/ops/flash_attention.py:290"}
-    kernels = [{"name": "flash_short_fwd", **source, "launches": launches,
-                **rec},
-               {"name": "flash_short_fwd_train", **source,
-                "launches": train_launches, **train_rec}]
+    stream_recs = phase_stream_kernels()
+    # each path runs with the counts set to 0 just before it and is read
+    # just after it
+    serve = phase_serve(card, T, BH_BATCH, REQUEST_ROWS, N_SEQUENTIAL,
+                        "flash_short_fwd", "[serve]")
+    serve_long = phase_serve(card, LONG_T, LONG_CAPACITY, LONG_REQUEST_ROWS,
+                             2, "flash_fwd", "[serve-long]")
+    train = phase_train(card, TRAIN_BATCH, T, 10, 2,
+                        ("flash_short_fwd_train",), "[train]")
+    train_long = phase_train(card, LONG_TRAIN_BATCH, LONG_T, 5, 1,
+                             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             "[train-long]")
+    fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
+    csrc = "incubator_mxnet_torch/csrc"
+    short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
+             "replaces": f"{fa_py}:290"}
+    kernels = [{"name": "flash_short_fwd", **short,
+                "launches": serve["flash_short_fwd"], **rec},
+               {"name": "flash_short_fwd_train", **short,
+                "launches": train["flash_short_fwd_train"], **train_rec}]
+    for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
+                            ("flash_bwd_dq", "flash_bwd.cu", 140),
+                            ("flash_bwd_dkv", "flash_bwd.cu", 176)):
+        launches = serve_long[name] + train_long[name]
+        log(f"[done] {name}: {serve_long[name]} launches serving at T="
+            f"{LONG_T}, {train_long[name]} training at T={LONG_T}")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"{csrc}/{src}",
+                        "replaces": f"{fa_py}:{line}", "launches": launches,
+                        **stream_recs[name]})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,8 @@ Each source `csrc/<name>.cu` exposes a plain C entry point.  It is
 compiled at first use with `nvcc` for Hopper (`sm_90a`) into
 `build/kernels/` at the repository root, a directory git ignores, and
 loaded with ctypes.  The library's file name carries a hash of its
-source, so an edited kernel is rebuilt and a stale one is never loaded.
+source and of the shared headers `csrc/*.cuh`, so an edited kernel is
+rebuilt and a stale one is never loaded.
 Nothing is built when a module is imported: a CPU-only machine without
 `nvcc` imports every module and never calls this.
 """
@@ -24,7 +25,7 @@ __all__ = ["SOURCES", "library", "build_all"]
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("flash_short_fwd",)
+SOURCES = ("flash_short_fwd", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,9 +43,12 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name):

@@ -2,18 +2,19 @@
 `incubator_mxnet_tpu/ops/attention.py`: `multi_head_attention` and
 `gelu_fused`).
 
-`multi_head_attention` routes to the short CUDA kernels behind the same
-gate as the JAX dispatcher, with "the query is a CUDA tensor" in place
-of "the platform is a TPU": self-attention with Tq == Tk <= 512,
-T % 128 == 0, d <= 256, no additive mask, no attention dropout in train
-mode, and the same `MXNET_FLASH_ATTENTION*` switches.  Inside
-`autograd.record()` the kernel route is the training form with its
-backward (`FlashShort`).  Everything else takes the einsum path, which
-applies attention dropout to the probabilities in train mode.  Long
-sequences (T >= MXNET_FLASH_ATTENTION_MIN_LEN), which the JAX package
-sends to its streaming kernel, take the einsum path too until that
-kernel is ported; ring attention and the BTHD route are not ported
-(ROADMAP.md).
+`multi_head_attention` routes to the CUDA kernels behind the same gate
+as the JAX dispatcher, with "the query is a CUDA tensor" in place of
+"the platform is a TPU" (`attention_route`): no additive mask, no
+attention dropout in train mode, Tq and Tk multiples of 128, d <= 256,
+and either max(Tq, Tk) >= MXNET_FLASH_ATTENTION_MIN_LEN (1024; the
+streaming FlashAttention-2 kernels) or self-attention with T <= 512
+(the short kernel, unless MXNET_FLASH_ATTENTION_SHORT=0), with
+MXNET_FLASH_ATTENTION=0 turning the route off.  Inside
+`autograd.record()` the kernel route carries its backward (`FlashShort`
+or `Flash`).  Everything else, lengths between 512 and the crossover
+included, takes the einsum path, which applies attention dropout to the
+probabilities in train mode.  Ring attention and the BTHD route are not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,6 +25,20 @@ from .registry import register
 from .. import autograd
 from ..base import get_env
 from ..random import generator
+
+
+def attention_route(is_cuda, Tq, Tk, d, has_mask, train_dropout):
+    """"flash" (the kernels of `flash_attention`) or "einsum": the JAX
+    dispatcher's gate, with `is_cuda` for "the platform is a TPU"."""
+    min_len = int(get_env("MXNET_FLASH_ATTENTION_MIN_LEN", "1024"))
+    short_ok = (get_env("MXNET_FLASH_ATTENTION_SHORT", "1") != "0"
+                and Tq == Tk and Tq <= 512)
+    if (get_env("MXNET_FLASH_ATTENTION", "1") != "0"
+            and not has_mask and not train_dropout and is_cuda
+            and (max(Tq, Tk) >= min_len or short_ok)
+            and Tq % 128 == 0 and Tk % 128 == 0 and d <= 256):
+        return "flash"
+    return "einsum"
 
 
 @register("multi_head_attention")
@@ -40,12 +55,8 @@ def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
     s = scale if scale is not None else 1.0 / (d ** 0.5)
 
     train_dropout = dropout > 0.0 and autograd.is_training()
-    short_ok = (get_env("MXNET_FLASH_ATTENTION_SHORT", "1") != "0"
-                and Tq == Tk and Tq <= 512)
-    if (get_env("MXNET_FLASH_ATTENTION", "1") != "0"
-            and mask is None and not train_dropout and query.is_cuda
-            and short_ok
-            and Tq % 128 == 0 and d <= 256):
+    if attention_route(query.is_cuda, Tq, Tk, d, mask is not None,
+                       train_dropout) == "flash":
         from .flash_attention import flash_attention
         out = flash_attention(split(query, Tq), split(key, Tk),
                               split(value, Tk), causal=causal, scale=s,

@@ -1,31 +1,48 @@
-"""Short-sequence self-attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Attention kernels: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
-Counterpart of the packed short kernel of
-`incubator_mxnet_tpu/ops/flash_attention.py` (`_fwd_short_kernel`,
-reached through `_flash_short` and `flash_attention`).  For
-Tq == Tk <= 512 it computes, per batch-head,
+Counterpart of `incubator_mxnet_tpu/ops/flash_attention.py`.  Two
+families, chosen by `flash_attention` as the JAX function chooses them:
 
-    s = q·kᵀ·scale (f32), keys >= kv_length and (causal) above the
-    diagonal masked to -1e30, p = softmax(s) rounded to the input dtype,
-    o = p·v with f32 accumulation, cast to the input dtype.
+* The packed short kernel (`_fwd_short_kernel`, reached through
+  `_flash_short`) for self-attention with Tq == Tk <= 512.  Per
+  batch-head,
 
-A row whose kv_length is 0 has every score at -1e30, so its softmax is
-uniform and the row is the mean of v, as in the JAX kernel and its XLA
-path alike.
+      s = q·kᵀ·scale (f32), keys >= kv_length and (causal) above the
+      diagonal masked to -1e30, p = softmax(s) rounded to the input dtype,
+      o = p·v with f32 accumulation, cast to the input dtype.
 
-The kernel is `csrc/flash_short_fwd.cu`, in two forms: `flash_short_fwd`
-(`save_p=False`, inference) returns o; `flash_short_fwd_train`
-(`save_p=True`) also returns p (BH, T, T) in the input dtype, which the
-backward reads.  `FlashShort` is the `torch.autograd.Function` of
-`_flash_short`'s custom VJP: its forward is the training form, its
-backward `_bwd_short` in torch matmuls (the JAX package computes it as
-plain XLA einsums, outside any Pallas kernel).  `flash_attention` takes
-`FlashShort` when autograd records and an input requires grad, the
-inference form otherwise.  Each wrapper launches its kernel for a CUDA
-tensor and takes the plain version only for a CPU tensor.  The streaming
-FlashAttention-2 kernels for longer or cross attention and the
-BTHD-layout kernels are not ported yet (ROADMAP.md).
+  A row whose kv_length is 0 has every score at -1e30, so its softmax is
+  uniform and the row is the mean of v.  The kernel is
+  `csrc/flash_short_fwd.cu`, in two forms: `flash_short_fwd`
+  (`save_p=False`, inference) returns o; `flash_short_fwd_train`
+  (`save_p=True`) also returns p (BH, T, T) in the input dtype, which the
+  backward reads.  `FlashShort` is the `torch.autograd.Function` of
+  `_flash_short`'s custom VJP: its backward is `_bwd_short` in torch
+  matmuls (the JAX package computes it as plain XLA einsums too).
+
+* The streaming FlashAttention-2 kernels (`_fwd_kernel`,
+  `_bwd_dq_kernel`, `_bwd_dkv_kernel`, reached through `_flash`) for
+  everything else: longer or cross attention, or
+  `MXNET_FLASH_ATTENTION_SHORT=0`.  The forward walks the key tiles with
+  an online softmax and returns o and the row log-sum-exp lse (f32); the
+  backward recomputes p = exp(s − lse) tile by tile.  The kernels are
+  `csrc/flash_fwd.cu` (`flash_fwd`) and `csrc/flash_bwd.cu`
+  (`flash_bwd_dq`, `flash_bwd_dkv`); `Flash` is `_flash`'s custom VJP.
+
+  The JAX block sizes (after `_fit_block`) are part of the function:
+  the TPU kernels skip causal key tiles wholly above the diagonal before
+  any mask applies, so a row whose kv_length is 0 (every score -1e30)
+  attends, with p = 1, to exactly the keys of the tiles it visits —
+  the mean of v over those keys in the forward, and p = 1 (lse rounds
+  to -1e30) on each of them in the backward.  The plain versions walk
+  the same tiles; the CUDA kernels tile on their own and take bq, bk
+  only to reproduce that rule.
+
+Each wrapper launches its kernel for a CUDA tensor, takes the plain
+version only for a CPU tensor, raises on any other device, and counts
+its launches in `launch_counts`.  The BTHD-layout kernels are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,19 +52,22 @@ import threading
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, get_env
 
 __all__ = ["flash_attention", "flash_short_fwd", "flash_short_fwd_train",
            "flash_short_reference", "flash_short_bwd", "FlashShort",
-           "launch_counts", "reset_launch_counts", "MAX_SHORT_LEN",
-           "MAX_HEAD_DIM"]
+           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_fwd_reference", "flash_bwd_dq_reference",
+           "flash_bwd_dkv_reference", "Flash", "launch_counts",
+           "reset_launch_counts", "MAX_SHORT_LEN", "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 MAX_SHORT_LEN = 512
 MAX_HEAD_DIM = 256
 
 _count_lock = threading.Lock()
-launch_counts = {"flash_short_fwd": 0, "flash_short_fwd_train": 0}
+launch_counts = {"flash_short_fwd": 0, "flash_short_fwd_train": 0,
+                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts():
@@ -55,6 +75,71 @@ def reset_launch_counts():
         for k in launch_counts:
             launch_counts[k] = 0
 
+
+def _count(name):
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+@contextlib.contextmanager
+def _exact_matmuls():
+    """float32 matmuls in full float32 (the JAX kernels ask for
+    `Precision.HIGHEST`) and bfloat16 matmuls reduced in float32 only:
+    TF32 and reduced-precision split-K reductions off for the duration."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
+
+
+_entries = {}
+
+
+def _entry(lib, name, n_ptrs, n_ints, tail):
+    """The C entry point `name` of kernel library `lib`, built and loaded
+    at first use: `n_ptrs` pointers, `n_ints` ints, then `tail` (ctypes
+    types) and the stream."""
+    fn = _entries.get(name)
+    if fn is None:
+        from .._kernels import library
+        fn = getattr(library(lib), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + list(tail) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _aligned(*ts):
+    """The kernels move rows 16 bytes at a time: a view that starts
+    mid-allocation gets an aligned copy."""
+    for t in ts:
+        if not t.is_contiguous():
+            raise MXNetError("attention kernels: inputs must be contiguous")
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
+def _launched(name, err):
+    if err != 0:
+        raise MXNetError(f"{name}: kernel launch failed with cudaError {err}")
+    _count(name)
+
+
+def _route(name, q, launch, plain):
+    if q.device.type == "cuda":
+        return launch()
+    if q.device.type == "cpu":
+        return plain()
+    raise MXNetError(f"{name}: no kernel for device {q.device}")
+
+
+# ---------------------------------------------------------------------
+# the short kernel (T <= 512)
+# ---------------------------------------------------------------------
 
 def flash_short_reference(q, k, v, lengths, scale, causal, save_p=False):
     """The plain version: q, k, v (BH, T, d); lengths (BH,) int.  Returns
@@ -75,56 +160,46 @@ def flash_short_reference(q, k, v, lengths, scale, causal, save_p=False):
     return (o, pn) if save_p else o
 
 
-def _check(q, k, v, lengths):
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+def _check_inputs(name, q, k, v, lengths, tensors=()):
+    """q (BH, Tq, d), k and v (BH, Tk, d), one dtype (bf16 or f32), d <=
+    MAX_HEAD_DIM, lengths (BH,) int32, everything on one device."""
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise MXNetError(
-            f"flash_short_fwd: q, k, v must share one (BH, T, d) shape, "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    BH, T, d = q.shape
-    if not 1 <= T <= MAX_SHORT_LEN or not 1 <= d <= MAX_HEAD_DIM:
-        raise MXNetError(
-            f"flash_short_fwd: needs 1 <= T <= {MAX_SHORT_LEN} and "
-            f"1 <= d <= {MAX_HEAD_DIM}, got T={T}, d={d}")
+            f"{name}: q must be (BH, Tq, d) and k, v (BH, Tk, d), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    BH, Tq, d = q.shape
+    if Tq < 1 or k.shape[1] < 1 or not 1 <= d <= MAX_HEAD_DIM:
+        raise MXNetError(f"{name}: needs T >= 1 and 1 <= d <= "
+                         f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise MXNetError(
-            f"flash_short_fwd: q, k, v must all be bfloat16 or float32, "
+            f"{name}: q, k, v must all be bfloat16 or float32, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    devs = {t.device for t in (q, k, v, lengths)}
+    devs = {t.device for t in (q, k, v, lengths, *tensors)}
     if len(devs) != 1:
-        raise MXNetError(f"flash_short_fwd: tensors on several devices "
+        raise MXNetError(f"{name}: tensors on several devices "
                          f"{sorted(map(str, devs))}")
     if lengths.shape != (BH,) or lengths.dtype != torch.int32:
         raise MXNetError(
-            f"flash_short_fwd: lengths must be int32 of shape ({BH},), "
+            f"{name}: lengths must be int32 of shape ({BH},), "
             f"got {lengths.dtype} {tuple(lengths.shape)}")
 
 
-_kernel = None
+def _check(q, k, v, lengths):
+    _check_inputs("flash_short_fwd", q, k, v, lengths)
+    if k.shape != q.shape or q.shape[1] > MAX_SHORT_LEN:
+        raise MXNetError(
+            f"flash_short_fwd: needs Tq == Tk <= {MAX_SHORT_LEN}, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}")
 
 
-def _kernel_fn():
-    """The C entry point `flash_short_fwd`, built and loaded at first use."""
-    global _kernel
-    if _kernel is None:
-        from .._kernels import library
-        fn = library("flash_short_fwd").flash_short_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _kernel = fn
-    return _kernel
-
-
-def _launch(q, k, v, lengths, scale, causal, save_p):
-    """Launch the kernel; returns o, or (o, p) with `save_p`."""
-    fn = _kernel_fn()
-    for t in (q, k, v, lengths):
-        if not t.is_contiguous():
-            raise MXNetError("flash_short_fwd: inputs must be contiguous")
-    # the kernel moves rows 16 bytes at a time: a view that starts
-    # mid-allocation gets an aligned copy
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+def _launch_short(q, k, v, lengths, scale, causal, save_p):
+    """Launch the short kernel; returns o, or (o, p) with `save_p`."""
+    fn = _entry("flash_short_fwd", "flash_short_fwd", 6, 3,
+                (ctypes.c_float, ctypes.c_int, ctypes.c_int))
+    q, k, v, lengths = _aligned(q, k, v, lengths)
     BH, T, d = q.shape
     o = torch.empty_like(q)
     p = torch.empty((BH, T, T), dtype=q.dtype, device=q.device) \
@@ -136,23 +211,17 @@ def _launch(q, k, v, lengths, scale, causal, save_p):
              o.data_ptr(), p.data_ptr() if save_p else None, BH, T, d,
              float(scale), int(bool(causal)),
              int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise MXNetError(f"flash_short_fwd: kernel launch failed with "
-                         f"cudaError {err}")
-    name = "flash_short_fwd_train" if save_p else "flash_short_fwd"
-    with _count_lock:
-        launch_counts[name] += 1
+    _launched("flash_short_fwd_train" if save_p else "flash_short_fwd", err)
     return (o, p) if save_p else o
 
 
 def _dispatch(q, k, v, lengths, scale, causal, save_p):
     _check(q, k, v, lengths)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, lengths, scale, causal, save_p)
-    if q.device.type == "cpu":
-        return flash_short_reference(q, k, v, lengths, scale, causal,
-                                     save_p)
-    raise MXNetError(f"flash_short_fwd: no kernel for device {q.device}")
+    return _route(
+        "flash_short_fwd", q,
+        lambda: _launch_short(q, k, v, lengths, scale, causal, save_p),
+        lambda: flash_short_reference(q, k, v, lengths, scale, causal,
+                                      save_p))
 
 
 def flash_short_fwd(q, k, v, lengths, scale, causal=False):
@@ -167,21 +236,6 @@ def flash_short_fwd_train(q, k, v, lengths, scale, causal=False):
     form): the CUDA kernel for a CUDA tensor, the plain version for a CPU
     tensor."""
     return _dispatch(q, k, v, lengths, scale, causal, True)
-
-
-@contextlib.contextmanager
-def _exact_matmuls():
-    """float32 matmuls in full float32 (the JAX backward asks for
-    `Precision.HIGHEST`) and bfloat16 matmuls reduced in float32 only:
-    TF32 and reduced-precision split-K reductions off for the duration."""
-    mm = torch.backends.cuda.matmul
-    prev = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
-    mm.allow_tf32 = False
-    mm.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
 
 
 def flash_short_bwd(q, k, v, o, p, do, scale):
@@ -224,25 +278,289 @@ class FlashShort(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal=False, scale=None, kv_length=None):
-    """softmax(q·kᵀ·scale)·v for self-attention of length <= 512.
+# ---------------------------------------------------------------------
+# the streaming FlashAttention-2 kernels
+# ---------------------------------------------------------------------
 
-    q, k, v: (B, T, d) or (B, H, T, d).  `kv_length` ((B,) int) masks key
-    positions >= length.  Longer or cross attention (the JAX package's
-    streaming kernel) is not ported yet and raises."""
+def _fit_block(block, T):
+    """Largest 128-multiple <= block that divides T (T=1152 → 384 for
+    a 512 request).  T <= 128 runs as one block; larger T must be
+    128-divisible — otherwise 128 is returned so the caller's explicit
+    multiples-of-block error fires."""
+    if T <= 128:
+        return min(block, T)
+    cand = min((block // 128) * 128, (T // 128) * 128)
+    while cand >= 128:
+        if T % cand == 0:
+            return cand
+        cand -= 128
+    return 128
+
+
+def _key_tiles(q, k, lengths, scale, causal, block_q, block_k):
+    """For each key tile [c0, c0 + block_k) of the TPU kernels' grid:
+    (c0, c1, s2, visited).  s2 (BH, Tq, c1 - c0) f32 is the tile's
+    scaled scores with keys >= kv_length and (causal) rows < cols set to
+    -1e30, in the kernels' order; visited (1, Tq, 1) bool, or None
+    without causal, says which query rows' tiles run this key tile (the
+    causal skip `j*bk <= i*bq + bq - 1`)."""
+    f32 = torch.float32
+    Tq, Tk = q.shape[1], k.shape[1]
+    rows = torch.arange(Tq, device=q.device)
+    lens = lengths.reshape(-1, 1, 1).to(q.device)
+    qf = q.to(f32)
+    for c0 in range(0, Tk, block_k):
+        c1 = min(c0 + block_k, Tk)
+        s = torch.einsum("bqd,bkd->bqk", qf, k[:, c0:c1].to(f32)) * scale
+        cols = torch.arange(c0, c1, device=q.device)
+        s2 = torch.where(cols[None, None, :] < lens, s, _NEG_INF)
+        visited = None
+        if causal:
+            s2 = torch.where((rows[:, None] >= cols[None, :])[None], s2,
+                             _NEG_INF)
+            visited = (c0 <= (rows // block_q) * block_q + block_q - 1)
+            visited = visited.reshape(1, Tq, 1)
+        yield c0, c1, s2, visited
+
+
+def flash_fwd_reference(q, k, v, lengths, scale, causal, block_q, block_k):
+    """The plain version of `_fwd`: q (BH, Tq, d), k, v (BH, Tk, d),
+    lengths (BH,) int.  Returns o (BH, Tq, d) in the input dtype and lse
+    (BH, Tq, 1) float32.  Walks the key tiles as `_fwd_kernel` does:
+    running max m (from -1e30), sum l and f32 accumulator; each tile's
+    unnormalised p is rounded to v's dtype before p·v; o = acc / l at the
+    end (l == 0 guarded), lse = m + log(l)."""
+    f32 = torch.float32
+    BH, Tq, d = q.shape
+    m = torch.full((BH, Tq, 1), _NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((BH, Tq, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((BH, Tq, d), dtype=f32, device=q.device)
+    with _exact_matmuls():
+        for c0, c1, s2, visited in _key_tiles(q, k, lengths, scale, causal,
+                                              block_q, block_k):
+            m_new = torch.maximum(m, s2.amax(dim=-1, keepdim=True))
+            p = torch.exp(s2 - m_new)
+            corr = torch.exp(m - m_new)
+            l_new = l * corr + p.sum(dim=-1, keepdim=True)
+            acc_new = acc * corr + torch.einsum(
+                "bqk,bkd->bqd", p.to(v.dtype).to(f32), v[:, c0:c1].to(f32))
+            if visited is None:
+                m, l, acc = m_new, l_new, acc_new
+            else:
+                m = torch.where(visited, m_new, m)
+                l = torch.where(visited, l_new, l)
+                acc = torch.where(visited, acc_new, acc)
+    safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / safe_l).to(q.dtype), m + torch.log(safe_l)
+
+
+def _bwd_tiles(q, k, v, do, lse, delta, lengths, scale, causal, block_q,
+               block_k):
+    """For each key tile: (c0, c1, p, ds) as `_bwd_dq_kernel` and
+    `_bwd_dkv_kernel` compute them: p = exp(s2 − lse) (0 on the tiles a
+    row's tile skips), ds = p·(dp − delta)·scale, both f32."""
+    f32 = torch.float32
+    dof = do.to(f32)
+    for c0, c1, s2, visited in _key_tiles(q, k, lengths, scale, causal,
+                                          block_q, block_k):
+        p = torch.exp(s2 - lse)
+        if visited is not None:
+            p = torch.where(visited, p, torch.zeros_like(p))
+        dp = torch.einsum("bqd,bkd->bqk", dof, v[:, c0:c1].to(f32))
+        yield c0, c1, p, p * (dp - delta) * scale
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, lengths, scale, causal,
+                           block_q, block_k):
+    """The plain version of `_bwd_dq_kernel`: dq (BH, Tq, d) in q's dtype
+    from lse and delta (BH, Tq, 1) f32.  ds is rounded to k's dtype before
+    ds·k, accumulated in f32."""
+    f32 = torch.float32
+    acc = torch.zeros(q.shape, dtype=f32, device=q.device)
+    with _exact_matmuls():
+        for c0, c1, _p, ds in _bwd_tiles(q, k, v, do, lse, delta, lengths,
+                                         scale, causal, block_q, block_k):
+            acc = acc + torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).to(f32),
+                                     k[:, c0:c1].to(f32))
+    return acc.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, lengths, scale, causal,
+                            block_q, block_k):
+    """The plain version of `_bwd_dkv_kernel`: (dk, dv), each (BH, Tk, d)
+    in the input dtype.  dv = pᵀ·do with p rounded to do's dtype, dk =
+    dsᵀ·q with ds rounded to q's dtype, both accumulated in f32."""
+    f32 = torch.float32
+    dk, dv = [], []
+    with _exact_matmuls():
+        qf, dof = q.to(f32), do.to(f32)
+        for _c0, _c1, p, ds in _bwd_tiles(q, k, v, do, lse, delta, lengths,
+                                          scale, causal, block_q, block_k):
+            dv.append(torch.einsum("bqk,bqd->bkd",
+                                   p.to(do.dtype).to(f32), dof))
+            dk.append(torch.einsum("bqk,bqd->bkd",
+                                   ds.to(q.dtype).to(f32), qf))
+    return torch.cat(dk, 1).to(k.dtype), torch.cat(dv, 1).to(v.dtype)
+
+
+def _check_blocks(name, block_q, block_k):
+    if block_q < 1 or block_k < 1:
+        raise MXNetError(f"{name}: block sizes must be >= 1, got "
+                         f"({block_q}, {block_k})")
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _geometry(q, k, scale, causal, block_q, block_k):
+    """The ints and floats every streaming entry point takes after its
+    pointers: bh, tq, tk, d, causal, block_q, block_k, is_bf16, then
+    scale."""
+    BH, Tq, d = q.shape
+    return (BH, Tq, k.shape[1], d, int(bool(causal)), int(block_q),
+            int(block_k), int(q.dtype == torch.bfloat16), float(scale))
+
+
+def _launch_fwd(q, k, v, lengths, scale, causal, block_q, block_k):
+    fn = _entry("flash_fwd", "flash_fwd", 6, 8, (ctypes.c_float,))
+    q, k, v, lengths = _aligned(q, k, v, lengths)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2] + (1,), dtype=torch.float32,
+                      device=q.device)
+    if q.shape[0] == 0:
+        return o, lse
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+             o.data_ptr(), lse.data_ptr(),
+             *_geometry(q, k, scale, causal, block_q, block_k), _stream(q))
+    _launched("flash_fwd", err)
+    return o, lse
+
+
+def flash_fwd(q, k, v, lengths, scale, causal, block_q, block_k):
+    """(o, lse) of `_fwd` for q (BH, Tq, d), k, v (BH, Tk, d) and lengths
+    (BH,) int32, with the JAX block sizes: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    _check_inputs("flash_fwd", q, k, v, lengths)
+    _check_blocks("flash_fwd", block_q, block_k)
+    return _route(
+        "flash_fwd", q,
+        lambda: _launch_fwd(q, k, v, lengths, scale, causal, block_q,
+                            block_k),
+        lambda: flash_fwd_reference(q, k, v, lengths, scale, causal,
+                                    block_q, block_k))
+
+
+def _check_bwd(name, q, k, v, do, lse, delta, lengths, block_q, block_k):
+    _check_inputs(name, q, k, v, lengths, (do, lse, delta))
+    _check_blocks(name, block_q, block_k)
+    rows = q.shape[:2] + (1,)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise MXNetError(f"{name}: do must match q, got {do.dtype} "
+                         f"{tuple(do.shape)}")
+    for what, t in (("lse", lse), ("delta", delta)):
+        if t.shape != rows or t.dtype != torch.float32:
+            raise MXNetError(f"{name}: {what} must be float32 of shape "
+                             f"{rows}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _launch_bwd(name, n_out, q, k, v, do, lse, delta, lengths, scale,
+                causal, block_q, block_k):
+    fn = _entry("flash_bwd", name, 7 + n_out, 8, (ctypes.c_float,))
+    q, k, v, do, lse, delta, lengths = _aligned(q, k, v, do, lse, delta,
+                                                lengths)
+    outs = [torch.empty_like(t) for t in ((q,) if n_out == 1 else (k, v))]
+    if q.shape[0] == 0:
+        return outs
+    err = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta, lengths)),
+             *(t.data_ptr() for t in outs),
+             *_geometry(q, k, scale, causal, block_q, block_k), _stream(q))
+    _launched(name, err)
+    return outs
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, lengths, scale, causal, block_q,
+                 block_k):
+    """dq of `_bwd_dq_kernel`: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  lse and delta are (BH, Tq, 1)
+    float32."""
+    args = (q, k, v, do, lse, delta, lengths)
+    _check_bwd("flash_bwd_dq", *args, block_q, block_k)
+    return _route(
+        "flash_bwd_dq", q,
+        lambda: _launch_bwd("flash_bwd_dq", 1, *args, scale, causal,
+                            block_q, block_k)[0],
+        lambda: flash_bwd_dq_reference(*args, scale, causal, block_q,
+                                       block_k))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, lengths, scale, causal, block_q,
+                  block_k):
+    """(dk, dv) of `_bwd_dkv_kernel`: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    args = (q, k, v, do, lse, delta, lengths)
+    _check_bwd("flash_bwd_dkv", *args, block_q, block_k)
+    return _route(
+        "flash_bwd_dkv", q,
+        lambda: tuple(_launch_bwd("flash_bwd_dkv", 2, *args, scale, causal,
+                                  block_q, block_k)),
+        lambda: flash_bwd_dkv_reference(*args, scale, causal, block_q,
+                                        block_k))
+
+
+class Flash(torch.autograd.Function):
+    """`_flash` with its custom VJP: the forward is `flash_fwd` and saves
+    q, k, v, lengths, o and lse; the backward takes delta = rowsum(do·o)
+    in float32 (plain torch, as `_bwd` computes it outside its kernels),
+    then `flash_bwd_dq` and `flash_bwd_dkv`.  `lengths` gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, scale, causal, block_q, block_k):
+        o, lse = flash_fwd(q, k, v, lengths, scale, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, lengths, o, lse)
+        ctx.args = (scale, causal, block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = (do.to(torch.float32) * o.to(torch.float32)).sum(
+            dim=-1, keepdim=True)
+        args = (q, k, v, do, lse, delta, lengths, *ctx.args)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=False, scale=None, block_q=512,
+                    block_k=1024, kv_length=None):
+    """softmax(q·kᵀ·scale)·v, the JAX package's `flash_attention`.
+
+    q: (B, Tq, d) or (B, H, Tq, d); k, v likewise with Tk.  Tq and Tk
+    must divide by the block sizes after `_fit_block` clamps them.
+    `kv_length` ((B,) int) masks key positions >= length.  Self-attention
+    with Tq == Tk <= 512 takes the short kernel unless
+    `MXNET_FLASH_ATTENTION_SHORT=0`; everything else the streaming
+    kernels.  Under autograd (an input requiring grad) the route is the
+    custom-VJP function (`FlashShort` or `Flash`), otherwise the forward
+    kernel alone."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     H = 1
     out_shape = q.shape
     if q.ndim == 4:
         B, H, Tq, d = q.shape
-        q, k, v = (t.reshape(B * H, t.shape[2], d) for t in (q, k, v))
+        q, k, v = (t.reshape(B * H, t.shape[2], t.shape[3])
+                   for t in (q, k, v))
     Tq, Tk = q.shape[1], k.shape[1]
-    if Tq != Tk or Tq > MAX_SHORT_LEN:
+    block_q = _fit_block(block_q, Tq)
+    block_k = _fit_block(block_k, Tk)
+    if Tq % block_q or Tk % block_k:
         raise MXNetError(
-            f"flash_attention: only self-attention with T <= "
-            f"{MAX_SHORT_LEN} is ported (the short kernel); got "
-            f"Tq={Tq}, Tk={Tk}")
+            f"flash_attention: seq lens ({Tq}, {Tk}) must be multiples "
+            f"of the block sizes ({block_q}, {block_k})")
     BH = q.shape[0]
     if kv_length is None:
         lengths = torch.full((BH,), Tk, dtype=torch.int32, device=q.device)
@@ -255,9 +573,13 @@ def flash_attention(q, k, v, *, causal=False, scale=None, kv_length=None):
         lengths = kv_length.to(torch.int32).repeat_interleave(H)
     args = (q.contiguous(), k.contiguous(), v.contiguous(),
             lengths.contiguous(), float(scale), bool(causal))
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        out = FlashShort.apply(*args)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if Tq == Tk and Tq <= MAX_SHORT_LEN and \
+            get_env("MXNET_FLASH_ATTENTION_SHORT", "1") != "0":
+        out = FlashShort.apply(*args) if grad else flash_short_fwd(*args)
+    elif grad:
+        out = Flash.apply(*args, block_q, block_k)
     else:
-        out = flash_short_fwd(*args)
-    return out.reshape(out_shape)
+        out = flash_fwd(*args, block_q, block_k)[0]
+    return out.reshape(out_shape[:-2] + (Tq, v.shape[-1]))

@@ -12,8 +12,9 @@
 * **Micro-batching** — queued requests coalesce into one forward up to the
   artifact's batch capacity, never by waiting past the point where a
   member's deadline could be missed.  The batch is padded with zero rows
-  to the capacity (their valid_length is 0: the attention kernel gives
-  them the mean of v, never NaN) and each request gets its own rows back.
+  to the capacity (their valid_length is 0: the attention kernels give
+  them the mean of v over the keys they visit, never NaN) and each
+  request gets its own rows back.
 * **Graceful drain** — `drain()` flips ``/-/readyz`` to 503, sheds the
   queue with ``503`` and lets in-flight requests finish.
 

@@ -126,8 +126,7 @@ def test_route_follows_grad_mode():
     o = flash_attention(q, k, v)
     fn = o.grad_fn                              # the reshape back to 4-d
     assert type(fn.next_functions[0][0]).__name__ == "FlashShortBackward"
-    assert launch_counts == {"flash_short_fwd": 0,
-                             "flash_short_fwd_train": 0}
+    assert not any(launch_counts.values())
 
 
 def test_flash_short_bwd_bfloat16_rounds_like_jax():

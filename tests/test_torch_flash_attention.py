@@ -94,10 +94,15 @@ def test_wrapper_rejects_long_or_wide(shape):
 
 
 def test_wrapper_rejects_cross_attention_and_bad_dtypes():
-    q = torch.zeros(1, 128, 16)
-    k = torch.zeros(1, 256, 16)
-    with pytest.raises(mx.MXNetError, match="Tq=128, Tk=256"):
-        flash_attention(q, k, k)
+    """Cross attention is no longer rejected: it takes the streaming
+    kernels' plain version and matches the JAX kernel.  Other dtypes and
+    int64 lengths are still rejected."""
+    arrs = [np.random.RandomState(4).randn(1, t, 16).astype(np.float32)
+            for t in (128, 256, 256)]
+    ref = _jax(arrs, "float32")
+    q, k, v = _torch(arrs, "float32")
+    np.testing.assert_allclose(flash_attention(q, k, v).numpy(), ref,
+                               rtol=0, atol=1e-5)
     h = q.to(torch.float16)
     with pytest.raises(mx.MXNetError, match="bfloat16 or float32"):
         flash_attention(h, h, h)

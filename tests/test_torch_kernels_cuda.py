@@ -14,7 +14,11 @@ in float32, one bfloat16 step below 1, 2^-8, in bfloat16.  Gradients of
 `FlashShort` against torch autograd through the plain version, relative
 to the largest reference gradient: float32 1e-4; bfloat16 2e-2 (the
 backward reads the bfloat16 p and rounds ds to bfloat16, autograd
-through the plain version keeps both in float32).
+through the plain version keeps both in float32).  The streaming
+kernels (`flash_fwd`, `flash_bwd_dq`, `flash_bwd_dkv`) take the same
+tolerances for o and for dq, dk, dv against their plain versions; lse
+1e-4 absolute on rows with kv_length > 0 and exactly -1e30 on rows with
+kv_length 0.
 """
 import numpy as np
 import pytest
@@ -24,10 +28,13 @@ import incubator_mxnet_torch as mx
 from incubator_mxnet_torch.models import get_model
 from incubator_mxnet_torch.ops.attention import multi_head_attention
 from incubator_mxnet_torch.ops.flash_attention import (
-    FlashShort, flash_attention, flash_short_fwd, flash_short_fwd_train,
+    Flash, FlashShort, _fit_block, flash_attention, flash_bwd_dkv,
+    flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
+    flash_fwd, flash_fwd_reference, flash_short_fwd, flash_short_fwd_train,
     flash_short_reference, launch_counts, reset_launch_counts)
 
 pytestmark = pytest.mark.cuda
+NO_LAUNCH = {name: 0 for name in launch_counts}
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 P_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
 GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -145,8 +152,7 @@ def test_training_form_matches_plain_version(card, dtype, causal, shape):
     reset_launch_counts()
     o, p = flash_short_fwd_train(q, k, v, lengths, scale, causal)
     torch.cuda.synchronize()
-    assert launch_counts == {"flash_short_fwd": 0,
-                             "flash_short_fwd_train": 1}
+    assert launch_counts == dict(NO_LAUNCH, flash_short_fwd_train=1)
     ro, rp = flash_short_reference(q, k, v, lengths, scale, causal,
                                    save_p=True)
     assert o.dtype == p.dtype == dtype and p.shape == (shape[0], shape[1],
@@ -190,11 +196,10 @@ def test_launch_counters_follow_grad_mode(card):
     reset_launch_counts()
     with torch.no_grad():
         flash_attention(q, k, v)
-    assert launch_counts == {"flash_short_fwd": 1,
-                             "flash_short_fwd_train": 0}
+    assert launch_counts == dict(NO_LAUNCH, flash_short_fwd=1)
     flash_attention(q, k, v).float().sum().backward()
-    assert launch_counts == {"flash_short_fwd": 1,
-                             "flash_short_fwd_train": 1}
+    assert launch_counts == dict(NO_LAUNCH, flash_short_fwd=1,
+                                 flash_short_fwd_train=1)
     assert q.grad is not None and q.grad.dtype == torch.bfloat16
 
 
@@ -220,11 +225,166 @@ def test_bert_train_step_runs_the_training_kernel(card):
              rng.randint(0, 2, 8).astype(np.float32))
     reset_launch_counts()
     first = tr.step(*batch).asscalar()
-    assert launch_counts == {"flash_short_fwd": 4,
-                             "flash_short_fwd_train": 4}
+    assert launch_counts == dict(NO_LAUNCH, flash_short_fwd=4,
+                                 flash_short_fwd_train=4)
     reset_launch_counts()
     out = tr.run_steps(2, *batch).asscalar()
     torch.cuda.synchronize()
-    assert launch_counts == {"flash_short_fwd": 0,
-                             "flash_short_fwd_train": 8}
+    assert launch_counts == dict(NO_LAUNCH, flash_short_fwd_train=8)
     assert np.isfinite(first) and np.isfinite(out)
+
+
+# (BH, Tq, Tk, d, block_q, block_k): the training shape, the TPU
+# kernels' small blocks, cross attention, a length only a smaller JAX
+# block divides, ragged tiles of the kernels' own, and widths off the
+# tensor-core path
+STREAM_SHAPES = [(48, 2048, 2048, 64, 512, 1024), (3, 256, 256, 64, 128, 128),
+                 (4, 1024, 2048, 64, 512, 1024),
+                 (2, 1152, 1152, 64, _fit_block(512, 1152),
+                  _fit_block(1024, 1152)),
+                 (3, 100, 100, 64, 100, 100), (3, 48, 80, 40, 48, 80),
+                 (2, 256, 384, 256, 128, 128)]
+STREAM_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in STREAM_SHAPES]
+
+
+def _stream_inputs(card, shape, dtype, seed, zero_len=True):
+    bh, tq, tk, d, _, _ = shape
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, do = (torch.randn(bh, tq, d, generator=gen, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    lo = 0 if zero_len else 1
+    lengths = torch.randint(lo, tk + 1, (bh,), generator=gen, device=card,
+                            dtype=torch.int32)
+    lengths[0] = lo
+    lengths[-1] = tk
+    return q, k, v, do, lengths
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=STREAM_IDS)
+def test_flash_fwd_matches_plain_version(card, dtype, causal, shape):
+    """Kernel row 2: o and lse; a row with kv_length 0 gets lse -1e30."""
+    q, k, v, _, lengths = _stream_inputs(card, shape, dtype, sum(shape))
+    scale = shape[3] ** -0.5
+    blocks = shape[4:]
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v, lengths, scale, causal, *blocks)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_fwd=1)
+    ro, rlse = flash_fwd_reference(q, k, v, lengths, scale, causal, *blocks)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:2] + (1,)
+    assert (o.float() - ro.float()).abs().max().item() <= ATOL[dtype]
+    live = lengths > 0
+    assert (lse[live] - rlse[live]).abs().max().item() <= 1e-4
+    assert torch.all(lse[~live] == -1e30)
+    assert torch.isfinite(o.float()).all()
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=STREAM_IDS)
+def test_flash_bwd_matches_plain_versions(card, dtype, causal, shape):
+    """Kernel rows 3 and 4 from the plain forward's o and lse, kv_length
+    0 included: dq, dk, dv within GRAD_RTOL of the largest reference."""
+    q, k, v, do, lengths = _stream_inputs(card, shape, dtype,
+                                          3 + sum(shape))
+    scale = shape[3] ** -0.5
+    blocks = shape[4:]
+    o, lse = flash_fwd_reference(q, k, v, lengths, scale, causal, *blocks)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta, lengths, scale, causal, *blocks)
+    reset_launch_counts()
+    got = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_bwd_dq=1, flash_bwd_dkv=1)
+    ref = (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        assert err <= GRAD_RTOL[dtype] * top, (name, err, top)
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_grads_match_autograd_through_plain(card, dtype, causal):
+    """`Flash` (kernel forward, delta, both backward kernels) against
+    torch autograd through `flash_fwd_reference`, every kv_length > 0."""
+    shape = (6, 512, 1024, 64, 256, 512)
+    q, k, v, do, lengths = _stream_inputs(card, shape, dtype, 5,
+                                          zero_len=False)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    Flash.apply(*a, lengths, 0.125, causal, 256, 512).backward(do)
+    flash_fwd_reference(*b, lengths, 0.125, causal, 256, 512)[0].backward(do)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_fwd=1, flash_bwd_dq=1,
+                                 flash_bwd_dkv=1)
+    for name, x, y in zip("qkv", a, b):
+        assert x.grad.dtype == dtype
+        err = (x.grad.float() - y.grad.float()).abs().max().item()
+        ref = y.grad.float().abs().max().item()
+        assert err <= GRAD_RTOL[dtype] * ref, (name, err, ref)
+
+
+def test_short_kill_switch_launches_the_streaming_kernel(card, monkeypatch):
+    """MXNET_FLASH_ATTENTION_SHORT=0 at T=128 takes the streaming kernel
+    (one 128-row block), as in the JAX package."""
+    q, k, v, _ = _qkv(card, (2, 3, 128, 64), torch.bfloat16, 13)
+    ref = flash_attention(q, k, v)
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION_SHORT", "0")
+    reset_launch_counts()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_fwd=1)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_multi_head_attention_long_takes_the_streaming_kernel(card, causal,
+                                                              monkeypatch):
+    gen = torch.Generator(device=card).manual_seed(2)
+    x = [torch.randn(2, 1024, 256, generator=gen, device=card)
+         .to(torch.bfloat16) for _ in range(3)]
+    valid = torch.tensor([1024, 0], device=card)
+    reset_launch_counts()
+    out = multi_head_attention(*x, None, valid, num_heads=4, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_fwd=1)
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION", "0")
+    ref = multi_head_attention(*x, None, valid, num_heads=4, causal=causal)
+    assert launch_counts == dict(NO_LAUNCH, flash_fwd=1)
+    # the padded row: Tk = 1024 is one JAX key tile, which every row
+    # visits, so the kernel averages every key as einsum attention does
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_bert_long_train_step_runs_the_streaming_kernels(card):
+    """ParallelTrainer steps of a 4-layer BERT in bf16 at T=1024: one
+    launch of each streaming kernel per layer and step, finite losses."""
+    mx.seed(0)
+    net = get_model("bert_classifier", model_name="bert_mini",
+                    num_classes=2, dropout=0.0, vocab_size=1000,
+                    max_length=1024)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = mx.parallel.ParallelTrainer(
+        net, lambda o, y: loss(o.astype("float32"), y), "adam",
+        {"learning_rate": 2e-5})
+    rng = np.random.RandomState(0)
+    batch = (rng.randint(0, 1000, (2, 1024)).astype(np.float32),
+             np.zeros((2, 1024), np.float32),
+             rng.randint(0, 2, 2).astype(np.float32))
+    tr.step(*batch)
+    reset_launch_counts()
+    out = tr.run_steps(2, *batch).asscalar()
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_fwd=8, flash_bwd_dq=8,
+                                 flash_bwd_dkv=8)
+    assert np.isfinite(out)

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
 import incubator_mxnet_tpu as mxj
 from incubator_mxnet_tpu import parallel as jpar
 from incubator_mxnet_tpu.models.bert import (
@@ -196,3 +198,92 @@ def test_parallel_trainer_rejects_what_is_not_ported():
         parallel.ParallelTrainer(net, loss, "rmsprop", mesh=mesh)
     with pytest.raises(mx.MXNetError, match="not ported"):
         parallel.default_mesh(2)
+
+
+# ---------------------------------------------------------------------
+# the long-sequence slice at a small size: bert_tiny at T = 1024
+# ---------------------------------------------------------------------
+LONG_T, LONG_N = 1024, 3
+LONG_VALID = np.array([LONG_T, 300, 0], np.float32)
+
+
+def _long_batch():
+    rng = np.random.RandomState(1)
+    return (rng.randint(0, VOCAB, (LONG_N, LONG_T)).astype(np.float32),
+            rng.randint(0, 2, (LONG_N, LONG_T)).astype(np.float32),
+            LONG_VALID, rng.randint(0, 2, LONG_N).astype(np.float32))
+
+
+def _long_pair():
+    """(JAX net, port net) of bert_tiny at max_length 1024, same weights."""
+    mxj.random.seed(0)
+    jnet = JaxClassifier(jax_get_bert_model("bert_tiny", vocab_size=VOCAB,
+                                            max_length=LONG_T, dropout=0.0),
+                         num_classes=2, dropout=0.0)
+    jnet.initialize(mxj.init.Normal(0.02), ctx=mxj.cpu())
+    jnet(*[mxj.nd.array(a, ctx=mxj.cpu()) for a in _long_batch()[:3]])
+    tnet = get_model("bert_classifier", model_name="bert_tiny",
+                     num_classes=2, dropout=0.0, vocab_size=VOCAB,
+                     max_length=LONG_T)
+    tnet.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
+    params_from_jax(tnet, _weights(jnet))
+    return jnet, tnet
+
+
+def test_long_sequence_forward_and_adam_step_match_jax():
+    """The T = 1024 slice on the CPU, valid lengths T, 300 and 0: logits,
+    then one ParallelTrainer Adam step (loss and weights).  Both packages
+    take their einsum attention path on the CPU."""
+    jnet, tnet = _long_pair()
+    batch = _long_batch()
+    jd = [mxj.nd.array(a, ctx=mxj.cpu()) for a in batch]
+    with mx.cpu():
+        td = [nd.array(a) for a in batch]
+    jlogits = jnet(*jd[:3]).asnumpy()
+    with torch.no_grad():
+        tlogits = tnet(*[t.data for t in td[:3]]).numpy()
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+    jtr, ttr = _parallel_trainers("adam", jnet, tnet)
+    jl = float(jtr.step(*jd).asnumpy())
+    tl = ttr.step(*td).asscalar()
+    np.testing.assert_allclose(tl, jl, **LOSS_TOL)
+    _close_weights(_weights(tnet), _weights(jnet))
+
+
+def test_long_sequence_flash_attention_matches_jax_kernels():
+    """Layer 0's q, k, v of that model through the port's
+    `flash_attention` (the streaming kernels' plain versions on the CPU)
+    and the JAX `flash_attention` in interpret mode (`_flash`: T > 512),
+    o and the gradients of sum(o·do): float32, atol 1e-5 for o and 1e-4
+    of the largest gradient (sums in another order)."""
+    from incubator_mxnet_tpu.ops.flash_attention import (
+        flash_attention as jax_flash_attention)
+    from incubator_mxnet_torch.ops.flash_attention import flash_attention
+    _, tnet = _long_pair()
+    batch = _long_batch()
+    seen = []
+    hook = tnet.bert.encoder.layers[0].attention.qkv.register_forward_hook(
+        lambda mod, args, out: seen.append(out.data.detach()))
+    with torch.no_grad():
+        tnet(*[torch.from_numpy(a) for a in batch[:3]])
+    hook.remove()
+    E, H = 128, 2
+    qkv = seen[0].reshape(LONG_N, LONG_T, 3, H, E // H).permute(2, 0, 3, 1, 4)
+    q, k, v = (t.contiguous().numpy() for t in qkv)
+    do = np.random.RandomState(2).randn(*q.shape).astype(np.float32)
+    valid = LONG_VALID.astype(np.int32)
+
+    def jf(q, k, v):
+        o = jax_flash_attention(q, k, v, kv_length=valid, interpret=True)
+        return jnp.sum(o * do), o
+    (_, jo), jg = jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tt = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    to = flash_attention(*tt, kv_length=torch.from_numpy(valid))
+    (to * torch.from_numpy(do)).sum().backward()
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), rtol=0,
+                               atol=1e-5)
+    for t, g in zip(tt, jg):
+        g = np.asarray(g)
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=0,
+                                   atol=1e-4 * np.abs(g).max())
