@@ -25,8 +25,21 @@ Phases (each prints its own lines; any failure exits non-zero):
    T among them: o, lse (exactly -1e30 on fully masked rows), dq, dk,
    dv, and `Flash`'s gradients against torch autograd through the plain
    forward; then each kernel's time, its plain version's, SDPA's (the
-   backward of one SDPA call for rows 3+4 together) and the bound.
-5. Serving at T = 128: BERT-base (bert_12_768_12) classifier in bfloat16
+   backward of one SDPA call for rows 3+4 together) and the bound, and
+   each kernel's causal time.
+5. The BTHD kernels (rows 5 and 6: `flash_short_bthd_fwd` in both forms,
+   `flash_short_bthd_bwd`) on q, k, v cut as views from one seeded
+   (B, T, 3E) buffer, as BERT's fused projection gives them: row 5 at the
+   serving shape (B = 128) and its training form at B = 60, row 6 at
+   B = 60, bfloat16 and float32, causal on and off, kv_length random with
+   0 and T among them: o, p, dq, dk, dv against the plain versions, and
+   `FlashShortBTHD`'s gradients against torch autograd through the plain
+   forward; each kernel's time, its plain version's, the library call's
+   (SDPA on the transposed views; for row 6 its backward less its
+   forward), the bound, and `multi_head_attention`'s time on the default
+   route (row 1 or 1b and `flash_short_bwd` with their layout copies) and
+   on the BTHD route.
+6. Serving at T = 128: BERT-base (bert_12_768_12) classifier in bfloat16
    with seeded Normal(0.02) weights on cuda:0, exported with
    `deploy.export_serving` (capacity 128 rows), served by
    `serving.ServingRuntime` over HTTP on 127.0.0.1, answering 12 POST
@@ -34,10 +47,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    is checked against a direct forward of the same rows with einsum
    attention on the card, and the short kernel must launch 12 times
    (one per encoder layer) for each served batch, no streaming kernel.
-6. Serving at T = 2048 (`[serve-long]`): the same model with
+7. Serving at T = 2048 (`[serve-long]`): the same model with
    max_length 2048, capacity 16 rows, 6 requests of 1-16 rows; 12
    `flash_fwd` launches per batch and no short-kernel launch.
-7. Training at T = 128: BERT-base classifier, dropout 0, seeded
+8. Serving at T = 128 on the BTHD route (`[serve-bthd]`,
+   MXNET_FLASH_ATTENTION_BTHD=1 for the phase): as 6, with 12
+   `flash_short_bthd_fwd` launches per batch and no other kernel.
+9. Training at T = 128: BERT-base classifier, dropout 0, seeded
    Normal(0.02) weights cast to bfloat16, Adam at lr 2e-5, a seeded
    batch of 60 x 128 tokens on cuda:0 (`bench.py`'s `bench_bert`).  Step
    1's loss and the gradients of layer 0's and layer 11's qkv weight on
@@ -48,11 +64,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    `gluon.Trainer(..., "adam", lr 2e-5).step(60)` loop.  Losses must be
    finite and the training kernel must launch 12 times (one per layer)
    per step, no other kernel.
-8. Training at T = 2048 (`[train-long]`, `bench_bert` with
+10. Training at T = 2048 (`[train-long]`, `bench_bert` with
    BENCH_SEQLEN=2048 BENCH_BATCH=4): the same checks with 3 steps,
    `run_steps(5)` and one imperative iteration; 12 launches of each of
    `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` per step, no other.
-9. A JSON line describing each kernel, then the card line, then the
+11. Training at T = 128 on the BTHD route (`[train-bthd]`): as 9 with 3
+   steps, `run_steps(5)` and one imperative iteration; 12 launches of
+   each of `flash_short_bthd_fwd_train` and `flash_short_bthd_bwd` per
+   step, no other kernel.
+12. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -76,6 +96,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the SM clock's top rate (1.98 GHz): a sleep of this many cycles a second
+# lasts at least that second at any clock the card runs
+SLEEP_CYCLES_PER_S = 1.98e9
 
 BH_BATCH, HEADS, T, D = 128, 12, 128, 64
 TRAIN_BATCH, LAYERS = 60, 12
@@ -116,17 +139,47 @@ def log(msg):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` back-to-back calls."""
+    """Mean device time of fn() over `iters` back-to-back calls.  A
+    kernel can finish before the host has dispatched the next call (a
+    wrapper's checks and launch take tens of microseconds), so the card
+    first runs a sleep that outlasts the host's enqueue of all `iters`
+    calls, which then run back to back; the sleep is lengthened and the
+    reading retaken while the enqueue outlasts it (at most twice: a
+    launch queue that fills makes the host wait whatever the sleep)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    sleep_s = 0.005
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue_s < sleep_s:
+            break
+        sleep_s = 2 * enqueue_s
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10):
+    """Device time of fn() per call: its CUDA kernels' time summed by
+    torch.profiler over `iters` calls, without the host's dispatch gaps
+    that `time_ms` counts when fn() launches many small kernels."""
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / iters / 1e3
 
 
 def card_line():
@@ -179,14 +232,7 @@ def phase_kernels():
                 raise AssertionError("kernel output is not finite")
             # library yardstick: one SDPA call with the same masks as an
             # additive -1e30 mask (timed only; the port never calls it)
-            keep = torch.arange(T, device="cuda")[None, :] < \
-                per_row[:, None]
-            keep = keep[:, None, None, :]
-            if causal:
-                keep = keep & torch.ones(T, T, dtype=torch.bool,
-                                         device="cuda").tril()
-            add = torch.zeros(keep.shape, dtype=dtype, device="cuda")
-            add.masked_fill_(~keep, -1e30)
+            add = _sdpa_mask(per_row, causal, dtype)
             q4, k4, v4 = (t.view(BH_BATCH, HEADS, T, D) for t in (q, k, v))
             ms = time_ms(lambda: flash_short_fwd(q, k, v, lengths, scale,
                                                  causal))
@@ -431,6 +477,15 @@ def phase_stream_kernels():
                   q, k, v, full, scale, False, *blocks)),
               "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args)),
               "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(*args))}
+        # causal: the kernels skip the tiles above the diagonal
+        co, clse = fa.flash_fwd(q, k, v, full, scale, True, *blocks)
+        cdelta = (do.float() * co.float()).sum(-1, keepdim=True)
+        cargs = (q, k, v, do, clse, cdelta, full, scale, True, *blocks)
+        causal_ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(
+                         q, k, v, full, scale, True, *blocks)),
+                     "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*cargs)),
+                     "flash_bwd_dkv": time_ms(
+                         lambda: fa.flash_bwd_dkv(*cargs))}
         plain_ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd_reference(
                         q, k, v, full, scale, False, *blocks), 5, 1),
                     "flash_bwd_dq": time_ms(
@@ -469,24 +524,256 @@ def phase_stream_kernels():
             bound_ms, bound_by = bounds[kname]
             rec = {"max_abs_err": main_errs[kname], "ms": ms[kname],
                    "plain_ms": plain_ms[kname], "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": lib[kname]}
+                   "bound_by": bound_by, "library_ms": lib[kname],
+                   "causal_ms": causal_ms[kname]}
             if dtype == torch.bfloat16:
                 records[kname] = rec
             log(f"[kernel] {kname} {str(dtype)[6:]} BH={bh} T={LONG_T} d={D} "
                 f"non-causal, every kv_length T: kernel {ms[kname]:.4f} ms, "
+                f"causal {causal_ms[kname]:.4f} ms; "
                 f"plain {plain_ms[kname]:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}); sdpa ({name}) "
                 f"{'forward' if kname == 'flash_fwd' else 'backward (dq+dk+dv)'}"
                 f" {lib[kname]:.4f} ms")
-        del q, k, v, do, o, lse, delta, args, leaves
+        del q, k, v, do, o, lse, delta, args, leaves, co, clse, cdelta, cargs
         torch.cuda.empty_cache()
+    return records
+
+
+def _bthd_inputs(gen, batch, dtype):
+    """A seeded (batch, T, 3E) buffer in the fused projection's layout;
+    q, k, v as (batch, T, H, d) views of its three column slices; do
+    (batch, T, H, d); kv_length per batch element, random with 0 and T
+    among them."""
+    E = HEADS * D
+    buf = torch.randn(batch, T, 3 * E, generator=gen, device="cuda") \
+        .to(dtype)
+    q, k, v = (buf[..., i * E:(i + 1) * E].view(batch, T, HEADS, D)
+               for i in range(3))
+    do = torch.randn(batch, T, HEADS, D, generator=gen, device="cuda") \
+        .to(dtype)
+    lengths = torch.randint(0, T + 1, (batch,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 0, T
+    return buf, q, k, v, do, lengths
+
+
+def _sdpa_mask(lengths, causal, dtype):
+    """kv_length (and causal) as SDPA's additive -1e30 mask."""
+    keep = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+    keep = keep[:, None, None, :]
+    if causal:
+        keep = keep & torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    add = torch.zeros(keep.shape, dtype=dtype, device="cuda")
+    return add.masked_fill_(~keep, -1e30)
+
+
+def _check_bthd_case(fa, q, k, v, do, lengths, causal, dtype, train, what):
+    """Rows 5 and 6 on one input against their plain versions, and
+    FlashShortBTHD against autograd; returns {kernel: max |error|}."""
+    scale = D ** -0.5
+    if not train:
+        o = fa.flash_short_bthd_fwd(q, k, v, lengths, scale, causal)
+        ro = fa.flash_short_bthd_reference(q, k, v, lengths, scale, causal)
+        torch.cuda.synchronize()
+        err = _max_err(o, ro)
+        if not (err <= ATOL[dtype] and torch.isfinite(o.float()).all()):
+            raise AssertionError(f"flash_short_bthd_fwd disagrees with its "
+                                 f"plain version: {what}: {err} > "
+                                 f"{ATOL[dtype]}")
+        log(f"[kernel] flash_short_bthd_fwd {what}: o max|err|={err:.3e} "
+            f"(atol {ATOL[dtype]})")
+        return {"flash_short_bthd_fwd": err}
+    o, p = fa.flash_short_bthd_fwd_train(q, k, v, lengths, scale, causal)
+    ro, rp = fa.flash_short_bthd_reference(q, k, v, lengths, scale, causal,
+                                           save_p=True)
+    torch.cuda.synchronize()
+    o_err, p_err = _max_err(o, ro), _max_err(p, rp)
+    if not (o_err <= ATOL[dtype] and p_err <= P_ATOL[dtype]
+            and torch.isfinite(o.float()).all()):
+        raise AssertionError(
+            f"flash_short_bthd_fwd_train disagrees with its plain version: "
+            f"{what}: o {o_err} (atol {ATOL[dtype]}), p {p_err} (atol "
+            f"{P_ATOL[dtype]})")
+    # row 6 from the plain forward's o and p
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_short_bthd_bwd(q, k, v, do, delta, rp, scale)
+    ref = fa.flash_short_bthd_bwd_reference(q, k, v, do, delta, rp, scale)
+    torch.cuda.synchronize()
+    bwd_err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err, top = _max_err(a, b), b.float().abs().max().item()
+        if not err <= GRAD_RTOL[dtype] * top:
+            raise AssertionError(f"flash_short_bthd_bwd {name} disagrees "
+                                 f"with its plain version: {what}: {err} > "
+                                 f"{GRAD_RTOL[dtype]} x {top}")
+        bwd_err = max(bwd_err, err)
+    # FlashShortBTHD (row 5's training form, delta, row 6) against torch
+    # autograd through the plain forward, gradients into the shared
+    # buffer; a batch element with kv_length 0 follows the JAX rule (p =
+    # 1/T sends gradient into k), so there it is held to the plain
+    # backward on the plain forward's (o, p)
+    B, E = q.shape[0], HEADS * D
+    base = torch.cat([t.reshape(B, T, E) for t in (q, k, v)], -1)
+    grads = []
+    for fn in (fa.FlashShortBTHD.apply, fa.flash_short_bthd_reference):
+        leaf = base.clone().requires_grad_()
+        views = [leaf[..., i * E:(i + 1) * E].view(B, T, HEADS, D)
+                 for i in range(3)]
+        fn(*views, lengths, scale, causal).backward(do)
+        grads.append(leaf.grad)
+    jax_rule = torch.cat([g.reshape(B, T, E) for g in ref], -1)
+    live = lengths > 0
+    top = grads[1].float().abs().max().item()
+    ref_top = max(b.float().abs().max().item() for b in ref)
+    auto_err = _max_err(grads[0][live], grads[1][live])
+    rule_err = _max_err(grads[0][~live], jax_rule[~live])
+    if not max(auto_err, rule_err) <= GRAD_RTOL[dtype] * top:
+        raise AssertionError(
+            f"FlashShortBTHD gradients disagree: {what}: vs autograd "
+            f"{auto_err}, fully masked vs the JAX rule {rule_err}, > "
+            f"{GRAD_RTOL[dtype]} x {top}")
+    log(f"[kernel] flash_short_bthd_fwd_train/flash_short_bthd_bwd {what}: "
+        f"o max|err|={o_err:.3e} (atol {ATOL[dtype]}), p {p_err:.3e} (atol "
+        f"{P_ATOL[dtype]:.3e}); dq/dk/dv {bwd_err:.3e} (rtol "
+        f"{GRAD_RTOL[dtype]} of {ref_top:.3e}); "
+        f"FlashShortBTHD vs autograd {auto_err:.3e}, kv_length-0 rows vs "
+        f"the JAX rule {rule_err:.3e} (rtol {GRAD_RTOL[dtype]} of {top:.3e})")
+    return {"flash_short_bthd_fwd_train": max(o_err, p_err),
+            "flash_short_bthd_bwd": bwd_err}
+
+
+def _with_bthd(fn):
+    """fn() with MXNET_FLASH_ATTENTION_BTHD=1, the variable removed after."""
+    os.environ["MXNET_FLASH_ATTENTION_BTHD"] = "1"
+    try:
+        return fn()
+    finally:
+        del os.environ["MXNET_FLASH_ATTENTION_BTHD"]
+
+
+def phase_bthd_kernels():
+    """Kernel rows 5 and 6 against their plain versions, then their times
+    at the paths' shapes beside the plain versions', SDPA's, the bound
+    and `multi_head_attention` on the default and BTHD routes; returns
+    {kernel: record} of bfloat16, non-causal."""
+    import torch.nn.functional as F
+    from incubator_mxnet_torch.ops import flash_attention as fa
+    from incubator_mxnet_torch.ops.attention import multi_head_attention
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scale, E = D ** -0.5, HEADS * D
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch, train in ((BH_BATCH, False), (TRAIN_BATCH, True)):
+            buf, q, k, v, do, lengths = _bthd_inputs(gen, batch, dtype)
+            errs = {}
+            for causal in (False, True):
+                what = (f"{str(dtype)[6:]} causal={causal} B={batch} T={T} "
+                        f"H={HEADS} d={D}, views of a (B, T, 3E) buffer")
+                got = _check_bthd_case(fa, q, k, v, do, lengths, causal,
+                                       dtype, train, what)
+                if not causal:
+                    errs = got
+            # times at the path's shape, non-causal, these kv_lengths
+            q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q, k, v, do))
+            mask = _sdpa_mask(lengths, False, dtype)
+            qkv = [buf[..., i * E:(i + 1) * E] for i in range(3)]
+            nbytes = q.numel() * q.element_size()   # one (B, T, H, d)
+            work = batch * HEADS * T * T * D
+            if not train:
+                name = "flash_short_bthd_fwd"
+                ms = time_ms(lambda: fa.flash_short_bthd_fwd(
+                    q, k, v, lengths, scale, False))
+                plain_ms = time_ms(lambda: fa.flash_short_bthd_reference(
+                    q, k, v, lengths, scale, False))
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=scale))
+                bound = _bound(4 * nbytes + batch * 4, 4 * work, dtype)
+
+                def route():
+                    with torch.inference_mode():
+                        return multi_head_attention(*qkv, None, lengths,
+                                                    num_heads=HEADS)
+                recs = {name: (ms, plain_ms, lib_ms, bound)}
+                routes = "forward"
+            else:
+                o, p = fa.flash_short_bthd_fwd_train(q, k, v, lengths, scale,
+                                                     False)
+                delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+                    .contiguous()
+                fwd_ms = time_ms(lambda: fa.flash_short_bthd_fwd_train(
+                    q, k, v, lengths, scale, False))
+                fwd_plain = time_ms(lambda: fa.flash_short_bthd_reference(
+                    q, k, v, lengths, scale, False, save_p=True))
+                bwd_ms = time_ms(lambda: fa.flash_short_bthd_bwd(
+                    q, k, v, do, delta, p, scale))
+                bwd_plain = time_ms(lambda: fa.flash_short_bthd_bwd_reference(
+                    q, k, v, do, delta, p, scale))
+                leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        *leaves, attn_mask=mask, scale=scale)
+
+                def sdpa_fwd_bwd():
+                    return torch.autograd.grad(sdpa(), leaves, do4)
+                lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
+                pbytes = p.numel() * p.element_size()
+                recs = {"flash_short_bthd_fwd_train": (
+                            fwd_ms, fwd_plain, None,
+                            _bound(4 * nbytes + pbytes + batch * 4,
+                                   4 * work, dtype)),
+                        "flash_short_bthd_bwd": (
+                            bwd_ms, bwd_plain, lib_bwd,
+                            _bound(7 * nbytes + pbytes + delta.numel() * 4,
+                                   8 * work, dtype))}
+                leaf = buf.detach().requires_grad_()
+                grad_out = do.reshape(batch, T, E)
+
+                def route():
+                    out = multi_head_attention(
+                        *[leaf[..., i * E:(i + 1) * E] for i in range(3)],
+                        None, lengths, num_heads=HEADS)
+                    return torch.autograd.grad(out, leaf, grad_out)
+                routes = "forward + backward"
+                del o, p, delta, leaves
+            route_ms = {"default_route_ms": time_ms(route),
+                        "bthd_route_ms": _with_bthd(lambda: time_ms(route)),
+                        "default_route_device_ms": device_ms(route),
+                        "bthd_route_device_ms": _with_bthd(
+                            lambda: device_ms(route))}
+            log(f"[kernel] multi_head_attention {routes} {str(dtype)[6:]} "
+                f"B={batch} T={T} E={E} on the (B, T, 3E) views: default "
+                f"route (short kernel, head split/merge copies) "
+                f"{route_ms['default_route_ms']:.4f} ms, of which "
+                f"{route_ms['default_route_device_ms']:.4f} ms device time; "
+                f"BTHD route {route_ms['bthd_route_ms']:.4f} ms, of which "
+                f"{route_ms['bthd_route_device_ms']:.4f} ms device time")
+            for name, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in \
+                    recs.items():
+                lib = "none: no single PyTorch call returns p" \
+                    if lib_ms is None else f"{lib_ms:.4f} ms"
+                log(f"[kernel] {name} {str(dtype)[6:]} B={batch} T={T} "
+                    f"H={HEADS} d={D} non-causal: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}); library (SDPA"
+                    f"{' backward' if name.endswith('bwd') else ''}) {lib}")
+                if dtype == torch.bfloat16:
+                    records[name] = {
+                        "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        **route_ms}
+            del buf, q, k, v, do, q4, k4, v4, do4, qkv
+            torch.cuda.empty_cache()
     return records
 
 
 def phase_train(card, rows, seqlen, run_k, iterations, per_step, tag):
     """A training path: BERT-base bf16 on `rows` x `seqlen` tokens; every
     step must launch each kernel of `per_step` once per layer and no
-    other kernel.  Returns the launch counts of the path's run."""
+    other kernel.  Returns the launch counts of the path's run and the
+    step time over `run_steps`."""
     import incubator_mxnet_torch as mx
     from incubator_mxnet_torch import autograd, gluon, nd, parallel
     from incubator_mxnet_torch.models import get_model
@@ -592,7 +879,7 @@ def phase_train(card, rows, seqlen, run_k, iterations, per_step, tag):
         lval = checked(iteration, 1, f"imperative iteration {i + 1}")
         log(f"{tag} imperative record/backward/gluon.Trainer.step "
             f"iteration {i + 1}: mean loss {lval:.4f}")
-    return dict(counts)
+    return dict(counts), step_ms
 
 
 def _http(port, method, path, body=None):
@@ -651,7 +938,8 @@ def phase_serve(card, seqlen, capacity, request_rows, n_sequential, kernel,
                 tag):
     """A serving path: BERT-base bf16 at `seqlen` tokens, batch capacity
     `capacity`; every served batch must launch `kernel` once per layer
-    and no other kernel.  Returns the launch counts of the path's run."""
+    and no other kernel.  Returns the launch counts of the path's run and
+    the device forward time of one full batch."""
     import incubator_mxnet_torch as mx
     from incubator_mxnet_torch import deploy
     from incubator_mxnet_torch.models import get_model
@@ -789,7 +1077,7 @@ def phase_serve(card, seqlen, capacity, request_rows, n_sequential, kernel,
             rt.close()
         shutil.rmtree(art, ignore_errors=True)
         torch.cuda.empty_cache()
-    return path_counts
+    return path_counts, fwd_ms
 
 
 def main():
@@ -806,17 +1094,32 @@ def main():
     rec = phase_kernels()
     train_rec = phase_train_kernels()
     stream_recs = phase_stream_kernels()
+    bthd_recs = phase_bthd_kernels()
     # each path runs with the counts set to 0 just before it and is read
     # just after it
-    serve = phase_serve(card, T, BH_BATCH, REQUEST_ROWS, N_SEQUENTIAL,
-                        "flash_short_fwd", "[serve]")
-    serve_long = phase_serve(card, LONG_T, LONG_CAPACITY, LONG_REQUEST_ROWS,
-                             2, "flash_fwd", "[serve-long]")
-    train = phase_train(card, TRAIN_BATCH, T, 10, 2,
-                        ("flash_short_fwd_train",), "[train]")
-    train_long = phase_train(card, LONG_TRAIN_BATCH, LONG_T, 5, 1,
-                             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                             "[train-long]")
+    serve, serve_ms = phase_serve(card, T, BH_BATCH, REQUEST_ROWS,
+                                  N_SEQUENTIAL, "flash_short_fwd", "[serve]")
+    serve_long, _ = phase_serve(card, LONG_T, LONG_CAPACITY,
+                                LONG_REQUEST_ROWS, 2, "flash_fwd",
+                                "[serve-long]")
+    serve_bthd, serve_bthd_ms = _with_bthd(lambda: phase_serve(
+        card, T, BH_BATCH, REQUEST_ROWS, N_SEQUENTIAL,
+        "flash_short_bthd_fwd", "[serve-bthd]"))
+    log(f"[serve-bthd] {BH_BATCH}x{T} forward {serve_bthd_ms:.2f} ms on the "
+        f"BTHD route, {serve_ms:.2f} ms on the default route ([serve]) "
+        f"({card})")
+    train, train_ms = phase_train(card, TRAIN_BATCH, T, 10, 2,
+                                  ("flash_short_fwd_train",), "[train]")
+    train_long, _ = phase_train(card, LONG_TRAIN_BATCH, LONG_T, 5, 1,
+                                ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), "[train-long]")
+    train_bthd, train_bthd_ms = _with_bthd(lambda: phase_train(
+        card, TRAIN_BATCH, T, 5, 1,
+        ("flash_short_bthd_fwd_train", "flash_short_bthd_bwd"),
+        "[train-bthd]"))
+    log(f"[train-bthd] {TRAIN_BATCH}x{T} step {train_bthd_ms:.2f} ms on the "
+        f"BTHD route, {train_ms:.2f} ms on the default route ([train]) "
+        f"({card})")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
@@ -835,6 +1138,25 @@ def main():
                         "source": f"{csrc}/{src}",
                         "replaces": f"{fa_py}:{line}", "launches": launches,
                         **stream_recs[name]})
+    # row 5 is one kernel in two forms: its entry carries the inference
+    # form's numbers (serving) and, under "save_p", the training form's
+    fwd_launches = (serve_bthd["flash_short_bthd_fwd"]
+                    + train_bthd["flash_short_bthd_fwd_train"])
+    log(f"[done] flash_short_bthd_fwd: {serve_bthd['flash_short_bthd_fwd']} "
+        f"launches serving, {train_bthd['flash_short_bthd_fwd_train']} "
+        f"training (save_p); flash_short_bthd_bwd: "
+        f"{train_bthd['flash_short_bthd_bwd']} launches training, at T={T}")
+    kernels.append({"name": "flash_short_bthd_fwd", **short,
+                    "replaces": f"{fa_py}:417", "launches": fwd_launches,
+                    **bthd_recs["flash_short_bthd_fwd"],
+                    "save_p": {"launches": train_bthd[
+                        "flash_short_bthd_fwd_train"],
+                        **bthd_recs["flash_short_bthd_fwd_train"]}})
+    kernels.append({"name": "flash_short_bthd_bwd", "route": "cuda",
+                    "source": f"{csrc}/flash_short_bthd_bwd.cu",
+                    "replaces": f"{fa_py}:443",
+                    "launches": train_bthd["flash_short_bthd_bwd"],
+                    **bthd_recs["flash_short_bthd_bwd"]})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "library", "build_all"]
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("flash_short_fwd", "flash_fwd", "flash_bwd")
+SOURCES = ("flash_short_fwd", "flash_short_bthd_bwd", "flash_fwd",
+           "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,13 @@
-// Pieces shared by the streaming FlashAttention-2 kernels for Hopper
-// (flash_fwd.cu, flash_bwd.cu): element conversions, the mma.sync,
-// ldmatrix and cp.async wrappers, and the mask rule of the TPU kernels
-// they replace (incubator_mxnet_tpu/ops/flash_attention.py `_fwd_kernel`,
+// Pieces shared by the attention kernels for Hopper (flash_short_fwd.cu,
+// flash_short_bthd_bwd.cu, flash_fwd.cu, flash_bwd.cu): element
+// conversions, the mma.sync, ldmatrix and cp.async wrappers, the short
+// kernels' row addressing, and the mask rule of the streaming TPU kernels
+// (incubator_mxnet_tpu/ops/flash_attention.py `_fwd_kernel`,
 // `_bwd_dq_kernel`, `_bwd_dkv_kernel`).
 //
-// Layouts: q and do (bh, tq, d); k, v (bh, tk, d); lse and delta
-// (bh, tq) float32; lens (bh,) int32; all contiguous.  The JAX block
+// Layouts of the streaming kernels: q and do (bh, tq, d); k, v (bh, tk,
+// d); lse and delta (bh, tq) float32; lens (bh,) int32; all contiguous
+// (the short kernels address rows through `Rows`).  The JAX block
 // sizes jbq, jbk (after `_fit_block`) do not tile these kernels; they
 // only decide which keys a row with kv_length 0 attends to (`fa_score`).
 #pragma once
@@ -260,6 +262,24 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld,
     dst[r * ld + e] =
         row0 + r < n ? to_f(src[(size_t)(row0 + r) * d + e]) : 0.f;
   }
+}
+
+// ---------------------------------------------------------------------
+// Row addressing of the short kernels.  A (B, T, H, d) tensor whose d
+// elements of one head's row are contiguous has element (b, t, h, e) at
+// b*bs + t*ts + h*d + e; batch-head bh is head bh % H of batch bh / H.
+// The (BH, T, d) layout of `flash_short_fwd` is H = 1, bs = T*d, ts = d;
+// the BTHD layout of q, k, v cut from a fused (B, T, 3E) projection is
+// bs = T*3E, ts = 3E.
+// ---------------------------------------------------------------------
+struct Rows {
+  long long bs, ts;
+};
+
+// Offset of row 0 of batch-head bh.
+__device__ __forceinline__ size_t head_at(const Rows& l, int bh, int heads,
+                                          int d) {
+  return (size_t)(bh / heads) * l.bs + (size_t)(bh % heads) * d;
 }
 
 // The dynamic shared memory a kernel asks for, then the launch error.

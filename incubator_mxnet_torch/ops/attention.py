@@ -9,12 +9,17 @@ attention dropout in train mode, Tq and Tk multiples of 128, d <= 256,
 and either max(Tq, Tk) >= MXNET_FLASH_ATTENTION_MIN_LEN (1024; the
 streaming FlashAttention-2 kernels) or self-attention with T <= 512
 (the short kernel, unless MXNET_FLASH_ATTENTION_SHORT=0), with
-MXNET_FLASH_ATTENTION=0 turning the route off.  Inside
-`autograd.record()` the kernel route carries its backward (`FlashShort`
-or `Flash`).  Everything else, lengths between 512 and the crossover
+MXNET_FLASH_ATTENTION=0 turning the route off.  With
+MXNET_FLASH_ATTENTION_BTHD=1 (default 0, as in the JAX package) the
+short case takes the BTHD route instead: `flash_attention_bthd` reads
+q, k and v as (N, T, H, d) views of their (N, T, E) inputs, so the head
+split and merge are free reshapes with no transposes; a kernel that
+fails there raises, nothing falls back.  Inside `autograd.record()` the
+kernel route carries its backward (`FlashShort`, `FlashShortBTHD` or
+`Flash`).  Everything else, lengths between 512 and the crossover
 included, takes the einsum path, which applies attention dropout to the
-probabilities in train mode.  Ring attention and the BTHD route are not
-ported (ROADMAP.md).
+probabilities in train mode.  Ring attention is not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ from ..random import generator
 
 
 def attention_route(is_cuda, Tq, Tk, d, has_mask, train_dropout):
-    """"flash" (the kernels of `flash_attention`) or "einsum": the JAX
-    dispatcher's gate, with `is_cuda` for "the platform is a TPU"."""
+    """"flash" (the kernels of `flash_attention`), "bthd"
+    (`flash_attention_bthd`) or "einsum": the JAX dispatcher's gate, with
+    `is_cuda` for "the platform is a TPU"."""
     min_len = int(get_env("MXNET_FLASH_ATTENTION_MIN_LEN", "1024"))
     short_ok = (get_env("MXNET_FLASH_ATTENTION_SHORT", "1") != "0"
                 and Tq == Tk and Tq <= 512)
@@ -37,6 +43,8 @@ def attention_route(is_cuda, Tq, Tk, d, has_mask, train_dropout):
             and not has_mask and not train_dropout and is_cuda
             and (max(Tq, Tk) >= min_len or short_ok)
             and Tq % 128 == 0 and Tk % 128 == 0 and d <= 256):
+        if short_ok and get_env("MXNET_FLASH_ATTENTION_BTHD", "0") == "1":
+            return "bthd"
         return "flash"
     return "einsum"
 
@@ -55,8 +63,17 @@ def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
     s = scale if scale is not None else 1.0 / (d ** 0.5)
 
     train_dropout = dropout > 0.0 and autograd.is_training()
-    if attention_route(query.is_cuda, Tq, Tk, d, mask is not None,
-                       train_dropout) == "flash":
+    route = attention_route(query.is_cuda, Tq, Tk, d, mask is not None,
+                            train_dropout)
+    if route == "bthd":
+        from .flash_attention import flash_attention_bthd
+        out = flash_attention_bthd(
+            query.reshape(N, Tq, num_heads, d),
+            key.reshape(N, Tk, num_heads, d),
+            value.reshape(N, Tk, num_heads, d), causal=causal, scale=s,
+            kv_length=kv_length)
+        return out.reshape(N, Tq, E)
+    if route == "flash":
         from .flash_attention import flash_attention
         out = flash_attention(split(query, Tq), split(key, Tk),
                               split(value, Tk), causal=causal, scale=s,

@@ -39,10 +39,22 @@ families, chosen by `flash_attention` as the JAX function chooses them:
   the same tiles; the CUDA kernels tile on their own and take bq, bk
   only to reproduce that rule.
 
+* The short kernel in the BTHD layout (`_fwd_short_bthd_kernel`,
+  `_bwd_short_bthd_kernel`, reached through `flash_attention_bthd`), the
+  route `multi_head_attention` takes with MXNET_FLASH_ATTENTION_BTHD=1.
+  Row 1's math on q, k, v of shape (B, T, H, d) read in place, with one
+  batch and one row stride per tensor, so the q, k, v column slices of a
+  fused (B, T, 3E) projection need no copy; lengths are per batch.  The
+  forward is the short kernel itself, which addresses rows with per-tensor
+  strides (the (BH, T, d) layout is its H = 1 case), counted apart as
+  `flash_short_bthd_fwd` and `flash_short_bthd_fwd_train`; the backward
+  reads the saved p in `csrc/flash_short_bthd_bwd.cu`
+  (`flash_short_bthd_bwd`); `FlashShortBTHD` is `_flash_short_bthd`'s
+  custom VJP.
+
 Each wrapper launches its kernel for a CUDA tensor, takes the plain
 version only for a CPU tensor, raises on any other device, and counts
-its launches in `launch_counts`.  The BTHD-layout kernels are not
-ported yet (ROADMAP.md).
+its launches in `launch_counts`.
 """
 from __future__ import annotations
 
@@ -56,6 +68,10 @@ from ..base import MXNetError, get_env
 
 __all__ = ["flash_attention", "flash_short_fwd", "flash_short_fwd_train",
            "flash_short_reference", "flash_short_bwd", "FlashShort",
+           "flash_attention_bthd", "flash_short_bthd_fwd",
+           "flash_short_bthd_fwd_train", "flash_short_bthd_bwd",
+           "flash_short_bthd_reference", "flash_short_bthd_bwd_reference",
+           "FlashShortBTHD",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "Flash", "launch_counts",
@@ -67,6 +83,8 @@ MAX_HEAD_DIM = 256
 
 _count_lock = threading.Lock()
 launch_counts = {"flash_short_fwd": 0, "flash_short_fwd_train": 0,
+                 "flash_short_bthd_fwd": 0, "flash_short_bthd_fwd_train": 0,
+                 "flash_short_bthd_bwd": 0,
                  "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
@@ -172,18 +190,27 @@ def _check_inputs(name, q, k, v, lengths, tensors=()):
     if Tq < 1 or k.shape[1] < 1 or not 1 <= d <= MAX_HEAD_DIM:
         raise MXNetError(f"{name}: needs T >= 1 and 1 <= d <= "
                          f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
+    _check_types(name, q, k, v, (lengths, *tensors))
+    _check_lengths(name, lengths, BH)
+
+
+def _check_types(name, q, k, v, tensors):
+    """q, k, v of one dtype (bf16 or f32), everything on one device."""
     if q.dtype not in (torch.bfloat16, torch.float32) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise MXNetError(
             f"{name}: q, k, v must all be bfloat16 or float32, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    devs = {t.device for t in (q, k, v, lengths, *tensors)}
+    devs = {t.device for t in (q, k, v, *tensors)}
     if len(devs) != 1:
         raise MXNetError(f"{name}: tensors on several devices "
                          f"{sorted(map(str, devs))}")
-    if lengths.shape != (BH,) or lengths.dtype != torch.int32:
+
+
+def _check_lengths(name, lengths, n):
+    if lengths.shape != (n,) or lengths.dtype != torch.int32:
         raise MXNetError(
-            f"{name}: lengths must be int32 of shape ({BH},), "
+            f"{name}: lengths must be int32 of shape ({n},), "
             f"got {lengths.dtype} {tuple(lengths.shape)}")
 
 
@@ -195,31 +222,62 @@ def _check(q, k, v, lengths):
             f"{tuple(q.shape)}, {tuple(k.shape)}")
 
 
-def _launch_short(q, k, v, lengths, scale, causal, save_p):
-    """Launch the short kernel; returns o, or (o, p) with `save_p`."""
-    fn = _entry("flash_short_fwd", "flash_short_fwd", 6, 3,
-                (ctypes.c_float, ctypes.c_int, ctypes.c_int))
-    q, k, v, lengths = _aligned(q, k, v, lengths)
-    BH, T, d = q.shape
-    o = torch.empty_like(q)
-    p = torch.empty((BH, T, T), dtype=q.dtype, device=q.device) \
+def _bthd_rows(t):
+    """(t, batch stride, row stride) for a (B, T, H, d) tensor the
+    kernels read in place: the d elements of a head's row contiguous and
+    heads d apart, a 16-byte-aligned base, and batch and row strides that
+    are multiples of 16 bytes or a contiguous tensor (the tensor-core
+    kernels, which move rows 16 bytes at a time, run only where a
+    contiguous tensor's strides are).  Any other tensor is replaced by one
+    contiguous copy, which the allocator aligns."""
+    B, T, H, d = t.shape
+    sb, st, sh, se = t.stride()
+    strides_ok = all(s * t.element_size() % 16 == 0
+                     for s, n in ((sb, B), (st, T)) if n > 1)
+    if ((se == 1 or d == 1) and (sh == d or H == 1)
+            and t.data_ptr() % 16 == 0 and (strides_ok or t.is_contiguous())):
+        return t, sb, st
+    return t.clone(memory_format=torch.contiguous_format), T * H * d, H * d
+
+
+def _launch_short(q, k, v, lengths, scale, causal, save_p, counter):
+    """Launch the short kernel on q, k, v (B, T, H, d), any strides, and
+    lengths (B,) int32, and count the launch under `counter`.  Returns o
+    (B, T, H, d) contiguous, or (o, p) with `save_p`, p (B, H, T, T)."""
+    fn = _entry("flash_short_fwd", "flash_short_fwd", 6, 4,
+                (ctypes.c_longlong,) * 6 + (ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_int))
+    B, T, H, d = q.shape
+    rows = [_bthd_rows(t) for t in (q, k, v)]
+    lengths = _aligned(lengths.contiguous())[0]
+    o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
+    p = torch.empty((B, H, T, T), dtype=q.dtype, device=q.device) \
         if save_p else None
-    if BH == 0:
+    if B * H == 0:
         return (o, p) if save_p else o
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             o.data_ptr(), p.data_ptr() if save_p else None, BH, T, d,
-             float(scale), int(bool(causal)),
-             int(q.dtype == torch.bfloat16), stream)
-    _launched("flash_short_fwd_train" if save_p else "flash_short_fwd", err)
+    err = fn(*(r[0].data_ptr() for r in rows), lengths.data_ptr(),
+             o.data_ptr(), p.data_ptr() if save_p else None, B, H, T, d,
+             *(s for r in rows for s in r[1:]), float(scale),
+             int(bool(causal)), int(q.dtype == torch.bfloat16), _stream(q))
+    _launched(counter, err)
     return (o, p) if save_p else o
+
+
+def _launch_short_bhtd(q, k, v, lengths, scale, causal, save_p):
+    """The short kernel on (BH, T, d) tensors: the H = 1 case."""
+    out = _launch_short(*(t.unsqueeze(2) for t in (q, k, v)), lengths,
+                        scale, causal, save_p,
+                        "flash_short_fwd_train" if save_p
+                        else "flash_short_fwd")
+    return (out[0].squeeze(2), out[1].squeeze(1)) if save_p \
+        else out.squeeze(2)
 
 
 def _dispatch(q, k, v, lengths, scale, causal, save_p):
     _check(q, k, v, lengths)
     return _route(
         "flash_short_fwd", q,
-        lambda: _launch_short(q, k, v, lengths, scale, causal, save_p),
+        lambda: _launch_short_bhtd(q, k, v, lengths, scale, causal, save_p),
         lambda: flash_short_reference(q, k, v, lengths, scale, causal,
                                       save_p))
 
@@ -276,6 +334,189 @@ class FlashShort(torch.autograd.Function):
         dq, dk, dv = flash_short_bwd(q, k, v, o, p, do.contiguous(),
                                      ctx.scale)
         return dq, dk, dv, None, None, None
+
+
+# ---------------------------------------------------------------------
+# the short kernel in the BTHD layout (T <= 512)
+# ---------------------------------------------------------------------
+
+def flash_short_bthd_reference(q, k, v, lengths, scale, causal,
+                               save_p=False):
+    """The plain version of `_fwd_short_bthd`: q, k, v (B, T, H, d), any
+    strides; lengths (B,) int.  Returns o (B, T, H, d) contiguous, or
+    (o, p) with `save_p`, p (B, H, T, T) in the input dtype.  Row 1's
+    rules for each (b, h): keys >= kv_length and (causal) above the
+    diagonal at -1e30, the `safe_l` guard, p rounded before p·v, so a row
+    whose kv_length is 0 is the mean of v."""
+    f32 = torch.float32
+    T = q.shape[1]
+    cols = torch.arange(T, device=q.device)
+    keep = cols < lengths.reshape(-1, 1, 1, 1).to(q.device)
+    if causal:
+        keep = keep & (cols[:, None] >= cols[None, :])
+    with _exact_matmuls():
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
+        s = torch.where(keep, s, _NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        pn = (p / torch.where(l == 0.0, torch.ones_like(l), l)).to(q.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", pn.to(f32), v.to(f32))
+    o = o.to(q.dtype).contiguous()
+    return (o, pn) if save_p else o
+
+
+def flash_short_bthd_bwd_reference(q, k, v, do, delta, p, scale):
+    """The plain version of `_bwd_short_bthd_kernel`: q, k, v, do (B, T,
+    H, d), any strides; delta (B, H, T) float32; p (B, H, T, T) in the
+    input dtype.  dp = do·vᵀ in float32; ds = (p·(dp − delta))·scale
+    rounded to the input dtype; dq = ds·k, dk = dsᵀ·q and dv = pᵀ·do take
+    input-dtype operands, accumulate in float32 and round once.  Returns
+    dq, dk, dv (B, T, H, d) contiguous."""
+    f32 = torch.float32
+    with _exact_matmuls():
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v.to(f32))
+        ds = (p.to(f32) * (dp - delta.unsqueeze(-1)) * scale).to(q.dtype)
+        grads = (torch.einsum("bhqk,bkhd->bqhd", ds.to(f32), k.to(f32)),
+                 torch.einsum("bhqk,bqhd->bkhd", ds.to(f32), q.to(f32)),
+                 torch.einsum("bhqk,bqhd->bkhd", p.to(f32), do.to(f32)))
+    return tuple(g.to(q.dtype).contiguous() for g in grads)
+
+
+def _check_bthd(name, q, k, v, tensors=()):
+    """q, k, v (B, T, H, d), one shape and dtype (bf16 or f32), 1 <= T <=
+    MAX_SHORT_LEN, 1 <= d <= MAX_HEAD_DIM, everything on one device."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise MXNetError(f"{name}: q, k, v must all be (B, T, H, d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    T, d = q.shape[1], q.shape[3]
+    if not (1 <= T <= MAX_SHORT_LEN and 1 <= d <= MAX_HEAD_DIM):
+        raise MXNetError(f"{name}: needs 1 <= T <= {MAX_SHORT_LEN} and "
+                         f"1 <= d <= {MAX_HEAD_DIM}, got {tuple(q.shape)}")
+    _check_types(name, q, k, v, tensors)
+
+
+def _dispatch_bthd(q, k, v, lengths, scale, causal, save_p):
+    _check_bthd("flash_short_bthd_fwd", q, k, v, (lengths,))
+    _check_lengths("flash_short_bthd_fwd", lengths, q.shape[0])
+    return _route(
+        "flash_short_bthd_fwd", q,
+        lambda: _launch_short(q, k, v, lengths, scale, causal, save_p,
+                              "flash_short_bthd_fwd_train" if save_p
+                              else "flash_short_bthd_fwd"),
+        lambda: flash_short_bthd_reference(q, k, v, lengths, scale, causal,
+                                           save_p))
+
+
+def flash_short_bthd_fwd(q, k, v, lengths, scale, causal=False):
+    """o (B, T, H, d) for q, k, v (B, T, H, d), any strides, and lengths
+    (B,) int32: the CUDA kernel for a CUDA tensor, the plain version for
+    a CPU tensor."""
+    return _dispatch_bthd(q, k, v, lengths, scale, causal, False)
+
+
+def flash_short_bthd_fwd_train(q, k, v, lengths, scale, causal=False):
+    """(o, p) for q, k, v (B, T, H, d) and lengths (B,) int32, p (B, H, T,
+    T) the normalized probabilities in the input dtype (the `save_p=True`
+    form): the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    return _dispatch_bthd(q, k, v, lengths, scale, causal, True)
+
+
+def _launch_short_bthd_bwd(q, k, v, do, delta, p, scale):
+    fn = _entry("flash_short_bthd_bwd", "flash_short_bthd_bwd", 9, 4,
+                (ctypes.c_longlong,) * 8 + (ctypes.c_float, ctypes.c_int))
+    B, T, H, d = q.shape
+    rows = [_bthd_rows(t) for t in (q, k, v, do)]
+    delta, p = _aligned(delta.contiguous(), p.contiguous())
+    outs = tuple(torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
+                 for _ in range(3))
+    if B * H == 0:
+        return outs
+    err = fn(*(r[0].data_ptr() for r in rows), delta.data_ptr(),
+             p.data_ptr(), *(t.data_ptr() for t in outs), B, H, T, d,
+             *(s for r in rows for s in r[1:]), float(scale),
+             int(q.dtype == torch.bfloat16), _stream(q))
+    _launched("flash_short_bthd_bwd", err)
+    return outs
+
+
+def flash_short_bthd_bwd(q, k, v, do, delta, p, scale):
+    """dq, dk, dv (B, T, H, d) of `_bwd_short_bthd_kernel` from q, k, v, do
+    (B, T, H, d), any strides, delta = rowsum(do·o) (B, H, T) float32 and
+    the saved p (B, H, T, T): the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    name = "flash_short_bthd_bwd"
+    _check_bthd(name, q, k, v, (do, delta, p))
+    B, T, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise MXNetError(f"{name}: do must match q, got {do.dtype} "
+                         f"{tuple(do.shape)}")
+    if delta.shape != (B, H, T) or delta.dtype != torch.float32:
+        raise MXNetError(f"{name}: delta must be float32 of shape "
+                         f"{(B, H, T)}, got {delta.dtype} "
+                         f"{tuple(delta.shape)}")
+    if p.shape != (B, H, T, T) or p.dtype != q.dtype:
+        raise MXNetError(f"{name}: p must be {q.dtype} of shape "
+                         f"{(B, H, T, T)}, got {p.dtype} {tuple(p.shape)}")
+    return _route(
+        name, q,
+        lambda: _launch_short_bthd_bwd(q, k, v, do, delta, p, scale),
+        lambda: flash_short_bthd_bwd_reference(q, k, v, do, delta, p, scale))
+
+
+class FlashShortBTHD(torch.autograd.Function):
+    """`_flash_short_bthd` with its custom VJP: the forward is the BTHD
+    training form (`flash_short_bthd_fwd_train`), which saves p; the
+    backward takes delta = rowsum(do·o) per (b, h) in float32 (plain
+    torch, as `_bwd_short_bthd` computes it outside its kernel), then
+    `flash_short_bthd_bwd`.  `lengths` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, scale, causal):
+        o, p = flash_short_bthd_fwd_train(q, k, v, lengths, scale, causal)
+        ctx.save_for_backward(q, k, v, o, p)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, p = ctx.saved_tensors
+        do = do.to(q.dtype)
+        delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+        dq, dk, dv = flash_short_bthd_bwd(
+            q, k, v, do, delta.transpose(1, 2).contiguous(), p, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bthd(q, k, v, *, causal=False, scale=None,
+                         kv_length=None):
+    """softmax(q·kᵀ·scale)·v on (B, T, H, d) tensors, the JAX package's
+    `flash_attention_bthd`: the layout a fused qkv projection gives by a
+    free reshape, read in place; the output is (B, T, H, d) contiguous,
+    so its reshape to (B, T, H·d) is free.  Tq == Tk <= 512 only.
+    `kv_length` ((B,) int) masks key positions >= length.  Under autograd
+    (an input requiring grad) the route is `FlashShortBTHD`, otherwise
+    the inference form alone."""
+    B, T, H, d = q.shape
+    if k.shape[1] != T or T > MAX_SHORT_LEN:
+        raise MXNetError(f"flash_attention_bthd: requires Tq == Tk <= "
+                         f"{MAX_SHORT_LEN}, got {T} and {k.shape[1]}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if kv_length is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=q.device)
+    else:
+        kv_length = torch.as_tensor(kv_length, device=q.device).reshape(-1)
+        if kv_length.shape[0] != B:
+            raise MXNetError(
+                f"flash_attention_bthd: kv_length has {kv_length.shape[0]} "
+                f"entries, expected {B}")
+        lengths = kv_length.to(torch.int32).contiguous()
+    args = (q, k, v, lengths, float(scale), bool(causal))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashShortBTHD.apply(*args)
+    return flash_short_bthd_fwd(*args)
 
 
 # ---------------------------------------------------------------------

@@ -18,7 +18,10 @@ through the plain version keeps both in float32).  The streaming
 kernels (`flash_fwd`, `flash_bwd_dq`, `flash_bwd_dkv`) take the same
 tolerances for o and for dq, dk, dv against their plain versions; lse
 1e-4 absolute on rows with kv_length > 0 and exactly -1e30 on rows with
-kv_length 0.
+kv_length 0.  The BTHD kernels (`flash_short_bthd_fwd`, its training
+form, `flash_short_bthd_bwd`) take row 1's tolerances for o and p and
+GRAD_RTOL for dq, dk, dv, on q, k, v cut as views from one (B, T, 3E)
+buffer, as BERT's fused projection gives them.
 """
 import numpy as np
 import pytest
@@ -28,9 +31,12 @@ import incubator_mxnet_torch as mx
 from incubator_mxnet_torch.models import get_model
 from incubator_mxnet_torch.ops.attention import multi_head_attention
 from incubator_mxnet_torch.ops.flash_attention import (
-    Flash, FlashShort, _fit_block, flash_attention, flash_bwd_dkv,
-    flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
-    flash_fwd, flash_fwd_reference, flash_short_fwd, flash_short_fwd_train,
+    Flash, FlashShort, FlashShortBTHD, _fit_block, flash_attention,
+    flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
+    flash_bwd_dq_reference, flash_fwd, flash_fwd_reference,
+    flash_short_bthd_bwd, flash_short_bthd_bwd_reference,
+    flash_short_bthd_fwd, flash_short_bthd_fwd_train,
+    flash_short_bthd_reference, flash_short_fwd, flash_short_fwd_train,
     flash_short_reference, launch_counts, reset_launch_counts)
 
 pytestmark = pytest.mark.cuda
@@ -387,4 +393,191 @@ def test_bert_long_train_step_runs_the_streaming_kernels(card):
     torch.cuda.synchronize()
     assert launch_counts == dict(NO_LAUNCH, flash_fwd=8, flash_bwd_dq=8,
                                  flash_bwd_dkv=8)
+    assert np.isfinite(out)
+
+
+# ---------------------------------------------------------------------
+# the BTHD layout (rows 5 and 6)
+# ---------------------------------------------------------------------
+# (B, T, H, d): the training shape, the kernels' tensor-core shape at a
+# small batch, and shapes off it (other T, d, ragged T, T = 512)
+BTHD_SHAPES = [(60, 128, 12, 64), (2, 128, 4, 64), (3, 48, 2, 32),
+               (2, 256, 3, 64), (2, 7, 3, 8), (1, 512, 2, 256)]
+BTHD_IDS = ["x".join(map(str, s)) for s in BTHD_SHAPES]
+
+
+def _bthd_inputs(card, shape, dtype, seed, zero_len=True, offset=0):
+    """q, k, v as (B, T, H, d) views of one (B, T, 3E) buffer (starting
+    `offset` elements into its storage), do, and lengths (B,) int32 with
+    0 (or 1) and T among them."""
+    B, T, H, d = shape
+    E = H * d
+    gen = torch.Generator(device=card).manual_seed(seed)
+    flat = torch.randn(offset + B * T * 3 * E, generator=gen, device=card)
+    buf = flat.to(dtype)[offset:].view(B, T, 3 * E)
+    q, k, v = (buf[..., i * E:(i + 1) * E].reshape(B, T, H, d)
+               for i in range(3))
+    do = torch.randn(shape, generator=gen, device=card).to(dtype)
+    lo = 0 if zero_len else 1
+    lengths = torch.randint(lo, T + 1, (B,), generator=gen, device=card,
+                            dtype=torch.int32)
+    lengths[0] = lo
+    lengths[-1] = T
+    return q, k, v, do, lengths
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", BTHD_SHAPES, ids=BTHD_IDS)
+def test_bthd_fwd_matches_plain_version(card, dtype, causal, shape):
+    """Row 5 in both forms on strided views: o (B, T, H, d) and p (B, H,
+    T, T); a batch element with kv_length 0 is the mean of v."""
+    q, k, v, _, lengths = _bthd_inputs(card, shape, dtype, sum(shape))
+    scale = shape[3] ** -0.5
+    reset_launch_counts()
+    o = flash_short_bthd_fwd(q, k, v, lengths, scale, causal)
+    ot, p = flash_short_bthd_fwd_train(q, k, v, lengths, scale, causal)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_fwd=1,
+                                 flash_short_bthd_fwd_train=1)
+    ro, rp = flash_short_bthd_reference(q, k, v, lengths, scale, causal,
+                                        save_p=True)
+    assert o.shape == q.shape and o.is_contiguous() and o.dtype == dtype
+    assert p.shape == (shape[0], shape[2], shape[1], shape[1])
+    assert (o.float() - ro.float()).abs().max().item() <= ATOL[dtype]
+    assert (p.float() - rp.float()).abs().max().item() <= P_ATOL[dtype]
+    assert torch.equal(o, ot)
+    if lengths[0].item() == 0:
+        mean_v = v[0].float().mean(0, keepdim=True).expand_as(o[0])
+        assert (o[0].float() - mean_v).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_bthd_misaligned_view_is_copied_once(card, train):
+    """A buffer that starts 6 bytes into its storage: the wrapper reads
+    one aligned copy and gives the plain version's answer."""
+    shape = (2, 128, 4, 64)
+    q, k, v, do, lengths = _bthd_inputs(card, shape, torch.bfloat16, 3,
+                                        offset=3)
+    assert q.data_ptr() % 16 != 0
+    if train:
+        ro, rp = flash_short_bthd_reference(q, k, v, lengths, 0.125, False,
+                                            save_p=True)
+        delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
+        got = flash_short_bthd_bwd(q, k, v, do, delta.contiguous(), rp, 0.125)
+        ref = flash_short_bthd_bwd_reference(q, k, v, do, delta, rp, 0.125)
+    else:
+        got = [flash_short_bthd_fwd(q, k, v, lengths, 0.125)]
+        ref = [flash_short_bthd_reference(q, k, v, lengths, 0.125, False)]
+    for a, b in zip(got, ref):
+        top = max(b.float().abs().max().item(), 1.0)
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * top
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", BTHD_SHAPES, ids=BTHD_IDS)
+def test_bthd_bwd_matches_plain_version(card, dtype, causal, shape):
+    """Row 6 from the plain forward's o and p, kv_length 0 included: dq,
+    dk, dv within GRAD_RTOL of the largest reference."""
+    q, k, v, do, lengths = _bthd_inputs(card, shape, dtype, 5 + sum(shape))
+    scale = shape[3] ** -0.5
+    o, p = flash_short_bthd_reference(q, k, v, lengths, scale, causal,
+                                      save_p=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    reset_launch_counts()
+    got = flash_short_bthd_bwd(q, k, v, do, delta, p, scale)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_bwd=1)
+    ref = flash_short_bthd_bwd_reference(q, k, v, do, delta, p, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == q.shape and \
+            a.is_contiguous(), name
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        assert err <= GRAD_RTOL[dtype] * top, (name, err, top)
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(60, 128, 12, 64), (3, 48, 2, 40)],
+                         ids=["60x128x12x64", "3x48x2x40"])
+def test_flash_short_bthd_grads_match_autograd_through_plain(
+        card, dtype, causal, shape):
+    """`FlashShortBTHD` (row 5's training form, delta, row 6) against
+    torch autograd through the plain forward, every kv_length > 0,
+    gradients taken into the shared (B, T, 3E) buffer."""
+    q, k, v, do, lengths = _bthd_inputs(card, shape, dtype, 9 + sum(shape),
+                                        zero_len=False)
+    E = shape[2] * shape[3]
+    base = torch.cat([t.reshape(shape[0], shape[1], E) for t in (q, k, v)],
+                     -1)
+    grads = []
+    reset_launch_counts()
+    for fn in (FlashShortBTHD.apply, flash_short_bthd_reference):
+        buf = base.clone().requires_grad_()
+        views = [buf[..., i * E:(i + 1) * E].reshape(shape) for i in range(3)]
+        fn(*views, lengths, 0.125, causal).backward(do)
+        grads.append(buf.grad)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_fwd_train=1,
+                                 flash_short_bthd_bwd=1)
+    err = (grads[0].float() - grads[1].float()).abs().max().item()
+    top = grads[1].float().abs().max().item()
+    assert grads[0].dtype == dtype and err <= GRAD_RTOL[dtype] * top
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_multi_head_attention_bthd_route_reads_views_in_place(
+        card, causal, monkeypatch):
+    """With MXNET_FLASH_ATTENTION_BTHD=1 `multi_head_attention` launches
+    row 5 on the q, k, v column slices of one (N, T, 3E) buffer and no
+    other CUDA kernel: no copy of q, k or v, no transpose of the output."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn(4, 128, 3 * 256, generator=gen, device=card) \
+        .to(torch.bfloat16)
+    x = [qkv[..., i * 256:(i + 1) * 256] for i in range(3)]
+    valid = torch.tensor([128, 3, 0, 77], device=card, dtype=torch.int32)
+    ref = multi_head_attention(*x, None, valid, num_heads=4, causal=causal)
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION_BTHD", "1")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = multi_head_attention(*x, None, valid, num_heads=4,
+                                   causal=causal)
+        torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_fwd=1)
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "short_fwd" in kernels[0], kernels
+    assert out.shape == (4, 128, 256)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_bert_train_step_runs_the_bthd_kernels(card, monkeypatch):
+    """ParallelTrainer steps of BERT-base (12 layers) in bf16 on the BTHD
+    route: 12 launches of each BTHD training kernel per step, no other
+    kernel, finite losses."""
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION_BTHD", "1")
+    mx.seed(0)
+    net = get_model("bert_classifier", model_name="bert_12_768_12",
+                    num_classes=2, dropout=0.0, vocab_size=1000,
+                    max_length=128)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = mx.parallel.ParallelTrainer(
+        net, lambda o, y: loss(o.astype("float32"), y), "adam",
+        {"learning_rate": 2e-5})
+    rng = np.random.RandomState(0)
+    batch = (rng.randint(0, 1000, (8, 128)).astype(np.float32),
+             np.zeros((8, 128), np.float32),
+             rng.randint(0, 2, 8).astype(np.float32))
+    tr.step(*batch)
+    reset_launch_counts()
+    out = tr.run_steps(2, *batch).asscalar()
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_fwd_train=24,
+                                 flash_short_bthd_bwd=24)
     assert np.isfinite(out)
