@@ -7,13 +7,14 @@ package.  Entry points run on `gpu(0)` (the CUDA card) unless the caller
 asks for `cpu()`; without CUDA they raise instead of carrying on on the
 CPU.
 
-It serves and trains BERT: Gluon blocks on `torch.nn.Module`, the BERT
-models, `deploy.export_serving`/`load_serving` and the
+It serves and trains BERT and trains ResNet v1/v1b: Gluon blocks on
+`torch.nn.Module` (Dense, LayerNorm, Conv2D, BatchNorm, pooling), the
+BERT and ResNet models, `deploy.export_serving`/`load_serving` and the
 `serving.ServingRuntime` front end; `autograd`, the losses, SGD and
 Adam, `gluon.Trainer` and `parallel.ParallelTrainer` on one device.
-Attention runs in the short CUDA kernels of `ops/flash_attention.py`
-(the inference form, and the training form that saves p for the
-backward).
+Attention runs in the CUDA kernels of `ops/flash_attention.py`;
+`tools.bottleneck_bwd` is the ResNet bottleneck's fused BN backward in
+two CUDA kernels (`python -m incubator_mxnet_torch.tools.bottleneck_bwd`).
 """
 from .base import MXNetError, get_env
 from .context import Context, cpu, gpu, current_context, num_gpus

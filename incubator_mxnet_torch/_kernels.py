@@ -20,18 +20,19 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "library", "build_all"]
+__all__ = ["SOURCES", "library", "build_all", "entry", "route", "stream"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("flash_short_fwd", "flash_short_bthd_bwd", "flash_fwd",
-           "flash_bwd")
+           "flash_bwd", "bottleneck_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs = {}
+_entries = {}
 
 
 def _nvcc():
@@ -103,3 +104,33 @@ def library(name):
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(_target(name)[1])
     return lib
+
+
+def entry(name, fn_name, argtypes, restype=ctypes.c_int):
+    """The C function `fn_name` of kernel library `name`, built and
+    loaded at first use, with its ctypes signature set."""
+    fn = _entries.get(fn_name)
+    if fn is None:
+        fn = getattr(library(name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _entries[fn_name] = fn
+    return fn
+
+
+def route(name, t, launch, plain):
+    """launch() for a CUDA tensor `t`, plain() for a CPU tensor; any other
+    device raises.  The wrappers' one dispatch rule: a CUDA tensor never
+    reaches a plain version."""
+    if t.device.type == "cuda":
+        return launch()
+    if t.device.type == "cpu":
+        return plain()
+    raise MXNetError(f"{name}: no kernel for device {t.device}")
+
+
+def stream(t):
+    """The current CUDA stream of `t`'s device, as the int the C entry
+    points take."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,2 @@
+"""Model zoo (counterpart of `incubator_mxnet_tpu/gluon/model_zoo/`)."""
+from . import vision

@@ -1,11 +1,15 @@
 """Basic neural-network layers (counterpart of
-`incubator_mxnet_tpu/gluon/nn/basic_layers.py`): the layers BERT uses."""
+`incubator_mxnet_tpu/gluon/nn/basic_layers.py`): the layers BERT and
+ResNet use."""
 from __future__ import annotations
 
+import torch
+
+from ... import autograd
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "LayerNorm", "Embedding", "Activation"]
+           "BatchNorm", "LayerNorm", "Embedding", "Flatten", "Activation"]
 
 
 class Sequential(Block):
@@ -89,6 +93,66 @@ class Dropout(HybridBlock):
         return F.Dropout(x, p=self._rate, axes=self._axes)
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization over axis `axis`.  `running_mean` and
+    `running_var` take no gradient.  In train mode without
+    `use_global_stats` the layer normalizes with the batch's statistics
+    and folds them into the running stats as running·m + batch·(1 − m)
+    in the running stats' own dtype, in place and outside any recorded
+    graph; elsewhere it normalizes with the running stats."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if center else "null")
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def infer_shape(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None, running_mean=None,
+                       running_var=None):
+        out, batch_mean, batch_var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var,
+            eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis)
+        if autograd.is_training() and not self._use_global_stats:
+            m = self._momentum
+            with torch.no_grad():
+                for p, run, batch in ((self.running_mean, running_mean,
+                                       batch_mean),
+                                      (self.running_var, running_var,
+                                       batch_var)):
+                    p.set_data(run._data * m + batch._data * (1 - m))
+        return out
+
+
 class LayerNorm(HybridBlock):
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
@@ -131,6 +195,13 @@ class Embedding(HybridBlock):
     def hybrid_forward(self, F, x, weight=None):
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
+
+
+class Flatten(HybridBlock):
+    """(N, ...) to (N, -1)."""
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
 
 
 class Activation(HybridBlock):

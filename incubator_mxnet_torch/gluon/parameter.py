@@ -164,8 +164,11 @@ class Parameter:
     def set_data(self, data, ctx=None):
         """Replace the values.  An initialized parameter keeps its device
         and dtype; an uninitialized one takes the shape of `data` and the
-        device of its pending init, else `ctx`."""
+        device of its pending init, else `ctx`.  The values are copied in
+        place, outside any graph: inside `autograd.record()` nothing is
+        recorded."""
         t = data._data if isinstance(data, NDArray) else torch.as_tensor(data)
+        t = t.detach()
         if self._data is None:
             self.shape = t.shape
             device = self._deferred_init[1] if self._deferred_init \

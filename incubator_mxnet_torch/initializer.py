@@ -2,7 +2,8 @@
 
 The same registry and name routing: an Initializer is called with the
 parameter name and the tensor to fill, and names ending in
-bias/gamma/beta go to their conventional values.  Random draws come
+bias/gamma/beta, and BatchNorm's running (moving) mean and variance, go
+to their conventional values.  Random draws come
 from the framework generator of the tensor's device
 (`random.generator`), so `random.seed(n)` reproduces them.
 """
@@ -56,6 +57,10 @@ class Initializer:
             self._init_one(name, arr)
         elif lname.endswith("beta"):
             self._init_zero(name, arr)
+        elif "running_mean" in lname or "moving_mean" in lname:
+            self._init_zero(name, arr)
+        elif "running_var" in lname or "moving_var" in lname:
+            self._init_one(name, arr)
         else:
             self._init_default(name, arr)
 

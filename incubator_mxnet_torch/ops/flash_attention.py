@@ -65,6 +65,7 @@ import threading
 import torch
 
 from ..base import MXNetError, get_env
+from .._kernels import entry, route as _route, stream as _stream
 
 __all__ = ["flash_attention", "flash_short_fwd", "flash_short_fwd_train",
            "flash_short_reference", "flash_short_bwd", "FlashShort",
@@ -114,22 +115,11 @@ def _exact_matmuls():
         mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
 
 
-_entries = {}
-
-
 def _entry(lib, name, n_ptrs, n_ints, tail):
-    """The C entry point `name` of kernel library `lib`, built and loaded
-    at first use: `n_ptrs` pointers, `n_ints` ints, then `tail` (ctypes
-    types) and the stream."""
-    fn = _entries.get(name)
-    if fn is None:
-        from .._kernels import library
-        fn = getattr(library(lib), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + list(tail) + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
+    """The C entry point `name` of kernel library `lib`: `n_ptrs`
+    pointers, `n_ints` ints, then `tail` (ctypes types) and the stream."""
+    return entry(lib, name, [ctypes.c_void_p] * n_ptrs
+                 + [ctypes.c_int] * n_ints + list(tail) + [ctypes.c_void_p])
 
 
 def _aligned(*ts):
@@ -145,14 +135,6 @@ def _launched(name, err):
     if err != 0:
         raise MXNetError(f"{name}: kernel launch failed with cudaError {err}")
     _count(name)
-
-
-def _route(name, q, launch, plain):
-    if q.device.type == "cuda":
-        return launch()
-    if q.device.type == "cpu":
-        return plain()
-    raise MXNetError(f"{name}: no kernel for device {q.device}")
 
 
 # ---------------------------------------------------------------------
@@ -648,10 +630,6 @@ def _check_blocks(name, block_q, block_k):
     if block_q < 1 or block_k < 1:
         raise MXNetError(f"{name}: block sizes must be >= 1, got "
                          f"({block_q}, {block_k})")
-
-
-def _stream(q):
-    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def _geometry(q, k, scale, causal, block_q, block_k):

@@ -1,11 +1,16 @@
 """Neural-network ops (counterpart of `incubator_mxnet_tpu/ops/nn.py` and
 the `Activation` op of its `ops/math.py`).  Plain torch: the JAX package
-leaves these to XLA, the port to PyTorch's own operators.
+leaves these to XLA (convolution to `lax.conv_general_dilated`, pooling
+to `lax.reduce_window`), the port to PyTorch's own operators.
+`BatchNorm` keeps the JAX op's arithmetic step by step rather than
+`F.batch_norm`'s, whose running variance is the unbiased one.
 
 `sparse_softmax_ce` is the JAX package's fused softmax cross-entropy
 with its custom VJP, here a `torch.autograd.Function`: not a registered
 op, the fast path of `gluon.loss.SoftmaxCrossEntropyLoss`."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +29,121 @@ def fully_connected(data, weight, bias=None, *, num_hidden=0, no_bias=False,
     if flatten and data.ndim > 2:
         data = data.reshape(data.shape[0], -1)
     return F.linear(data, weight, None if no_bias else bias)
+
+
+def _tuplize(v, n):
+    if isinstance(v, int):
+        return (v,) * n
+    if len(v) == 0:
+        return (1,) * n
+    return tuple(v)
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution")
+def convolution(data, weight, bias=None, *, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=0, num_group=1, no_bias=False,
+                layout=None, cudnn_tune=None, cudnn_off=False, workspace=1024):
+    """N-d convolution, NC(D)HW data and OIHW weights, symmetric padding.
+    The bias is added after the convolution, in the output's dtype, as
+    the JAX op adds it."""
+    nd = len(kernel)
+    if nd not in _CONV:
+        raise MXNetError("Convolution supports 1/2/3 spatial dims")
+    out = _CONV[nd](data, weight, None, stride=_tuplize(stride or 1, nd),
+                    padding=_tuplize(pad or 0, nd),
+                    dilation=_tuplize(dilate or 1, nd), groups=num_group)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+_POOL = {"max": {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d},
+         "avg": {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}}
+
+
+@register("Pooling")
+def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
+            global_pool=False, pooling_convention="valid",
+            count_include_pad=True, cudnn_off=False, layout=None):
+    """max / avg / sum pooling over the spatial axes of NC(D)HW data.
+
+    The JAX op's windows: `pad` on both sides ("valid"), and under
+    "full" the upper side grows so the last partial window fits; padded
+    cells are -inf for max and 0 for avg and sum.  avg divides by the
+    window's size, or with `count_include_pad=False` by the number of
+    real cells it covers.  Global pooling is the max, or for every other
+    pool_type the mean, over all spatial axes (the JAX op's rule)."""
+    nd = data.ndim - 2
+    if global_pool:
+        axes = tuple(range(2, data.ndim))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        return data.mean(dim=axes, keepdim=True)
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError(f"unknown pool_type {pool_type}" if pool_type != "lp"
+                         else "lp pooling not implemented yet")
+    kernel = _tuplize(kernel, nd)
+    stride = _tuplize(stride or 1, nd)
+    pad = _tuplize(pad or 0, nd)
+    pads = []
+    for i, (k, s, p) in enumerate(zip(kernel, stride, pad)):
+        hi = p
+        if pooling_convention == "full":
+            size = data.shape[2 + i]
+            out_full = -(-(size + 2 * p - k) // s) + 1
+            hi = max(p, (out_full - 1) * s + k - size - p)
+        pads.append((p, hi))
+    flat = [x for lo_hi in reversed(pads) for x in lo_hi]   # F.pad's order
+    if pool_type == "max":
+        x = F.pad(data, flat, value=float("-inf")) if any(flat) else data
+        return _POOL["max"][nd](x, kernel, stride)
+    x = F.pad(data, flat) if any(flat) else data
+    avg = _POOL["avg"][nd](x, kernel, stride)
+    if pool_type == "sum":
+        return avg * math.prod(kernel)
+    if count_include_pad or not any(flat):
+        return avg
+    inside = F.pad(torch.ones_like(data), flat)
+    return avg / _POOL["avg"][nd](inside, kernel, stride)
+
+
+@register("BatchNorm")
+def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False):
+    """(out, batch_mean, batch_var) with the JAX op's numerics, not
+    `F.batch_norm`'s.  In train mode (`autograd.is_training()`) without
+    `use_global_stats` the statistics are the batch's: the mean in
+    float32, E[x²] from `data * data` in the data's dtype averaged in
+    float32, and the biased variance max(E[x²] − mean², 0); elsewhere
+    the moving stats.  scale = gamma·rsqrt(var + eps) and shift =
+    beta − mean·scale are rounded to the data's dtype before
+    `data * scale + shift`.  The statistics come back in the moving
+    stats' dtype; the Gluon layer folds them into its running stats."""
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    red = tuple(i for i in range(data.ndim) if i != axis % data.ndim)
+    bshape = [1] * data.ndim
+    bshape[axis] = data.shape[axis]
+    if autograd.is_training() and not use_global_stats:
+        mean = data.mean(dim=red, dtype=torch.float32)
+        sq = data.to(torch.float32).square() if data.dtype == torch.float32 \
+            else data * data
+        var = torch.clamp_min(sq.mean(dim=red, dtype=torch.float32)
+                              - mean.square(), 0.0)
+    else:
+        mean = moving_mean.to(torch.float32)
+        var = moving_var.to(torch.float32)
+    inv = torch.rsqrt(var + eps)
+    g32 = gamma.to(torch.float32)
+    scale = (inv * g32).to(data.dtype).reshape(bshape)
+    shift = (beta.to(torch.float32) - mean * inv * g32).to(
+        data.dtype).reshape(bshape)
+    return (data * scale + shift, mean.to(moving_mean.dtype),
+            var.to(moving_var.dtype))
 
 
 @register("LayerNorm")

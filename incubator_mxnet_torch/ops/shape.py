@@ -1,6 +1,6 @@
 """Shape and indexing ops (counterpart of
 `incubator_mxnet_tpu/ops/shape.py`): reshape with MXNet's special codes,
-expand_dims, slice_axis, pick, Embedding."""
+expand_dims, slice_axis, pick, Embedding, flatten."""
 from __future__ import annotations
 
 import torch
@@ -95,3 +95,8 @@ def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
     valid = (ids >= 0) & (ids < rows)
     out = torch.nn.functional.embedding(ids.clamp(0, rows - 1), weight)
     return out.masked_fill(~valid.unsqueeze(-1), float("nan"))
+
+
+@register("flatten", aliases=("Flatten",))
+def flatten(data):
+    return data.reshape(data.shape[0], -1)

@@ -21,7 +21,9 @@ tolerances for o and for dq, dk, dv against their plain versions; lse
 kv_length 0.  The BTHD kernels (`flash_short_bthd_fwd`, its training
 form, `flash_short_bthd_bwd`) take row 1's tolerances for o and p and
 GRAD_RTOL for dq, dk, dv, on q, k, v cut as views from one (B, T, 3E)
-buffer, as BERT's fused projection gives them.
+buffer, as BERT's fused projection gives them.  The bottleneck
+backward's two kernels (row 8) take their own tolerances, stated where
+they are defined below.
 """
 import numpy as np
 import pytest
@@ -581,3 +583,87 @@ def test_bert_train_step_runs_the_bthd_kernels(card, monkeypatch):
     assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_fwd_train=24,
                                  flash_short_bthd_bwd=24)
     assert np.isfinite(out)
+
+
+# ---------------------------------------------------------------------
+# row 8: the bottleneck backward (`tools/bottleneck_bwd.py`)
+# ---------------------------------------------------------------------
+# Kernels against their plain versions, mean relative error |a − b| /
+# |a| (the JAX tool's measure): 1e-3.  z, dx and dW are f32 sums of the
+# same bf16 products in another order; dz and dx are rounded to bf16, and
+# a rounding that flips on a last-bit difference moves one element by
+# one bf16 step (2^-8 of it).  Against torch autograd of `bn_dot`: the JAX
+# test's 2e-2 (dz is rounded to bf16 before dx and dW).
+BNB_RTOL = 1e-3
+BNB_VJP_RTOL = 2e-2
+BNB_SHAPES = [(4096, 64, 256), (4096, 256, 64), (2048, 128, 512),
+              (2048, 512, 128), (1000, 256, 1024), (1000, 1024, 256),
+              (300, 512, 2048), (300, 2048, 512), (12544, 512, 2048),
+              (100, 48, 80)]
+
+
+def _rel(ref, got):
+    ref, got = ref.float(), got.float()
+    return ((ref - got).abs().mean() / (ref.abs().mean() + 1e-9)).item()
+
+
+def _bnb_inputs(card, M, C, K, seed=0):
+    from incubator_mxnet_torch.tools.bottleneck_bwd import bn_dot
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(M, C, generator=gen, device=card).to(torch.bfloat16)
+    w = (torch.randn(C, K, generator=gen, device=card) * 0.1).to(
+        torch.bfloat16)
+    gamma = torch.rand(K, generator=gen, device=card) + 0.5
+    beta = torch.zeros(K, device=card)
+    dy = torch.randn(M, K, generator=gen, device=card).to(torch.bfloat16)
+    _, (_z, m, inv) = bn_dot(x, w, gamma, beta)
+    return x, w, gamma, beta, dy, m, inv
+
+
+@pytest.mark.parametrize("shape", BNB_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BNB_SHAPES])
+def test_bottleneck_kernels_match_plain_versions(card, shape):
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    x, w, gamma, _beta, dy, m, inv = _bnb_inputs(card, *shape)
+    bnb.reset_launch_counts()
+    s = bnb.bottleneck_bwd_reduce(dy, x, w, m, inv)
+    rs = bnb.bottleneck_reduce_reference(dy, x, w, m, inv)
+    d = bnb.bottleneck_bwd_apply(dy, x, w, m, inv, gamma, *rs)
+    rd = bnb.bottleneck_apply_reference(dy, x, w, m, inv, gamma, *rs)
+    torch.cuda.synchronize()
+    assert bnb.launch_counts == {"bottleneck_bwd_reduce": 1,
+                                 "bottleneck_bwd_apply": 1}
+    for name, a, b in zip(("s1", "s2", "dx", "dw"), (*rs, *rd), (*s, *d)):
+        assert torch.isfinite(b).all(), name
+        assert _rel(a, b) <= BNB_RTOL, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("shape", [(4096, 64, 256), (12544, 512, 2048),
+                                   (777, 64, 256)])
+def test_bottleneck_bwd_matches_autograd_of_bn_dot(card, shape):
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    x, w, gamma, beta, dy, m, inv = _bnb_inputs(card, *shape, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+    ref = torch.autograd.grad(bnb.bn_dot(*leaves)[0], leaves, dy)
+    got = bnb.bottleneck_bwd(dy, x, w, m, inv, gamma)
+    for name, a, b in zip(("dx", "dw", "dgamma", "dbeta"), ref, got):
+        assert _rel(a, b) <= BNB_VJP_RTOL, (name, _rel(a, b))
+
+
+def test_conv1x1bn_grads_match_autograd(card):
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    x, w, gamma, beta, *_ = _bnb_inputs(card, 4096, 64, 256, seed=2)
+    grads = []
+    for fn in (bnb.Conv1x1BN.apply, lambda *a: bnb.bn_dot(*a)[0]):
+        leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+        loss = fn(*leaves).float().square().sum()
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(grads[1], grads[0]):
+        assert _rel(a, b) <= BNB_VJP_RTOL
+
+
+def test_bottleneck_kernels_refuse_float32(card):
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    x, w, gamma, _beta, dy, m, inv = _bnb_inputs(card, 256, 64, 256)
+    with pytest.raises(mx.MXNetError, match="bfloat16"):
+        bnb.bottleneck_bwd_reduce(dy.float(), x.float(), w.float(), m, inv)

@@ -26,7 +26,9 @@ def test_import_pulls_in_no_jax():
             "incubator_mxnet_torch.autograd, incubator_mxnet_torch.optimizer, "
             "incubator_mxnet_torch.parallel, "
             "incubator_mxnet_torch.gluon.trainer, "
-            "incubator_mxnet_torch.gluon.loss\n"
+            "incubator_mxnet_torch.gluon.loss, "
+            "incubator_mxnet_torch.gluon.model_zoo.vision, "
+            "incubator_mxnet_torch.tools.bottleneck_bwd\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\n"
