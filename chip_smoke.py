@@ -93,7 +93,27 @@ Phases (each prints its own lines; any failure exits non-zero):
 15. `[resnet-check]`: batch 8 at 224 x 224, bfloat16 against float32
    (TF32 off) from the same weights: logits, the step-1 loss, and the
    gradients of `features.0.weight`, `output.weight` and `features.1.gamma`.
-16. A JSON line describing each kernel, then the card line, then the
+16. Kernel row 7 (`[rtc]`, `incubator_mxnet_torch/rtc.py`): the user
+   `CudaModule` of `softmax_rtc.py` (a float32 softmax forward, one warp
+   a row; SoftmaxOutput's backward p - onehot(label); a template
+   `axpy<T>` reached through `exports`, float32 and bfloat16) built at
+   first use, each kernel against its plain version at 1024 x 10 and
+   8192 x 1000; a second module of the same source runs no nvcc; a
+   syntax error raises with nvcc's message and a float64 argument before
+   launch; at 8192 x 1000 each kernel's time, its plain version's, the
+   bound, `torch.softmax`'s (forward) and `add_`'s (axpy) times, the
+   host time of one launch and the first-use compile time.
+17. `[train-rtc]`: `MLP()` (784-128-64-10, Xavier) trained 20 steps on a
+   seeded 1024 x 1 x 28 x 28 batch through `record()` /
+   `nd.Custom(out, label, op_type="softmax_rtc")` / `backward()` /
+   `gluon.Trainer(sgd lr 0.1 momentum 0.9).step(1024)`: one forward and
+   one backward rtc launch a step, losses finite and falling, step 1's
+   gradients those of `SoftmaxCrossEntropyLoss`.
+18. `[train-lenet]`: `bench_lenet` (LeNet, Xavier, SGD lr 0.1 momentum
+   0.9, batch 1024) through `ParallelTrainer.step` 3 times and
+   `run_steps(10)` with the plain loss (timed with CUDA events), then 3
+   imperative iterations with the softmax_rtc head.
+19. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -1296,16 +1316,19 @@ def _resnet50_bench():
 
 
 def _all_counts():
+    from incubator_mxnet_torch import rtc
     from incubator_mxnet_torch.ops import flash_attention as fa
     from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
-    return {**fa.launch_counts, **bnb.launch_counts}
+    return {**fa.launch_counts, **bnb.launch_counts, **rtc.launch_counts}
 
 
 def _reset_all_counts():
+    from incubator_mxnet_torch import rtc
     from incubator_mxnet_torch.ops import flash_attention as fa
     from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
     fa.reset_launch_counts()
     bnb.reset_launch_counts()
+    rtc.reset_launch_counts()
 
 
 def _bn_states(net):
@@ -1476,6 +1499,339 @@ def phase_resnet_check(card):
         raise AssertionError("[resnet-check] bf16 and float32 disagree")
 
 
+# ---------------------------------------------------------------------
+# row 7: rtc, a user CudaModule, and the Custom softmax head that trains
+# the MLP and LeNet
+# ---------------------------------------------------------------------
+# (rows, cols): the MLP's head at batch 1024, and an ImageNet-sized head
+RTC_SHAPES = ((1024, 10), (8192, 1000))
+RTC_TIMED = (8192, 1000)
+# softmax forward and backward against their plain versions: expf and the
+# row sums in another order, on values of at most 1; axpy: exact (a*x and
+# the sum rounded apart on both sides, then once to the type)
+RTC_ATOL = 1e-6
+AXPY_A = 0.37
+MNIST_BATCH = 1024
+LENET_SGD = {"learning_rate": 0.1, "momentum": 0.9}      # bench_lenet's
+MLP_STEPS = 20
+# step 1's weight gradients with the softmax_rtc head against the same
+# net with SoftmaxCrossEntropyLoss: the same maths (p - onehot summed over
+# the batch), the softmax and the matmuls' sums in another order; relative
+# to each parameter's largest gradient
+HEAD_GRAD_RTOL = 1e-5
+
+
+def _rtc_counts():
+    from incubator_mxnet_torch import rtc
+    return dict(rtc.launch_counts)
+
+
+def _mnist_batch():
+    """`bench_lenet`'s batch: uniform images and labels, numpy seed 0."""
+    from incubator_mxnet_torch import nd
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.uniform(size=(MNIST_BATCH, 1, 28, 28))
+                 .astype(np.float32))
+    y = nd.array(rng.randint(0, 10, MNIST_BATCH).astype(np.float32))
+    return x, y
+
+
+def phase_rtc(card):
+    """Row 7: the softmax_rtc module's kernels through the user API,
+    against their plain versions; the cache, a compile error and a
+    dtype error; times at 8192 x 1000."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import rtc, softmax_rtc as srtc
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dev = torch.device("cuda", 0)
+    x = torch.randn(1024, 10, generator=gen, device=dev)
+    y = torch.empty_like(x)
+    runs0 = sum(rtc.nvcc_runs.values())
+    again = rtc.CudaModule(srtc.SOURCE, exports=srtc.EXPORTS)
+    on_disk = os.path.exists(again.path)   # from an earlier run here
+    t0 = time.perf_counter()
+    srtc.softmax_fwd(x, y)           # first use: nvcc, load, launch
+    torch.cuda.synchronize()
+    compile_s = None if on_disk else time.perf_counter() - t0
+    if sum(rtc.nvcc_runs.values()) != runs0 + (not on_disk):
+        raise AssertionError("[rtc] the first launch did not build once")
+    again.get_kernel("softmax_fwd", "const float *x, float *y, int rows, "
+                     "int cols, int req").launch(
+        [x, y, 1024, 10, 1], mx.gpu(0), (128, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    if sum(rtc.nvcc_runs.values()) != runs0 + 1:
+        raise AssertionError("[rtc] a second CudaModule of the same source "
+                             "ran nvcc")
+    first = "found built on disk by an earlier run, so not timed" \
+        if on_disk else f"{compile_s:.2f} s"
+    log(f"[rtc] softmax_rtc module: first use (nvcc sm_90a, load, launch) "
+        f"{first}; a second CudaModule of the same source ran no nvcc "
+        f"({again.path})")
+    try:
+        rtc.CudaModule("__global__ void broken(float *x) { x[0] = 1 }") \
+            .get_kernel("broken", "float *x").launch(
+                [y], mx.gpu(0), (1,), (1,))
+    except mx.MXNetError as e:
+        if "error" not in str(e):
+            raise AssertionError(f"[rtc] compile error without nvcc's "
+                                 f"message: {e}") from None
+        log("[rtc] a syntax error raises with nvcc's message: "
+            + next(line.strip() for line in str(e).splitlines()
+                   if "error" in line and "nvcc failed" not in line))
+    else:
+        raise AssertionError("[rtc] a syntax error compiled")
+    n0 = _rtc_counts()
+    try:
+        srtc.softmax_fwd(x.double(), y)
+    except mx.MXNetError as e:
+        log(f"[rtc] a float64 argument raises before launch: {e}")
+    else:
+        raise AssertionError("[rtc] a float64 argument launched")
+    if _rtc_counts() != n0:
+        raise AssertionError("[rtc] the refused launch was counted")
+
+    records = {}
+    for rows, cols in RTC_SHAPES:
+        x = torch.randn(rows, cols, generator=gen, device=dev) * 4
+        label = torch.randint(0, cols, (rows,), generator=gen,
+                              device=dev).float()
+        y, dx, ry, rdx = (torch.empty_like(x) for _ in range(4))
+        srtc.softmax_fwd(x, y)
+        srtc.softmax_bwd(label, y, dx)
+        srtc.softmax_fwd_plain(x, ry, rows, cols, 1)
+        srtc.softmax_bwd_plain(label, y, rdx, rows, cols, 1)
+        errs = {"softmax_fwd": _max_err(y, ry),
+                "softmax_bwd": _max_err(dx, rdx)}
+        ab = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = (torch.randn(rows, cols, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            want = b.clone()
+            srtc.axpy_plain(a, want, AXPY_A, want.numel())
+            srtc.axpy(a, b, AXPY_A)
+            name = "axpy<float>" if dtype == torch.float32 else \
+                "axpy<__nv_bfloat16>"
+            errs[name] = _max_err(b, want)
+            ab[name] = (a, b, dtype)
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in errs.items() if not v <= RTC_ATOL}
+        if bad:
+            raise AssertionError(f"[rtc] {rows}x{cols}: kernels disagree "
+                                 f"with their plain versions: {bad} (atol "
+                                 f"{RTC_ATOL})")
+        log(f"[rtc] {rows}x{cols}: max|err| vs plain "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (atol {RTC_ATOL}; axpy exact)")
+        if (rows, cols) != RTC_TIMED:
+            small = {"softmax_fwd": time_ms(lambda: srtc.softmax_fwd(x, y)),
+                     "softmax_bwd": time_ms(
+                         lambda: srtc.softmax_bwd(label, y, dx))}
+            for name, (a, b, _dt) in ab.items():
+                small[name] = time_ms(lambda a=a, b=b: srtc.axpy(a, b, AXPY_A))
+            log(f"[rtc] {rows}x{cols} kernel times: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in small.items())
+                + f" ({card})")
+            continue
+        n = rows * cols
+        work = {"softmax_fwd": (8 * n, 5 * n, torch.float32),
+                "softmax_bwd": (4 * rows + 8 * n, 2 * n, torch.float32),
+                "axpy<float>": (12 * n, 2 * n, torch.float32),
+                "axpy<__nv_bfloat16>": (6 * n, 2 * n, torch.float32)}
+        runs = {"softmax_fwd": (lambda: srtc.softmax_fwd(x, y),
+                                lambda: srtc.softmax_fwd_plain(
+                                    x, ry, rows, cols, 1),
+                                lambda: torch.softmax(x, dim=1)),
+                "softmax_bwd": (lambda: srtc.softmax_bwd(label, y, dx),
+                                lambda: srtc.softmax_bwd_plain(
+                                    label, y, rdx, rows, cols, 1), None)}
+        for name, (a, b, _dt) in ab.items():
+            runs[name] = ((lambda a=a, b=b: srtc.axpy(a, b, AXPY_A)),
+                          (lambda a=a, b=b: srtc.axpy_plain(a, b, AXPY_A,
+                                                            b.numel())),
+                          (lambda a=a, b=b: b.add_(a, alpha=AXPY_A)))
+        for name, (kern, plain, lib) in runs.items():
+            bound_ms, bound_by = _bound(*work[name])
+            records[name] = {
+                "max_abs_err": errs[name], "ms": time_ms(kern),
+                "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None if lib is None else time_ms(lib)}
+            r = records[name]
+            lib_text = "none (no single call)" if lib is None else \
+                f"{r['library_ms']:.4f} ms"
+            log(f"[rtc] {name} {rows}x{cols}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), library {lib_text} ({card})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            srtc.softmax_fwd(x, y)
+        host_us = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        log(f"[rtc] host time of one softmax_fwd launch (checks, argument "
+            f"packing, cudaLaunchKernel): {host_us:.2f} us over 1000 "
+            f"launches")
+        for rec in records.values():
+            rec.update(host_us_per_launch=host_us,
+                       first_use_compile_s=compile_s)
+
+    # the user API's own drive, counted: each kernel through its wrapper
+    # at the MLP head's shape
+    rtc.reset_launch_counts()
+    x = torch.randn(1024, 10, generator=gen, device=dev)
+    label = torch.randint(0, 10, (1024,), generator=gen, device=dev).float()
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    srtc.softmax_fwd(x, y)
+    srtc.softmax_bwd(label, y, dx)
+    srtc.axpy(x, dx, AXPY_A)
+    srtc.axpy(x.bfloat16(), dx.bfloat16(), AXPY_A)
+    torch.cuda.synchronize()
+    drive = _rtc_counts()
+    if set(drive) != set(records) or any(v != 1 for v in drive.values()):
+        raise AssertionError(f"[rtc] the user API drive launched {drive}")
+    log(f"[rtc] user API drive at 1024x10: launches {drive}")
+    return records, drive
+
+
+def phase_train_rtc(card):
+    """MLP() at batch 1024 through the imperative loop with the
+    softmax_rtc head: returns the path's rtc launch counts."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, gluon, nd
+    from incubator_mxnet_torch.models import get_model
+    from incubator_mxnet_torch import softmax_rtc  # noqa: F401 (registers)
+    mx.random.seed(0)
+    x, y = _mnist_batch()
+    net = get_model("mlp")
+    net.initialize(mx.init.Xavier())
+    params = net._collect_params_with_prefix()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    grads = {}
+    for head in ("loss", "rtc"):
+        with autograd.record():
+            out = net(x)
+            lval = loss_fn(out, y) if head == "loss" else \
+                nd.Custom(out, y, op_type="softmax_rtc")
+        lval.backward()
+        grads[head] = {k: p.grad()._data.clone() for k, p in params.items()}
+    rel = {k: _max_err(grads["rtc"][k], grads["loss"][k])
+           / grads["loss"][k].abs().max().item() for k in params}
+    if not max(rel.values()) <= HEAD_GRAD_RTOL:
+        raise AssertionError(f"[train-rtc] step-1 gradients of the rtc head "
+                             f"differ from SoftmaxCrossEntropyLoss's: {rel}")
+    log(f"[train-rtc] MLP 784-128-64-10 at {MNIST_BATCH}: step-1 gradients, "
+        f"softmax_rtc head vs SoftmaxCrossEntropyLoss, max |diff| / max|g| "
+        f"{max(rel.values()):.2e} (rtol {HEAD_GRAD_RTOL})")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", LENET_SGD)
+    rows = torch.arange(MNIST_BATCH, device=x.data.device)
+    labels = y.data.long()
+    losses = []
+
+    def step():
+        with autograd.record():
+            prob = nd.Custom(net(x), y, op_type="softmax_rtc")
+        prob.backward()
+        trainer.step(MNIST_BATCH)
+        losses.append(-prob.data.detach()[rows, labels].log().mean())
+    _reset_all_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(MLP_STEPS):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    path_counts = _rtc_counts()
+    step_ms = start.elapsed_time(end) / MLP_STEPS
+    _check_head_counts(counts, MLP_STEPS, "[train-rtc]")
+    log(f"[train-rtc] {MLP_STEPS} steps of record / nd.Custom(softmax_rtc) / "
+        f"backward / gluon.Trainer(sgd {LENET_SGD}).step({MNIST_BATCH}): "
+        f"{step_ms:.3f} ms a step (CUDA events); launches {path_counts} "
+        f"({card})")
+    dev_ms, launches = log_profile(step, "one MLP step with the rtc head",
+                                   tag="[train-rtc]", top=6)
+    log(f"[train-rtc] profiled step: {dev_ms:.3f} ms of device time in "
+        f"{launches} launches; against the {step_ms:.3f} ms step the device "
+        f"is idle {1 - dev_ms / step_ms:.3f} of the step")
+    losses = [v.item() for v in losses]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train-rtc] losses {losses} are not finite "
+                             f"and falling")
+    log(f"[train-rtc] losses over {len(losses)} steps: {losses[0]:.4f} -> "
+        f"{losses[MLP_STEPS - 1]:.4f} -> {losses[-1]:.4f}")
+    return path_counts
+
+
+def _check_head_counts(counts, steps, tag):
+    """Exactly one softmax_rtc forward and backward a step, nothing else."""
+    want = {"softmax_fwd": steps, "softmax_bwd": steps}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, expected {want}")
+
+
+def phase_train_lenet(card):
+    """`bench_lenet`: LeNet at batch 1024 through ParallelTrainer with the
+    plain loss, then 3 imperative iterations with the softmax_rtc head."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, gluon, nd, parallel
+    from incubator_mxnet_torch.models import get_model
+    from incubator_mxnet_torch import softmax_rtc  # noqa: F401 (registers)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mx.random.seed(0)
+    net = get_model("lenet")
+    net.initialize(mx.init.Xavier())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = parallel.ParallelTrainer(net, lambda o, lab: loss_fn(o, lab),
+                                  optimizer="sgd",
+                                  optimizer_params=LENET_SGD,
+                                  mesh=parallel.default_mesh(1))
+    x, y = _mnist_batch()
+    _reset_all_counts()
+    losses = [tr.step(x, y).asscalar() for _ in range(3)]
+    k = 10
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses.append(tr.run_steps(k, x, y).asscalar())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / k
+    if any(_all_counts().values()):
+        raise AssertionError(f"[train-lenet] the plain loss launched "
+                             f"{_all_counts()}")
+    log(f"[train-lenet] LeNet {MNIST_BATCH}x1x28x28 float32 (TF32 off), SGD "
+        f"{LENET_SGD}: 3 steps then run_steps({k}): losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; step {step_ms:.3f} ms, {MNIST_BATCH / step_ms * 1e3:.1f} "
+        f"images/s (CUDA events over run_steps) ({card})")
+    dev_ms, launches = log_profile(
+        lambda: losses.append(tr.step(x, y).asscalar()),
+        "one LeNet ParallelTrainer step", tag="[train-lenet]", top=6)
+    log(f"[train-lenet] profiled step: {dev_ms:.3f} ms of device time in "
+        f"{launches} launches; against the {step_ms:.3f} ms step of "
+        f"run_steps({k}) the device is idle {1 - dev_ms / step_ms:.3f} of "
+        f"the step")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", LENET_SGD)
+    labels = y.data.long()
+    rows = torch.arange(MNIST_BATCH, device=labels.device)
+    for _ in range(3):
+        with autograd.record():
+            prob = nd.Custom(net(x), y, op_type="softmax_rtc")
+        prob.backward()
+        trainer.step(MNIST_BATCH)
+        losses.append(-prob.data.detach()[rows, labels].log().mean().item())
+    torch.cuda.synchronize()
+    _check_head_counts(_all_counts(), 3, "[train-lenet]")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train-lenet] losses {losses} are not "
+                             f"finite and falling")
+    log(f"[train-lenet] 3 imperative iterations with the softmax_rtc head: "
+        f"losses " + ", ".join(f"{v:.4f}" for v in losses[-3:])
+        + f"; launches {_rtc_counts()}")
+    return _rtc_counts()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1522,6 +1878,9 @@ def main():
     del net, x
     torch.cuda.empty_cache()
     phase_resnet_check(card)
+    rtc_recs, rtc_drive = phase_rtc(card)
+    mlp_counts = phase_train_rtc(card)
+    lenet_counts = phase_train_lenet(card)
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
@@ -1566,6 +1925,20 @@ def main():
                         "source": f"{csrc}/bottleneck_bwd.cu",
                         "replaces": f"{bnb_src}:{line}",
                         "launches": bnb_counts[name], **bnb_recs[name]})
+    # row 7: the softmax head's kernels count their launches on the two
+    # training paths; axpy, on neither, counts the [rtc] user API drive
+    for name, rec in rtc_recs.items():
+        head = name.startswith("softmax")
+        launches = mlp_counts.get(name, 0) + lenet_counts.get(name, 0) \
+            if head else rtc_drive[name]
+        log(f"[done] {name}: {launches} launches "
+            + (f"({mlp_counts.get(name, 0)} [train-rtc], "
+               f"{lenet_counts.get(name, 0)} [train-lenet])" if head
+               else "([rtc] user API drive)"))
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "incubator_mxnet_torch/softmax_rtc.py",
+                        "replaces": "incubator_mxnet_tpu/rtc.py:42",
+                        "launches": launches, **rec})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -119,14 +119,15 @@ def entry(name, fn_name, argtypes, restype=ctypes.c_int):
 
 
 def route(name, t, launch, plain):
-    """launch() for a CUDA tensor `t`, plain() for a CPU tensor; any other
-    device raises.  The wrappers' one dispatch rule: a CUDA tensor never
-    reaches a plain version."""
-    if t.device.type == "cuda":
+    """launch() for a CUDA tensor or device `t`, plain() for a CPU one;
+    any other device raises.  The wrappers' one dispatch rule: a CUDA
+    tensor never reaches a plain version."""
+    device = getattr(t, "device", t)
+    if device.type == "cuda":
         return launch()
-    if t.device.type == "cpu":
+    if device.type == "cpu":
         return plain()
-    raise MXNetError(f"{name}: no kernel for device {t.device}")
+    raise MXNetError(f"{name}: no kernel for device {device}")
 
 
 def stream(t):

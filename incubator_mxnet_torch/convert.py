@@ -76,6 +76,8 @@ def optimizer_states_from_jax(trainer, states, num_update):
         if isinstance(states, tuple) and len(states) == 2 and all(
                 isinstance(s, list) for s in states):
             states = list(zip(*states))          # fused Adam (m, v) lists
+        if getattr(trainer.optimizer, "momentum", None) == 0.0:
+            states = [None] * len(states)        # fused SGD keeps zeros
         trainer.set_states(list(states), num_update)
     else:
         raise MXNetError(f"optimizer_states_from_jax: not a port trainer: "

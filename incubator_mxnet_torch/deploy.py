@@ -200,7 +200,8 @@ def load_serving(artifact_dir, ctx=None):
     block = get_model(meta["model"]["name"], **meta["model"]["kwargs"])
     if meta.get("dtype"):
         block.cast(meta["dtype"])
-    block.load_dict(nd.load(os.path.join(artifact_dir, "params.npz")),
+    block.load_dict(nd.load_tensors(os.path.join(artifact_dir,
+                                                "params.npz")),
                     ctx=device, source=artifact_dir)
     block.eval()
     return ServedModel(block, device, meta)

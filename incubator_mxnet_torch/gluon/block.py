@@ -195,8 +195,8 @@ class Block(torch.nn.Module):
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False):
-        self.load_dict(F.load(filename), ctx, allow_missing, ignore_extra,
-                       source=filename)
+        self.load_dict(F.load_tensors(filename), ctx, allow_missing,
+                       ignore_extra, source=filename)
 
 
 class HybridBlock(Block):

@@ -143,9 +143,18 @@ class Trainer:
             pickle.dump(payload, f)
 
     def load_states(self, fname):
+        """Read a file of `save_states`, or of the JAX package's Trainer:
+        its per-key form (`"states"`) or, from its fused SGD and Adam
+        update, `"fused"` (SGD: a list of momenta; Adam: the lists
+        (means, variances))."""
         with open(fname, "rb") as f:
             payload = pickle.load(f)
-        self.set_states(payload["states"], payload.get("num_update", 0),
+        num_update = payload.get("num_update", 0)
+        if "fused" in payload:
+            from ..convert import optimizer_states_from_jax
+            optimizer_states_from_jax(self, payload["fused"], num_update)
+            return
+        self.set_states(payload["states"], num_update,
                         payload.get("index_update_count"))
 
     def set_states(self, states, num_update, index_update_count=None):

@@ -3,7 +3,7 @@ registered op (this module is the `F` of `HybridBlock.hybrid_forward`)."""
 import sys as _sys
 
 from .ndarray import (NDArray, array, zeros, zeros_like, ones_like,
-                      save, load, to_numpy)
+                      save, load, load_tensors, to_numpy)
 from .. import ops as _ops
 from ..ops import registry as _registry
 
@@ -11,3 +11,10 @@ _this = _sys.modules[__name__]
 for _name in _registry.list_ops():
     if not hasattr(_this, _name):
         setattr(_this, _name, _registry.make_nd_function(_name))
+
+
+def Custom(*inputs, op_type, **kwargs):
+    """Run registered custom op `op_type` (MXNet's `mx.nd.Custom`; see
+    `operator.Custom`)."""
+    from ..operator import Custom as _custom
+    return _custom(*inputs, op_type=op_type, **kwargs)

@@ -9,14 +9,11 @@ assignment `x[key] = y`, and the creation functions
 `array`/`zeros`/`zeros_like`/`ones_like`.  Operations record a graph
 only inside `autograd.record()`.  Assignment writes into the tensor
 itself (the JAX package rebinds an immutable array), so every holder
-of the NDArray sees the new values.  `save`/`load` keep
-named tensors in one `.npz`; numpy has no bfloat16, so such tensors are
-stored as their uint16 bit patterns and their dtypes recorded beside
-them.
+of the NDArray sees the new values.  `save`/`load` read and write the
+JAX package's `.npz` layout, so parameter files cross between the
+packages both ways.
 """
 from __future__ import annotations
-
-import json
 
 import numpy as _np
 import torch
@@ -26,7 +23,7 @@ from ..context import Context, as_device
 from ..autograd import grad_scope
 
 __all__ = ["NDArray", "array", "zeros", "zeros_like", "ones_like", "save",
-           "load", "to_numpy"]
+           "load", "load_tensors", "to_numpy"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -236,34 +233,62 @@ def ones_like(a):
     return NDArray(torch.ones_like(NDArray._raw(a)))
 
 
-_DTYPES_KEY = "__dtypes__"
-
-
 def save(fname, data):
-    """Write {name: NDArray or tensor} to one `.npz` file."""
-    blobs, dtypes = {}, {}
-    for name, a in data.items():
-        t = a._data if isinstance(a, NDArray) else a
-        t = t.detach().cpu().contiguous()
-        dtypes[name] = dtype_name(t.dtype)
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        blobs[name] = t.numpy()
-    if _DTYPES_KEY in blobs:
-        raise MXNetError(f"{_DTYPES_KEY} is a reserved name")
-    blobs[_DTYPES_KEY] = _np.array(json.dumps(dtypes))
+    """Write an NDArray, a list of them or {name: NDArray} to one `.npz`
+    file in the JAX package's layout, which needs no pickle: `arr_<i>`,
+    a `__dtypes__` array of dtype names and, for a dict, a `__names__`
+    array.  numpy has no bfloat16, so such arrays are stored as their
+    uint16 bit patterns.  Torch tensors are taken beside NDArrays."""
+    if isinstance(data, (NDArray, torch.Tensor)):
+        names, payload = None, [data]
+    elif isinstance(data, (list, tuple)):
+        names, payload = None, list(data)
+    elif isinstance(data, dict):
+        names = list(data)
+        payload = [data[k] for k in names]
+    else:
+        raise MXNetError("save expects NDArray, list, or dict")
+    arrays, dtypes = {}, []
+    for i, a in enumerate(payload):
+        t = (a._data if isinstance(a, NDArray) else a).detach().cpu() \
+            .contiguous()
+        dtypes.append(dtype_name(t.dtype))
+        arrays[f"arr_{i}"] = (t.view(torch.int16).numpy().view(_np.uint16)
+                              if t.dtype == torch.bfloat16 else t.numpy())
+    arrays["__dtypes__"] = _np.array(dtypes)
+    if names is not None:
+        arrays["__names__"] = _np.array(names)
     with open(fname, "wb") as f:
-        _np.savez(f, **blobs)
+        _np.savez(f, **arrays)
+
+
+def load_tensors(fname):
+    """Read a file written by `save` (either package's) as CPU tensors:
+    {name: tensor} for a dict, else a list."""
+    with _np.load(fname, allow_pickle=False) as z:
+        n = sum(k.startswith("arr_") for k in z.files)
+        dtypes = ([str(d) for d in z["__dtypes__"]]
+                  if "__dtypes__" in z.files else [None] * n)
+        payload = []
+        for i in range(n):
+            a = z[f"arr_{i}"]
+            if dtypes[i] == "bfloat16":
+                t = torch.from_numpy(a.view(_np.int16).copy()) \
+                    .view(torch.bfloat16)
+            else:
+                if dtypes[i] and a.dtype.name != dtypes[i]:
+                    a = a.view(_np.dtype(dtypes[i]))
+                t = torch.from_numpy(a.copy())
+            payload.append(t)
+        if "__names__" in z.files:
+            return dict(zip((str(k) for k in z["__names__"]), payload))
+        return payload
 
 
 def load(fname):
-    """Read a file written by `save`: {name: CPU tensor}."""
-    with _np.load(fname, allow_pickle=False) as z:
-        dtypes = json.loads(str(z[_DTYPES_KEY]))
-        out = {}
-        for name, dt in dtypes.items():
-            t = torch.from_numpy(_np.array(z[name]))
-            if dt == "bfloat16":
-                t = t.view(torch.bfloat16)
-            out[name] = t
-        return out
+    """Read a file written by `save` (either package's): {name: NDArray}
+    for a dict, else a list of NDArrays, on the current context."""
+    loaded = load_tensors(fname)
+    if isinstance(loaded, dict):
+        return {k: array(t) for k, t in loaded.items()}
+    return [array(t) for t in loaded]

@@ -75,13 +75,20 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
     cells are -inf for max and 0 for avg and sum.  avg divides by the
     window's size, or with `count_include_pad=False` by the number of
     real cells it covers.  Global pooling is the max, or for every other
-    pool_type the mean, over all spatial axes (the JAX op's rule)."""
+    pool_type the mean, over all spatial axes (the JAX op's rule).
+
+    Integer data keeps the JAX op's types: max pads with the type's
+    least value and returns the type, sum returns the type, avg and the
+    global mean return float32.  torch has no integer avg pooling, so
+    integer windows are cut with `unfold` and reduced."""
     nd = data.ndim - 2
+    floating = data.is_floating_point()
     if global_pool:
         axes = tuple(range(2, data.ndim))
         if pool_type == "max":
             return data.amax(dim=axes, keepdim=True)
-        return data.mean(dim=axes, keepdim=True)
+        return (data if floating else data.float()).mean(dim=axes,
+                                                         keepdim=True)
     if pool_type not in ("max", "avg", "sum"):
         raise MXNetError(f"unknown pool_type {pool_type}" if pool_type != "lp"
                          else "lp pooling not implemented yet")
@@ -97,6 +104,9 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
             hi = max(p, (out_full - 1) * s + k - size - p)
         pads.append((p, hi))
     flat = [x for lo_hi in reversed(pads) for x in lo_hi]   # F.pad's order
+    if not floating:
+        return _int_pooling(data, pool_type, kernel, stride, flat,
+                            count_include_pad)
     if pool_type == "max":
         x = F.pad(data, flat, value=float("-inf")) if any(flat) else data
         return _POOL["max"][nd](x, kernel, stride)
@@ -108,6 +118,24 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
         return avg
     inside = F.pad(torch.ones_like(data), flat)
     return avg / _POOL["avg"][nd](inside, kernel, stride)
+
+
+def _int_pooling(data, pool_type, kernel, stride, flat, count_include_pad):
+    def windows(x):
+        for i, (k, s) in enumerate(zip(kernel, stride)):
+            x = x.unfold(2 + i, k, s)
+        return x                                # (N, C, *out, *kernel)
+    dims = tuple(range(-len(kernel), 0))
+    if pool_type == "max":
+        low = torch.iinfo(data.dtype).min
+        return windows(F.pad(data, flat, value=low)).amax(dim=dims)
+    total = windows(F.pad(data, flat)).sum(dim=dims, dtype=data.dtype)
+    if pool_type == "sum":
+        return total
+    if count_include_pad:
+        return total.float() / math.prod(kernel)
+    return total.float() / windows(F.pad(torch.ones_like(data), flat)) \
+        .sum(dim=dims).float()
 
 
 @register("BatchNorm")

@@ -66,10 +66,11 @@ def expand_dims(data, *, axis):
 
 @register("slice_axis")
 def slice_axis(data, *, axis, begin=0, end=None):
-    size = data.shape[axis]
-    end = size if end is None else end
-    begin, end = (b + size if b < 0 else b for b in (begin, end))
-    return data.narrow(axis, begin, end - begin)
+    """data[begin:end] along `axis`, clamped to the axis like a Python
+    slice (the JAX op's rule): an empty result where begin >= end."""
+    idx = [slice(None)] * data.ndim
+    idx[axis] = slice(begin, end)
+    return data[tuple(idx)]
 
 
 @register("pick")
@@ -86,12 +87,13 @@ def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
 @register("Embedding")
 def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
-    """Row lookup.  Ids are truncated to integers as the JAX op's int32
-    cast does; an id outside [0, rows) gives a row of NaN, as
-    `jnp.take`'s fill mode does, where an unchecked lookup would fault
-    the device."""
+    """Row lookup with `jnp.take`'s rules, as the JAX op has them: ids
+    are truncated to integers (its int32 cast), an id in [-rows, -1]
+    wraps to row rows + id, and any other id outside [0, rows) gives a
+    row of NaN, where an unchecked lookup would fault the device."""
     ids = data.to(torch.int64)
     rows = weight.shape[0]
+    ids = torch.where(ids < 0, ids + rows, ids)
     valid = (ids >= 0) & (ids < rows)
     out = torch.nn.functional.embedding(ids.clamp(0, rows - 1), weight)
     return out.masked_fill(~valid.unsqueeze(-1), float("nan"))

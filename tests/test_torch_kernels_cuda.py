@@ -667,3 +667,115 @@ def test_bottleneck_kernels_refuse_float32(card):
     x, w, gamma, _beta, dy, m, inv = _bnb_inputs(card, 256, 64, 256)
     with pytest.raises(mx.MXNetError, match="bfloat16"):
         bnb.bottleneck_bwd_reduce(dy.float(), x.float(), w.float(), m, inv)
+
+
+# -- rtc (row 7): a user CudaModule, the softmax head's kernels --------
+# softmax forward and backward against their plain versions: atol 1e-6
+# (expf and the row sums in another order; values are at most 1); axpy:
+# exact (the kernel rounds a·x and the sum apart, as the plain version
+# does, then once to the type)
+RTC_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("rows,cols", [(1024, 10), (8192, 1000), (3, 33)])
+def test_rtc_softmax_kernels_match_plain(card, rows, cols):
+    from incubator_mxnet_torch import rtc, softmax_rtc as srtc
+    gen = torch.Generator(device=card).manual_seed(rows)
+    x = torch.randn(rows, cols, generator=gen, device=card) * 4
+    label = torch.randint(0, cols, (rows,), generator=gen,
+                          device=card).float()
+    rtc.reset_launch_counts()
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    srtc.softmax_fwd(x, y)
+    srtc.softmax_bwd(label, y, dx)
+    ry, rdx = torch.empty_like(x), torch.empty_like(x)
+    srtc.softmax_fwd_plain(x, ry, rows, cols, 1)
+    srtc.softmax_bwd_plain(label, y, rdx, rows, cols, 1)
+    torch.cuda.synchronize()
+    assert (y - ry).abs().max().item() <= RTC_ATOL
+    assert (dx - rdx).abs().max().item() <= RTC_ATOL
+    srtc.softmax_fwd(x, y, req="add")
+    torch.cuda.synchronize()
+    assert (y - 2 * ry).abs().max().item() <= 2 * RTC_ATOL
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = (torch.randn(rows, cols, generator=gen, device=card)
+                .to(dtype) for _ in range(2))
+        want = b.clone()
+        srtc.axpy_plain(a, want, 0.37, want.numel())
+        srtc.axpy(a, b, 0.37)
+        torch.cuda.synchronize()
+        assert torch.equal(b, want), dtype
+    assert dict(rtc.launch_counts) == {
+        "softmax_fwd": 2, "softmax_bwd": 1, "axpy<float>": 1,
+        "axpy<__nv_bfloat16>": 1}
+
+
+def test_rtc_compile_error_raises_with_nvcc_message(card):
+    from incubator_mxnet_torch import rtc
+    mod = rtc.CudaModule("__global__ void broken(float *x) { x[0] = 1 }")
+    k = mod.get_kernel("broken", "float *x")
+    with pytest.raises(mx.MXNetError, match="error"):
+        k.launch([torch.zeros(1, device=card)], mx.gpu(0), (1,), (1,))
+
+
+def test_rtc_checks_raise_before_launch(card):
+    from incubator_mxnet_torch import rtc, softmax_rtc as srtc
+    rtc.reset_launch_counts()
+    x = torch.zeros(4, 10, device=card, dtype=torch.float64)
+    with pytest.raises(mx.MXNetError, match="needs torch.float32"):
+        srtc.softmax_fwd(x, x)
+    with pytest.raises(mx.MXNetError, match="is on cpu"):
+        srtc.kernels()["softmax_fwd"].launch(
+            [torch.zeros(4, 10, device=card), torch.zeros(4, 10), 4, 10, 1],
+            mx.gpu(0), (1,), (128,))
+    assert not rtc.launch_counts
+
+
+def test_rtc_launch_error_and_large_dynamic_shared_memory(card):
+    """A block larger than the kernel's launch bounds is refused by the
+    launch, with CUDA's message; 100 KB of dynamic shared memory needs
+    the attribute the launcher sets above 48 KB."""
+    from incubator_mxnet_torch import rtc
+    src = r"""
+    extern "C" __global__ void __launch_bounds__(64) small(float *x) {
+      x[threadIdx.x] = 1.f;
+    }
+    extern "C" __global__ void big_smem(float *x, int n) {
+      extern __shared__ float s[];
+      for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = (float)i;
+      __syncthreads();
+      for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = s[n - 1 - i];
+    }
+    """
+    mod = rtc.CudaModule(src)
+    x = torch.zeros(25600, device=card)
+    with pytest.raises(mx.MXNetError, match="launch failed"):
+        mod.get_kernel("small", "float *x").launch([x], mx.gpu(0), (1,),
+                                                    (128,))
+    mod.get_kernel("big_smem", "float *x, int n").launch(
+        [x, 25600], mx.gpu(0), (1,), (256,), shared_mem=25600 * 4)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.arange(25599, -1, -1, device=card).float())
+
+
+def test_rtc_softmax_head_gradients_match_the_loss(card):
+    """The softmax_rtc head's gradients are SoftmaxCrossEntropyLoss's
+    (rtol 1e-5 of the largest: the same maths, sums in another order)."""
+    from incubator_mxnet_torch import autograd, gluon, nd
+    from incubator_mxnet_torch import softmax_rtc  # noqa: F401 (registers)
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(64, 10, generator=gen, device=card)
+    label = nd.NDArray(torch.randint(0, 10, (64,), generator=gen,
+                                     device=card).float())
+    grads = []
+    for head in ("rtc", "loss"):
+        xa = nd.NDArray(x.clone())
+        xa.attach_grad()
+        with autograd.record():
+            out = nd.Custom(xa, label, op_type="softmax_rtc") if \
+                head == "rtc" else \
+                gluon.loss.SoftmaxCrossEntropyLoss()(xa, label)
+        out.backward()
+        grads.append(xa.grad.data)
+    top = grads[1].abs().max().item()
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * top

@@ -1,0 +1,244 @@
+"""Five places where the port departed from the JAX package, each held
+against it on the CPU: parameter files that cross between the packages,
+a JAX fused-update states file loaded into the port's Trainer,
+`Embedding` with negative ids, `slice_axis` past the end of its axis,
+and `Pooling` on integer data.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances, with their reasons:
+
+- files, lookups, slices and integer pooling: exact (the same values
+  copied, gathered or summed in integers);
+- the float32 mean of integer pooling windows: rtol 1e-6 (one division
+  of the same float32 sum, or a mean summed in another order);
+- one optimizer step after states loaded from the JAX package: rtol
+  1e-6, atol 1e-7 (the same elementwise float32 arithmetic; Adam's
+  bias-corrected lr is computed in double on both sides but rounded at
+  another point).
+"""
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import incubator_mxnet_tpu as mxj
+from incubator_mxnet_tpu import autograd as jag
+from incubator_mxnet_tpu.ops import nn as jnn
+from incubator_mxnet_tpu.ops import shape as jshape
+
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch import autograd, gluon, nd
+from incubator_mxnet_torch.convert import params_from_jax
+from incubator_mxnet_torch.ops import nn as tnn
+from incubator_mxnet_torch.ops import shape as tshape
+
+OPT_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def _arrays(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"w": rng.randn(3, 4).astype(np.float32),
+            "b16": rng.randn(5).astype(np.float32),
+            "ids": rng.randint(-9, 9, (2, 3)).astype(np.int32)}
+
+
+def _numpy(a):
+    """An NDArray of either package as float64 numpy (bf16 exactly)."""
+    return np.asarray(a.asnumpy()).astype(np.float64)
+
+
+# ------------------------------------------------ 1. parameter files
+def test_port_file_loads_in_jax(tmp_path):
+    src = _arrays()
+    with mx.cpu():
+        t = {k: nd.array(v) for k, v in src.items()}
+    t["b16"] = t["b16"].astype("bfloat16")
+    path = str(tmp_path / "port.npz")
+    nd.save(path, t)
+    got = mxj.nd.load(path)
+    assert list(got) == list(t)
+    for k in t:
+        assert str(got[k].dtype) == str(t[k].dtype).replace("torch.", "")
+        np.testing.assert_array_equal(_numpy(got[k]), _numpy(t[k]), err_msg=k)
+    nd.save(path, [t["w"], t["b16"]])                     # a list
+    got = mxj.nd.load(path)
+    assert isinstance(got, list) and len(got) == 2
+    np.testing.assert_array_equal(_numpy(got[1]), _numpy(t["b16"]))
+    nd.save(path, t["ids"])                               # one NDArray
+    np.testing.assert_array_equal(_numpy(mxj.nd.load(path)[0]),
+                                  src["ids"])
+
+
+def test_jax_file_loads_in_port(tmp_path):
+    src = _arrays(1)
+    j = {k: mxj.nd.array(v, ctx=mxj.cpu(), dtype=v.dtype)
+         for k, v in src.items()}
+    j["b16"] = j["b16"].astype("bfloat16")
+    path = str(tmp_path / "jax.npz")
+    mxj.nd.save(path, j)
+    with mx.cpu():
+        got = nd.load(path)
+    assert list(got) == list(j)
+    assert all(isinstance(v, nd.NDArray) for v in got.values())
+    assert got["b16"].dtype == torch.bfloat16
+    assert got["ids"].dtype == torch.int32
+    for k in j:
+        np.testing.assert_array_equal(_numpy(got[k]), _numpy(j[k]), err_msg=k)
+    mxj.nd.save(path, [j["w"]])
+    with mx.cpu():
+        (w,) = nd.load(path)
+    np.testing.assert_array_equal(w.asnumpy(), src["w"])
+
+
+def _jax_dense(dtype):
+    mxj.random.seed(0)
+    net = mxj.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(mxj.gluon.nn.Dense(6, activation="relu"),
+                mxj.gluon.nn.Dense(3))
+    net.initialize(mxj.init.Xavier(), ctx=mxj.cpu())
+    x = np.random.RandomState(2).randn(4, 5).astype(np.float32)
+    net(mxj.nd.array(x, ctx=mxj.cpu()))
+    net.cast(dtype)
+    return net, x
+
+
+def _port_dense(dtype):
+    net = gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(gluon.nn.Dense(6, activation="relu"), gluon.nn.Dense(3))
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    net.cast(dtype)
+    return net
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_save_parameters_cross_both_ways(tmp_path, dtype):
+    jnet, x = _jax_dense(dtype)
+    jout = _numpy(jnet(mxj.nd.array(x, ctx=mxj.cpu()).astype(dtype)))
+    path = str(tmp_path / "jax.params")
+    jnet.save_parameters(path)
+    tnet = _port_dense(dtype)
+    tnet.load_parameters(path, ctx=mx.cpu())
+    with mx.cpu():
+        tout = _numpy(tnet(nd.array(x).astype(dtype)))
+    np.testing.assert_allclose(tout, jout, rtol=1e-6 if dtype == "float32"
+                               else 2 ** -7, atol=1e-6)
+    # and back: the port's file into a fresh JAX net
+    back = str(tmp_path / "port.params")
+    tnet.save_parameters(back)
+    jnet2, _ = _jax_dense(dtype)
+    jnet2.load_parameters(back, ctx=mxj.cpu())
+    for k, p in jnet._collect_params_with_prefix().items():
+        q = jnet2._collect_params_with_prefix()[k]
+        assert q.data().dtype == p.data().dtype
+        np.testing.assert_array_equal(_numpy(q.data()), _numpy(p.data()),
+                                      err_msg=k)
+
+
+# ------------------------------------- 2. JAX fused-update states file
+@pytest.mark.parametrize("opt,params", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("sgd", {"learning_rate": 0.1}),
+    ("adam", {"learning_rate": 0.01})])
+def test_trainer_loads_jax_fused_states(tmp_path, opt, params):
+    """A few steps in the JAX package, its states saved; the port loads
+    the weights and the states, and one more step agrees."""
+    jnet, x = _jax_dense("float32")
+    y = np.random.RandomState(3).randn(4, 3).astype(np.float32)
+    jtr = mxj.gluon.Trainer(jnet.collect_params(), opt, params)
+    jx, jy = (mxj.nd.array(a, ctx=mxj.cpu()) for a in (x, y))
+
+    def jstep():
+        with jag.record():
+            loss = ((jnet(jx) - jy) ** 2).sum()
+        loss.backward()
+        jtr.step(4)
+    for _ in range(3):
+        jstep()
+    path = str(tmp_path / "states")
+    jtr.save_states(path)
+    with open(path, "rb") as f:
+        assert "fused" in pickle.load(f)      # the JAX default path
+    tnet = _port_dense("float32")
+    params_from_jax(tnet, {k: v.data().asnumpy() for k, v in
+                           jnet._collect_params_with_prefix().items()})
+    ttr = gluon.Trainer(tnet.collect_params(), opt, params)
+    ttr.load_states(path)
+    assert ttr.optimizer.num_update == 3
+    jstep()
+    with mx.cpu():
+        tx, ty = nd.array(x), nd.array(y)
+    with autograd.record():
+        loss = nd.sum(nd.square(tnet(tx) - ty))
+    loss.backward()
+    ttr.step(4)
+    for k, p in jnet._collect_params_with_prefix().items():
+        np.testing.assert_allclose(
+            tnet._collect_params_with_prefix()[k].data().asnumpy(),
+            p.data().asnumpy(), err_msg=k, **OPT_TOL)
+
+
+# --------------------------------------------------- 3. Embedding ids
+def test_embedding_negative_and_out_of_range_ids():
+    rows = 4
+    w = np.random.RandomState(4).randn(rows, 3).astype(np.float32)
+    ids = np.array([[-1, -rows, -rows - 1, rows, rows + 3, 2, -2.7, 1.9]],
+                   np.float32)
+    ref = np.asarray(jshape.embedding(jnp.asarray(ids), jnp.asarray(w)))
+    got = tshape.embedding(torch.from_numpy(ids), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert np.isnan(ref[0, 2]).all() and not np.isnan(ref[0, 0]).any()
+
+
+# ------------------------------------------------ 4. slice_axis clamps
+@pytest.mark.parametrize("axis,begin,end", [
+    (1, 1, 9), (1, -9, 2), (1, -9, 9), (1, 3, 1), (1, 7, 9), (1, 2, 2),
+    (-1, -2, None), (0, 1, 100), (-2, -1, 5), (1, 0, -7)])
+def test_slice_axis_clamps_like_a_python_slice(axis, begin, end):
+    x = np.arange(3 * 5 * 2, dtype=np.float32).reshape(3, 5, 2)
+    ref = np.asarray(jshape.slice_axis(jnp.asarray(x), axis=axis,
+                                       begin=begin, end=end))
+    got = tshape.slice_axis(torch.from_numpy(x), axis=axis, begin=begin,
+                            end=end)
+    assert tuple(got.shape) == ref.shape
+    np.testing.assert_array_equal(got.numpy(), ref)
+    with mx.cpu():
+        arr = nd.array(x).slice_axis(axis, begin, end)
+    assert arr.shape == ref.shape
+
+
+# ------------------------------------------------- 5. integer pooling
+@pytest.mark.parametrize("pool_type", ["max", "avg", "sum"])
+@pytest.mark.parametrize("pad", [(0, 0), (1, 1)])
+@pytest.mark.parametrize("count_include_pad", [True, False])
+@pytest.mark.parametrize("convention", ["valid", "full"])
+def test_pooling_on_int32_matches_jax(pool_type, pad, count_include_pad,
+                                      convention):
+    x = np.random.RandomState(5).randint(-1000, 1000, (2, 3, 7, 6)) \
+        .astype(np.int32)
+    kw = dict(kernel=(3, 2), pool_type=pool_type, stride=(2, 2), pad=pad,
+              count_include_pad=count_include_pad,
+              pooling_convention=convention)
+    ref = np.asarray(jnn.pooling(jnp.asarray(x), **kw))
+    got = tnn.pooling(torch.from_numpy(x), **kw)
+    assert str(got.dtype).replace("torch.", "") == ref.dtype.name
+    assert tuple(got.shape) == ref.shape
+    if ref.dtype == np.int32:
+        np.testing.assert_array_equal(got.numpy(), ref)
+    else:
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+
+
+@pytest.mark.parametrize("pool_type", ["max", "avg", "sum"])
+def test_global_pooling_on_int32_matches_jax(pool_type):
+    x = np.random.RandomState(6).randint(-1000, 1000, (2, 3, 5, 4)) \
+        .astype(np.int32)
+    ref = np.asarray(jnn.pooling(jnp.asarray(x), pool_type=pool_type,
+                                 global_pool=True))
+    got = tnn.pooling(torch.from_numpy(x), pool_type=pool_type,
+                      global_pool=True)
+    assert str(got.dtype).replace("torch.", "") == ref.dtype.name
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
