@@ -12,11 +12,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    serving shape (BH = 128*12, T = 128, d = 64), bfloat16 and float32,
    causal on and off, kv_length random with 0 and T among them: max
    error, kernel time, plain-version time, one PyTorch library call's
-   time and the card's bound for the same work.
+   time and the card's bound for the same work; the kernel's share of
+   its bound, the name and grid of its launch in the profiler's trace
+   of one wrapper call, and the host time of one wrapper call.
 3. The short kernel's training form (row 1b) at the training shape
    (BH = 60*12, T = 128, d = 64): o and p, and dq, dk, dv of
    `FlashShort` against torch autograd through the plain version; the
-   kernel's, the plain version's and the backward's times and the bound.
+   kernel's, the plain version's and the backward's times, the bound,
+   the share of it, the traced name and grid of one launch and the host
+   time of one wrapper call.
 4. The streaming FlashAttention-2 kernels (rows 2-4: `flash_fwd`,
    `flash_bwd_dq`, `flash_bwd_dkv`) against their plain versions at the
    long training shape (BH = 4*12, T = 2048, d = 64), bfloat16 and
@@ -36,7 +40,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    `FlashShortBTHD`'s gradients against torch autograd through the plain
    forward; each kernel's time, its plain version's, the library call's
    (SDPA on the transposed views; for row 6 its backward less its
-   forward), the bound, and `multi_head_attention`'s time on the default
+   forward), the bound and the share of it (row 5's two forms also the
+   traced name and grid of one launch and the host time of one wrapper
+   call), and
+   `multi_head_attention`'s time on the default
    route (row 1 or 1b and `flash_short_bwd` with their layout copies) and
    on the BTHD route.
 6. Serving at T = 128: BERT-base (bert_12_768_12) classifier in bfloat16
@@ -242,6 +249,70 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
+def host_us(fn, iters=50, repeats=5):
+    """Host microseconds of one fn() call: the least over `repeats` of
+    the mean of `iters` calls enqueued behind a device sleep, so that the
+    launch queue never fills and the least-disturbed reading of a shared
+    host is kept."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda._sleep(int(0.05 * SLEEP_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def traced_launch(fn, kernel, attempts=3):
+    """(name, grid) of the one launch of a kernel whose name holds
+    `kernel` in a fn() call, as torch.profiler's trace of that call
+    records it: the grid is the blocks along x, y and z.  A trace on the
+    card has been seen to hold none of a call's kernels, so a call whose
+    trace shows no launch is traced again, up to `attempts` calls in
+    all; a trace with more than one launch fails."""
+    from torch.profiler import profile, ProfilerActivity
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        found = [(e["name"], e["args"]["grid"]) for e in events
+                 if str(e.get("cat", "")).lower() == "kernel"
+                 and kernel in e.get("name", "")]
+        if len(found) > 1:
+            raise AssertionError(f"the trace of one call holds "
+                                 f"{len(found)} launches of {kernel}")
+        if found:
+            name, grid = found[0]
+            return name.split("(")[0].split("<")[0].split()[-1], grid
+        n = sum(str(e.get("cat", "")).lower() == "kernel" for e in events)
+        log(f"[trace] no launch of {kernel} in the trace of one call "
+            f"({n} kernel events in it); tracing another call")
+    raise AssertionError(f"the traces of {attempts} calls hold no launch "
+                         f"of {kernel}")
+
+
+def _launch_facts(fn):
+    """The short forward kernel's name and grid, from the trace of one
+    wrapper call fn(), and the host microseconds of one such call."""
+    name, grid = traced_launch(fn, "short_fwd_")
+    return {"kernel": name, "grid": grid, "host_us": host_us(fn)}
+
+
+def _facts_text(facts):
+    return (f"grid {facts['grid']} ({facts['kernel']}, traced), host "
+            f"{facts['host_us']:.1f} us a call")
+
+
 def phase_kernels():
     """Kernel vs plain version; returns the main-path config's record."""
     import torch.nn.functional as F
@@ -283,15 +354,18 @@ def phase_kernels():
                 q4, k4, v4, attn_mask=add, scale=scale))
             nbytes = 4 * q.numel() * q.element_size() + lengths.numel() * 4
             bound_ms, bound_by = _bound(nbytes, 4 * bh * T * T * D, dtype)
+            facts = _launch_facts(lambda: flash_short_fwd(
+                q, k, v, lengths, scale, causal))
             rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
+                   "bound_by": bound_by, **facts}
             records[(dtype, causal)] = rec
             log(f"[kernel] flash_short_fwd {str(dtype)[6:]} causal={causal} "
                 f"BH={bh} T={T} d={D}: max|err|={err:.3e} "
                 f"(atol {ATOL[dtype]}), kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({rec['bound_by']})")
+                f"{bound_ms:.4f} ms ({rec['bound_by']}), "
+                f"{100 * bound_ms / ms:.1f}% of bound, {_facts_text(facts)}")
             del out, ref
     return records[(torch.bfloat16, False)]
 
@@ -369,10 +443,12 @@ def phase_train_kernels():
             nbytes = (4 * q.numel() + p.numel()) * q.element_size() + \
                 lengths.numel() * 4
             bound_ms, bound_by = _bound(nbytes, 4 * bh * T * T * D, dtype)
+            facts = _launch_facts(lambda: flash_short_fwd_train(
+                q, k, v, lengths, scale, causal))
             rec = {"max_abs_err": max(o_err, p_err), "ms": ms,
                    "plain_ms": plain_ms, "bwd_ms": bwd_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
+                   "library_ms": None, **facts}
             records[(dtype, causal)] = rec
             log(f"[kernel] flash_short_fwd_train {str(dtype)[6:]} "
                 f"causal={causal} BH={bh} T={T} d={D}: o max|err|="
@@ -381,7 +457,8 @@ def phase_train_kernels():
                 f"{grad_errs['dq']:.3e}/{grad_errs['dk']:.3e}/"
                 f"{grad_errs['dv']:.3e} (rtol {GRAD_RTOL[dtype]}); kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, backward "
-                f"{bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                f"{bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.1f}% of bound, {_facts_text(facts)}; "
                 f"library: no single PyTorch call returns p")
             del o, p, ro, rp, a, b, jax_rule
     return records[(torch.bfloat16, False)]
@@ -736,6 +813,8 @@ def phase_bthd_kernels():
                         return multi_head_attention(*qkv, None, lengths,
                                                     num_heads=HEADS)
                 recs = {name: (ms, plain_ms, lib_ms, bound)}
+                facts = {name: _launch_facts(lambda: fa.flash_short_bthd_fwd(
+                    q, k, v, lengths, scale, False))}
                 routes = "forward"
             else:
                 o, p = fa.flash_short_bthd_fwd_train(q, k, v, lengths, scale,
@@ -760,6 +839,9 @@ def phase_bthd_kernels():
                     return torch.autograd.grad(sdpa(), leaves, do4)
                 lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
                 pbytes = p.numel() * p.element_size()
+                facts = {"flash_short_bthd_fwd_train": _launch_facts(
+                    lambda: fa.flash_short_bthd_fwd_train(
+                        q, k, v, lengths, scale, False))}
                 recs = {"flash_short_bthd_fwd_train": (
                             fwd_ms, fwd_plain, None,
                             _bound(4 * nbytes + pbytes + batch * 4,
@@ -794,17 +876,20 @@ def phase_bthd_kernels():
                     recs.items():
                 lib = "none: no single PyTorch call returns p" \
                     if lib_ms is None else f"{lib_ms:.4f} ms"
+                fact = facts.get(name, {})
+                launch = f", {_facts_text(fact)}" if fact else ""
                 log(f"[kernel] {name} {str(dtype)[6:]} B={batch} T={T} "
                     f"H={HEADS} d={D} non-causal: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}); library (SDPA"
+                    f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound"
+                    f"{launch}; library (SDPA"
                     f"{' backward' if name.endswith('bwd') else ''}) {lib}")
                 if dtype == torch.bfloat16:
                     records[name] = {
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms,
-                        **route_ms}
+                        **fact, **route_ms}
             del buf, q, k, v, do, q4, k4, v4, do4, qkv
             torch.cuda.empty_cache()
     return records
@@ -1559,7 +1644,7 @@ def phase_rtc(card):
                      "int cols, int req").launch(
         [x, y, 1024, 10, 1], mx.gpu(0), (128, 1, 1), (256, 1, 1))
     torch.cuda.synchronize()
-    if sum(rtc.nvcc_runs.values()) != runs0 + 1:
+    if sum(rtc.nvcc_runs.values()) != runs0 + (not on_disk):
         raise AssertionError("[rtc] a second CudaModule of the same source "
                              "ran nvcc")
     first = "found built on disk by an earlier run, so not timed" \

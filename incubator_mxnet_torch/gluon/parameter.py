@@ -164,9 +164,9 @@ class Parameter:
     def set_data(self, data, ctx=None):
         """Replace the values.  An initialized parameter keeps its device
         and dtype; an uninitialized one takes the shape of `data` and the
-        device of its pending init, else `ctx`.  The values are copied in
-        place, outside any graph: inside `autograd.record()` nothing is
-        recorded."""
+        device of its pending init, else `ctx`.  The values are copied,
+        never shared with `data`, outside any graph: inside
+        `autograd.record()` nothing is recorded."""
         t = data._data if isinstance(data, NDArray) else torch.as_tensor(data)
         t = t.detach()
         if self._data is None:
@@ -175,7 +175,7 @@ class Parameter:
                 else as_device(ctx)
             self._deferred_init = None
             self._set_tensor(t.to(device=device,
-                                  dtype=torch_dtype(self.dtype)))
+                                  dtype=torch_dtype(self.dtype), copy=True))
             return
         if tuple(t.shape) != self._shape:
             raise MXNetError(

@@ -200,7 +200,8 @@ def to_numpy(t):
 def array(source_array, ctx=None, dtype=None):
     """An NDArray of `source_array` on `ctx` (default: the current
     context, gpu(0)).  The dtype defaults to the source's, float32 for
-    Python data."""
+    Python data.  The result owns its storage, as the JAX package's
+    does: writing into it never changes the source, on any device."""
     if isinstance(source_array, NDArray):
         source_array = source_array._data
     if isinstance(source_array, torch.Tensor):
@@ -215,7 +216,7 @@ def array(source_array, ctx=None, dtype=None):
         t = torch.from_numpy(src)
     dev = as_device(ctx)
     return NDArray(t.to(device=dev, dtype=None if dtype is None
-                        else torch_dtype(dtype)))
+                        else torch_dtype(dtype), copy=True))
 
 
 def zeros(shape, ctx=None, dtype="float32"):

@@ -207,16 +207,18 @@ def _check(q, k, v, lengths):
 def _bthd_rows(t):
     """(t, batch stride, row stride) for a (B, T, H, d) tensor the
     kernels read in place: the d elements of a head's row contiguous and
-    heads d apart, a 16-byte-aligned base, and batch and row strides that
-    are multiples of 16 bytes or a contiguous tensor (the tensor-core
-    kernels, which move rows 16 bytes at a time, run only where a
-    contiguous tensor's strides are).  Any other tensor is replaced by one
+    heads d apart, a 16-byte-aligned base, rows and batches that do not
+    overlap, and batch and row strides that are multiples of 16 bytes or
+    a contiguous tensor (the tensor-core kernels, which move rows 16
+    bytes at a time through TMA tensor maps, run only where a contiguous
+    tensor's strides are).  Any other tensor is replaced by one
     contiguous copy, which the allocator aligns."""
     B, T, H, d = t.shape
     sb, st, sh, se = t.stride()
     strides_ok = all(s * t.element_size() % 16 == 0
                      for s, n in ((sb, B), (st, T)) if n > 1)
-    if ((se == 1 or d == 1) and (sh == d or H == 1)
+    apart = (T == 1 or st >= H * d) and (B == 1 or sb >= T * st)
+    if ((se == 1 or d == 1) and (sh == d or H == 1) and apart
             and t.data_ptr() % 16 == 0 and (strides_ok or t.is_contiguous())):
         return t, sb, st
     return t.clone(memory_format=torch.contiguous_format), T * H * d, H * d

@@ -132,3 +132,25 @@ def test_multi_head_attention_matches_jax(causal):
                          kv_length=torch.from_numpy(valid))
     np.testing.assert_allclose(fl.transpose(1, 2).reshape(N, L, E).numpy(),
                                ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh", [1, 7, 131, 133])
+def test_short_attention_matches_jax_kernel_at_odd_batch_heads(bh, causal):
+    """Batch-head counts that the JAX kernel's packing does not divide
+    (and, on the card, fewer than and just above the persistent kernel's
+    grid), kv_length 0, 1 and T among the rows where there are enough:
+    the port's wrapper on CPU tensors against the JAX kernel, bf16."""
+    rng = np.random.RandomState(bh)
+    arrs = [rng.randn(bh, T, D).astype(np.float32) for _ in range(3)]
+    lengths = rng.randint(0, T + 1, bh).astype(np.int32)
+    lengths[0] = 0
+    lengths[1 % bh] = 1
+    lengths[-1] = T
+    ref = _jax(arrs, "bfloat16", causal=causal, kv_length=lengths)
+    q, k, v = _torch(arrs, "bfloat16")
+    out = flash_attention(q, k, v, causal=causal,
+                          kv_length=torch.from_numpy(lengths))
+    assert out.shape == (bh, T, D) and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=ATOL["bfloat16"])

@@ -42,6 +42,7 @@ from incubator_mxnet_torch import gluon, nd, parallel
 from incubator_mxnet_torch.convert import params_from_jax
 from incubator_mxnet_torch.models import get_model
 from incubator_mxnet_torch.ops import attention as port_attention
+from incubator_mxnet_torch.ops import flash_attention as fa
 from incubator_mxnet_torch.ops.attention import attention_route
 from incubator_mxnet_torch.ops.flash_attention import (
     FlashShortBTHD, flash_attention_bthd, flash_short_bthd_bwd,
@@ -240,6 +241,41 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(mx.MXNetError, match="no kernel for device meta"):
         flash_short_bthd_fwd(q, q, q, torch.zeros(1, dtype=torch.int32,
                                                   device="meta"), 1.0)
+
+
+def _strided(shape, strides):
+    """A (B, T, H, d) bf16 view with these element strides over a
+    16-byte-aligned buffer large enough for it."""
+    n = 1 + sum((k - 1) * s for k, s in zip(shape, strides))
+    return torch.zeros(n + 8, dtype=torch.bfloat16).as_strided(shape, strides)
+
+
+@pytest.mark.parametrize("shape,strides,in_place", [
+    # q of BERT's fused (B, T, 3E) projection, E = H*d
+    ((4, 128, 12, 64), (128 * 3 * 768, 3 * 768, 64, 1), True),
+    # one batch element: its batch stride is never read
+    ((1, 128, 2, 64), (7, 2 * 64, 64, 1), True),
+    # rows overlapping one another, or batches overlapping each other
+    ((2, 128, 2, 64), (128 * 64, 64, 64, 1), False),
+    ((2, 128, 2, 64), (8, 2 * 64, 64, 1), False),
+    # a row stride that is no multiple of 16 bytes
+    ((2, 128, 2, 64), (128 * 132, 132, 64, 1), False)],
+    ids=["fused", "one-batch", "rows-overlap", "batches-overlap",
+         "odd-row-stride"])
+def test_bthd_rows_reads_in_place_only_what_a_tensor_map_can(
+        shape, strides, in_place):
+    """The kernels read q, k and v in place through TMA tensor maps of
+    (B, T, H*d) with the tensor's batch and row strides; anything a map
+    cannot describe is copied once into a contiguous tensor."""
+    t = _strided(shape, strides)
+    got, bs, ts = fa._bthd_rows(t)
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    if in_place:
+        assert (bs, ts) == strides[:2]
+    else:
+        assert got.is_contiguous() and torch.equal(got, t)
+        B, T, H, d = shape
+        assert (bs, ts) == (T * H * d, H * d)
 
 
 # ---------------------------------------------------------------------

@@ -21,7 +21,12 @@ tolerances for o and for dq, dk, dv against their plain versions; lse
 kv_length 0.  The BTHD kernels (`flash_short_bthd_fwd`, its training
 form, `flash_short_bthd_bwd`) take row 1's tolerances for o and p and
 GRAD_RTOL for dq, dk, dv, on q, k, v cut as views from one (B, T, 3E)
-buffer, as BERT's fused projection gives them.  The bottleneck
+buffer, as BERT's fused projection gives them.  The persistent bf16
+T = 128, d = 64 kernel is tried at batch-head counts below, around and
+far above its grid (one block an SM), with kv_length 0, 1 and T among
+the rows, on a side stream twice back to back; its o must also equal
+p·v of its own saved p in float32 within o's bfloat16 rounding (2^-8
+of |p·v|, plus 1e-5 for the order of the float32 sums).  The bottleneck
 backward's two kernels (row 8) take their own tolerances, stated where
 they are defined below.
 """
@@ -59,8 +64,23 @@ def _qkv(card, shape, dtype, seed, zero_len=True):
     lengths = torch.randint(lo, n + 1, (shape[0],), generator=gen,
                             device=card, dtype=torch.int32)
     lengths[0] = lo
+    if shape[0] > 2:
+        lengths[1] = 1
     lengths[-1] = n
     return q, k, v, lengths
+
+
+# batch-head counts of the persistent kernel (one block an SM, 132 on an
+# H100 SXM): one, fewer than the grid, just below and above it, and many
+# times it (BERT-base's training and serving batch-heads)
+PERSISTENT_BH = [1, 7, 131, 133, 720, 1536]
+
+
+def _pv_rel_err(o, p, v):
+    """max |o − p·v| − 2^-8·|p·v| in float32: > 1e-5 where o is not p·v
+    of the saved p within o's bfloat16 rounding."""
+    pv = torch.matmul(p.float(), v.float())
+    return ((o.float() - pv).abs() - 2 ** -8 * pv.abs()).max().item()
 
 
 @pytest.fixture
@@ -76,7 +96,8 @@ def card():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [(16, 128, 64), (4, 128, 32), (3, 48, 32),
                                    (3, 48, 40),
-                                   (2, 7, 8), (2, 256, 256), (2, 512, 256)])
+                                   (2, 7, 8), (2, 256, 256), (2, 512, 256)]
+                         + [(bh, 128, 64) for bh in PERSISTENT_BH])
 def test_flash_short_fwd_matches_plain_version(card, dtype, causal, shape):
     gen = torch.Generator(device=card).manual_seed(sum(shape))
     q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
@@ -85,6 +106,8 @@ def test_flash_short_fwd_matches_plain_version(card, dtype, causal, shape):
     lengths = torch.randint(0, n + 1, (shape[0],), generator=gen,
                             device=card, dtype=torch.int32)
     lengths[0] = 0
+    if shape[0] > 2:
+        lengths[1] = 1
     lengths[-1] = n
     scale = shape[2] ** -0.5
     reset_launch_counts()
@@ -96,10 +119,25 @@ def test_flash_short_fwd_matches_plain_version(card, dtype, causal, shape):
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= ATOL[dtype], err
     # kv_length 0: the mean of v
-    np.testing.assert_allclose(
-        out[0].float().cpu().numpy(),
-        v[0].float().mean(0).expand(n, -1).cpu().numpy(),
-        atol=ATOL[dtype])
+    if lengths[0].item() == 0:
+        np.testing.assert_allclose(
+            out[0].float().cpu().numpy(),
+            v[0].float().mean(0).expand(n, -1).cpu().numpy(),
+            atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["ndarray", "tensor"])
+def test_nd_array_copies_a_source_on_the_card(card, kind):
+    """nd.array of an array already on the card returns storage of its
+    own: writing into the result leaves the source alone."""
+    x = torch.randn(3, 4, device=card)
+    want = x.cpu().numpy()
+    src = mx.nd.array(x, ctx=mx.gpu(0)) if kind == "ndarray" else x
+    a = mx.nd.array(src, ctx=mx.gpu(0))
+    a[:] = 5
+    held = src.asnumpy() if kind == "ndarray" else src.cpu().numpy()
+    np.testing.assert_array_equal(held, want)
+    np.testing.assert_array_equal(a.asnumpy(), np.full_like(want, 5))
 
 
 def test_misaligned_view_is_handled(card):
@@ -150,11 +188,13 @@ def test_bert_forward_with_kernel_matches_plain_attention(card, monkeypatch):
 
 @DTYPES
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(720, 128, 64), (16, 128, 64),
-                                   (3, 48, 40), (2, 7, 8), (2, 256, 256)])
+@pytest.mark.parametrize("shape", [(16, 128, 64), (3, 48, 40), (2, 7, 8),
+                                   (2, 256, 256)]
+                         + [(bh, 128, 64) for bh in PERSISTENT_BH])
 def test_training_form_matches_plain_version(card, dtype, causal, shape):
     """Row 1b: o and the saved p of `flash_short_fwd_train`, the
-    training shape (BH = 60*12, T = 128, d = 64) among others."""
+    training shape (BH = 60*12, T = 128, d = 64) among others; o is p·v
+    of the saved p."""
     q, k, v, lengths = _qkv(card, shape, dtype, sum(shape) + 1)
     scale = shape[2] ** -0.5
     reset_launch_counts()
@@ -167,6 +207,8 @@ def test_training_form_matches_plain_version(card, dtype, causal, shape):
                                                       shape[1])
     assert (o.float() - ro.float()).abs().max().item() <= ATOL[dtype]
     assert (p.float() - rp.float()).abs().max().item() <= P_ATOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _pv_rel_err(o, p, v) <= 1e-5
     # the inference form gives the same o
     assert torch.equal(flash_short_fwd(q, k, v, lengths, scale, causal), o)
 
@@ -406,6 +448,11 @@ def test_bert_long_train_step_runs_the_streaming_kernels(card):
 BTHD_SHAPES = [(60, 128, 12, 64), (2, 128, 4, 64), (3, 48, 2, 32),
                (2, 256, 3, 64), (2, 7, 3, 8), (1, 512, 2, 256)]
 BTHD_IDS = ["x".join(map(str, s)) for s in BTHD_SHAPES]
+# the forward also at the serving batch and around the persistent grid,
+# with H = 12 and H = 1
+BTHD_FWD_SHAPES = BTHD_SHAPES + [(128, 128, 12, 64), (11, 128, 12, 64),
+                                 (1, 128, 1, 64), (133, 128, 1, 64)]
+BTHD_FWD_IDS = ["x".join(map(str, s)) for s in BTHD_FWD_SHAPES]
 
 
 def _bthd_inputs(card, shape, dtype, seed, zero_len=True, offset=0):
@@ -424,16 +471,19 @@ def _bthd_inputs(card, shape, dtype, seed, zero_len=True, offset=0):
     lengths = torch.randint(lo, T + 1, (B,), generator=gen, device=card,
                             dtype=torch.int32)
     lengths[0] = lo
+    if B > 2:
+        lengths[1] = 1
     lengths[-1] = T
     return q, k, v, do, lengths
 
 
 @DTYPES
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", BTHD_SHAPES, ids=BTHD_IDS)
+@pytest.mark.parametrize("shape", BTHD_FWD_SHAPES, ids=BTHD_FWD_IDS)
 def test_bthd_fwd_matches_plain_version(card, dtype, causal, shape):
     """Row 5 in both forms on strided views: o (B, T, H, d) and p (B, H,
-    T, T); a batch element with kv_length 0 is the mean of v."""
+    T, T); a batch element with kv_length 0 is the mean of v; o is p·v
+    of the saved p."""
     q, k, v, _, lengths = _bthd_inputs(card, shape, dtype, sum(shape))
     scale = shape[3] ** -0.5
     reset_launch_counts()
@@ -452,6 +502,44 @@ def test_bthd_fwd_matches_plain_version(card, dtype, causal, shape):
     if lengths[0].item() == 0:
         mean_v = v[0].float().mean(0, keepdim=True).expand_as(o[0])
         assert (o[0].float() - mean_v).abs().max().item() <= ATOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _pv_rel_err(o.transpose(1, 2), p, v.transpose(1, 2)) <= 1e-5
+
+
+@pytest.mark.parametrize("bthd", [False, True], ids=["bhtd", "bthd"])
+@pytest.mark.parametrize("train", [False, True], ids=["serve", "train"])
+def test_short_fwd_back_to_back_on_a_side_stream(card, bthd, train):
+    """Two launches with different inputs queued back to back on a
+    stream other than the default one, each against its plain version:
+    a stage, an output box or a tensor map of the first launch still in
+    use would spoil the second."""
+    if bthd:
+        fwd = flash_short_bthd_fwd_train if train else flash_short_bthd_fwd
+        ref = flash_short_bthd_reference
+        ins = [(q, k, v, lengths) for q, k, v, _, lengths in (
+            _bthd_inputs(card, (128, 128, 12, 64), torch.bfloat16, seed)
+            for seed in (11, 12))]
+    else:
+        fwd = flash_short_fwd_train if train else flash_short_fwd
+        ref = flash_short_reference
+        ins = [_qkv(card, (1536, 128, 64), torch.bfloat16, seed)
+               for seed in (11, 12)]
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        outs = [fwd(*x, 0.125, causal) for x, causal in zip(ins,
+                                                            (False, True))]
+    torch.cuda.synchronize()
+    for x, causal, got in zip(ins, (False, True), outs):
+        want = ref(*x, 0.125, causal, save_p=train)
+        if train:
+            assert (got[0].float() - want[0].float()).abs().max().item() \
+                <= ATOL[torch.bfloat16]
+            assert (got[1].float() - want[1].float()).abs().max().item() \
+                <= P_ATOL[torch.bfloat16]
+        else:
+            assert (got.float() - want.float()).abs().max().item() \
+                <= ATOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("train", [False, True])

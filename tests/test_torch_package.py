@@ -47,6 +47,9 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for f in sorted(os.listdir(os.path.join(ROOT, "experiments"))):
+        if f.endswith(".py"):
+            yield os.path.join(ROOT, "experiments", f)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

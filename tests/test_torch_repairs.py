@@ -1,14 +1,15 @@
-"""Five places where the port departed from the JAX package, each held
+"""Six places where the port departed from the JAX package, each held
 against it on the CPU: parameter files that cross between the packages,
 a JAX fused-update states file loaded into the port's Trainer,
 `Embedding` with negative ids, `slice_axis` past the end of its axis,
-and `Pooling` on integer data.
+`Pooling` on integer data, and `nd.array` (and `Parameter.set_data`)
+sharing memory with the source.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances, with their reasons:
 
-- files, lookups, slices and integer pooling: exact (the same values
-  copied, gathered or summed in integers);
+- files, lookups, slices, integer pooling and copies of a source:
+  exact (the same values copied, gathered or summed in integers);
 - the float32 mean of integer pooling windows: rtol 1e-6 (one division
   of the same float32 sum, or a mean summed in another order);
 - one optimizer step after states loaded from the JAX package: rtol
@@ -242,3 +243,43 @@ def test_global_pooling_on_int32_matches_jax(pool_type):
                       global_pool=True)
     assert str(got.dtype).replace("torch.", "") == ref.dtype.name
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+
+
+# ------------------------------------------- 6. nd.array copies its source
+def _source(kind, pkg, x):
+    """`x` as a source of kind `kind` for package `pkg`; a torch.Tensor
+    has no JAX counterpart, so the JAX package gets the numpy array."""
+    if kind == "ndarray":
+        return pkg.nd.array(x, ctx=pkg.cpu())
+    if kind == "tensor" and pkg is mx:
+        return torch.from_numpy(x)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["numpy", "ndarray", "tensor"])
+@pytest.mark.parametrize("dtype", [None, "float32"])
+def test_nd_array_copies_its_source(kind, dtype):
+    x = np.random.RandomState(7).randn(3, 4).astype(np.float32)
+    for pkg in (mxj, mx):
+        src = _source(kind, pkg, x.copy())
+        a = pkg.nd.array(src, ctx=pkg.cpu(), dtype=dtype)
+        a[:] = 5
+        np.testing.assert_array_equal(a.asnumpy(), np.full_like(x, 5))
+        held = src.asnumpy() if kind == "ndarray" else np.asarray(src)
+        np.testing.assert_array_equal(held, x, err_msg=pkg.__name__)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "ndarray"])
+def test_set_data_copies_its_source(kind):
+    """An uninitialized parameter takes a copy of the data it is given:
+    writing into the parameter leaves the source alone, as the JAX
+    package's (whose arrays cannot be written) does."""
+    x = np.random.RandomState(8).randn(2, 3).astype(np.float32)
+    src = _source(kind, mx, x.copy())
+    p = gluon.Parameter("w", shape=(2, 3))
+    p.set_data(src, ctx=mx.cpu())
+    with torch.no_grad():
+        p.data().data.fill_(5)
+    held = src.asnumpy() if kind == "ndarray" else src
+    np.testing.assert_array_equal(held, x)
+    np.testing.assert_array_equal(p.data().asnumpy(), np.full_like(x, 5))
