@@ -28,9 +28,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    Tk = 2048) and T = 1152 (JAX blocks 384), kv_length random with 0 and
    T among them: o, lse (exactly -1e30 on fully masked rows), dq, dk,
    dv, and `Flash`'s gradients against torch autograd through the plain
-   forward; then each kernel's time, its plain version's, SDPA's (the
-   backward of one SDPA call for rows 3+4 together) and the bound, and
-   each kernel's causal time.
+   forward; then each kernel's time, its plain version's, the fastest
+   SDPA backend's (the backward of one SDPA call for rows 3+4 together)
+   and the bound, each kernel's causal time beside the causal bound
+   (half the operations) and SDPA's causal time; row 2's share of its
+   bound, the name and grid of its launch in the profiler's trace of one
+   wrapper call and the host time of one wrapper call; and row 2 at the
+   T = 2048 serving forward's shape (BH = 16*12) beside its bounds and
+   SDPA's forward.
 5. The BTHD kernels (rows 5 and 6: `flash_short_bthd_fwd` in both forms,
    `flash_short_bthd_bwd`) on q, k, v cut as views from one seeded
    (B, T, 3E) buffer, as BERT's fused projection gives them: row 5 at the
@@ -101,15 +106,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    (TF32 off) from the same weights: logits, the step-1 loss, and the
    gradients of `features.0.weight`, `output.weight` and `features.1.gamma`.
 16. Kernel row 7 (`[rtc]`, `incubator_mxnet_torch/rtc.py`): the user
-   `CudaModule` of `softmax_rtc.py` (a float32 softmax forward, one warp
-   a row; SoftmaxOutput's backward p - onehot(label); a template
-   `axpy<T>` reached through `exports`, float32 and bfloat16) built at
+   `CudaModule` of `softmax_rtc.py` (a float32 softmax forward that reads
+   a row of up to 1024 columns once, into registers; SoftmaxOutput's
+   backward p - onehot(label); a template `axpy<T>` reached through
+   `exports`, float32 and bfloat16) built at
    first use, each kernel against its plain version at 1024 x 10 and
    8192 x 1000; a second module of the same source runs no nvcc; a
    syntax error raises with nvcc's message and a float64 argument before
    launch; at 8192 x 1000 each kernel's time, its plain version's, the
    bound, `torch.softmax`'s (forward) and `add_`'s (axpy) times, the
-   host time of one launch and the first-use compile time.
+   host time of one launch and the first-use compile time; at 1024 x 10
+   each kernel's time beside `torch.softmax`'s.
 17. `[train-rtc]`: `MLP()` (784-128-64-10, Xavier) trained 20 steps on a
    seeded 1024 x 1 x 28 x 28 batch through `record()` /
    `nd.Custom(out, label, op_type="softmax_rtc")` / `backward()` /
@@ -546,26 +553,100 @@ def _check_stream_case(fa, dtype, causal, tq, tk, gen):
     return errs
 
 
-def _sdpa_backend(fn):
-    """(name, backend) of the first SDPA backend that runs fn() on these
-    inputs, flash first."""
+def _sdpa_fastest(fn):
+    """{backend name: ms} of fn() under each SDPA backend other than the
+    math one that runs it on these inputs."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+                    SDPBackend.EFFICIENT_ATTENTION):
         try:
             with sdpa_kernel(backend):
                 fn()
+                times[backend.name] = time_ms(fn)
         except RuntimeError:
             continue
-        return backend.name, backend
-    raise AssertionError("no SDPA backend ran")
+    if not times:
+        raise AssertionError("no SDPA backend ran")
+    return times
+
+
+def _sdpa_times(q4, k4, v4, do4, scale):
+    """The fastest SDPA backend's forward, and the fastest one's backward
+    (autograd's forward and backward less that backend's forward), on q4,
+    k4, v4 (B, H, T, d), non-causal and causal: ({"flash_fwd": ms,
+    "flash_bwd_dq": ms, "flash_bwd_dkv": ms, "backend": names}, the same
+    keys causal)."""
+    import torch.nn.functional as F
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    out = []
+    for causal in (False, True):
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale,
+                                                  is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, scale=scale,
+                                               is_causal=causal)
+            return torch.autograd.grad(o, leaves, do4)
+        fwd = _sdpa_fastest(sdpa)
+        both = _sdpa_fastest(sdpa_fwd_bwd)
+        bwd = {n: ms - fwd[n] for n, ms in both.items() if n in fwd}
+        f_name, b_name = min(fwd, key=fwd.get), min(bwd, key=bwd.get)
+        out.append({"flash_fwd": fwd[f_name], "flash_bwd_dq": bwd[b_name],
+                    "flash_bwd_dkv": bwd[b_name],
+                    "backend": f"forward {f_name}, backward {b_name}"})
+    return out[0], out[1]
+
+
+def _stream_facts(fa, q, k, v, lengths, scale, blocks):
+    """Row 2's kernel name and grid, from the trace of one wrapper call,
+    and the host microseconds of one such call."""
+    call = (lambda: fa.flash_fwd(q, k, v, lengths, scale, False, *blocks))
+    name, grid = traced_launch(call, "fwd_")
+    return {"kernel": name, "grid": grid, "host_us": host_us(call)}
+
+
+def _stream_fwd_serving(fa, gen):
+    """Row 2 in bf16 at the T = 2048 serving forward's shape (BH =
+    LONG_CAPACITY x HEADS, every kv_length T), non-causal and causal,
+    beside its bounds and the fastest SDPA backend's forward."""
+    import torch.nn.functional as F
+    batch, scale, blocks = LONG_CAPACITY, D ** -0.5, (512, 1024)
+    bh = batch * HEADS
+    q, k, v, _, _ = _stream_inputs(gen, batch, LONG_T, LONG_T, torch.bfloat16)
+    full = torch.full((bh,), LONG_T, dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, full, scale, False, *blocks))
+    causal_ms = time_ms(lambda: fa.flash_fwd(q, k, v, full, scale, True,
+                                             *blocks))
+    q4, k4, v4 = (t.view(batch, HEADS, -1, D) for t in (q, k, v))
+    lib = [_sdpa_fastest(lambda c=c: F.scaled_dot_product_attention(
+        q4, k4, v4, scale=scale, is_causal=c)) for c in (False, True)]
+    (lib_name, lib_ms), (lib_causal_name, lib_causal_ms) = (
+        min(t.items(), key=lambda kv: kv[1]) for t in lib)
+    nbytes = 4 * q.numel() * 2 + bh * LONG_T * 4 + bh * 4
+    work = 4 * bh * LONG_T * LONG_T * D
+    bound_ms, bound_by = _bound(nbytes, work, torch.bfloat16)
+    causal_bound_ms = _bound(nbytes, work // 2, torch.bfloat16)[0]
+    rec = {"bh": bh, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_ms, "causal_ms": causal_ms,
+           "causal_bound_ms": causal_bound_ms,
+           "library_causal_ms": lib_causal_ms,
+           "library_backend": f"{lib_name}, causal {lib_causal_name}"}
+    log(f"[kernel] flash_fwd bfloat16 BH={bh} T={LONG_T} d={D} (the serving "
+        f"forward's shape) every kv_length T: kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+        f"bound; causal {causal_ms:.4f} ms, bound {causal_bound_ms:.4f} ms, "
+        f"{100 * causal_bound_ms / causal_ms:.1f}% of bound; sdpa "
+        f"forward ({lib_name}) {lib_ms:.4f} ms, causal ({lib_causal_name}) "
+        f"{lib_causal_ms:.4f} ms")
+    return rec
 
 
 def phase_stream_kernels():
     """Kernel rows 2-4 against their plain versions, then their times at
-    the long training shape; returns {name: record}."""
-    import torch.nn.functional as F
-    from torch.nn.attention import sdpa_kernel
+    the long training shape and row 2 at the serving forward's shape;
+    returns {name: record}."""
     from incubator_mxnet_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(dtype, causal, LONG_T, LONG_T)
@@ -582,12 +663,12 @@ def phase_stream_kernels():
 
     # times at the path's shape: every kv_length T, non-causal
     bh, scale = LONG_TRAIN_BATCH * HEADS, D ** -0.5
+    blocks = (512, 1024)
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do, _ = _stream_inputs(gen, LONG_TRAIN_BATCH, LONG_T, LONG_T,
                                         dtype)
         full = torch.full((bh,), LONG_T, dtype=torch.int32, device="cuda")
-        blocks = (512, 1024)
         o, lse = fa.flash_fwd(q, k, v, full, scale, False, *blocks)
         delta = (do.float() * o.float()).sum(-1, keepdim=True)
         args = (q, k, v, do, lse, delta, full, scale, False, *blocks)
@@ -612,49 +693,56 @@ def phase_stream_kernels():
                         lambda: fa.flash_bwd_dkv_reference(*args), 5, 1)}
         # library yardstick: one SDPA call, no mask (every kv_length is
         # T), and its backward through autograd less its forward (rows
-        # 3 and 4 together); timed only, the port never calls it
+        # 3 and 4 together), non-causal and causal, each by the fastest
+        # backend; timed only, the port never calls it
         q4, k4, v4, do4 = (t.view(LONG_TRAIN_BATCH, HEADS, -1, D)
                            for t in (q, k, v, do))
-        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(*leaves, scale=scale)
-            return torch.autograd.grad(out, leaves, do4)
-        name, backend = _sdpa_backend(sdpa_fwd_bwd)
-        with sdpa_kernel(backend):
-            lib_fwd = time_ms(sdpa)
-            lib_bwd = time_ms(sdpa_fwd_bwd) - lib_fwd
+        lib, lib_causal = _sdpa_times(q4, k4, v4, do4, scale)
         io = q.numel() * q.element_size()       # one (BH, T, d) tensor
         rows = bh * LONG_T * 4                  # one (BH, T) f32 vector
         work = bh * LONG_T * LONG_T * D
-        bounds = {"flash_fwd": _bound(4 * io + rows + bh * 4, 4 * work,
-                                      dtype),
-                  "flash_bwd_dq": _bound(5 * io + 2 * rows + bh * 4,
-                                         6 * work, dtype),
-                  "flash_bwd_dkv": _bound(6 * io + 2 * rows + bh * 4,
-                                          8 * work, dtype)}
-        lib = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
+        moved = {"flash_fwd": 4 * io + rows + bh * 4,
+                 "flash_bwd_dq": 5 * io + 2 * rows + bh * 4,
+                 "flash_bwd_dkv": 6 * io + 2 * rows + bh * 4}
+        ops = {"flash_fwd": 4 * work, "flash_bwd_dq": 6 * work,
+               "flash_bwd_dkv": 8 * work}
+        # causal: the products of the keys at or below the diagonal, half
+        # of them
+        bounds = {n: _bound(moved[n], ops[n], dtype) for n in ms}
+        causal_bounds = {n: _bound(moved[n], ops[n] // 2, dtype)[0]
+                         for n in ms}
+        facts = _stream_facts(fa, q, k, v, full, scale, blocks)
         for kname in ms:
             bound_ms, bound_by = bounds[kname]
             rec = {"max_abs_err": main_errs[kname], "ms": ms[kname],
                    "plain_ms": plain_ms[kname], "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": lib[kname],
-                   "causal_ms": causal_ms[kname]}
+                   "causal_ms": causal_ms[kname],
+                   "causal_bound_ms": causal_bounds[kname],
+                   "library_causal_ms": lib_causal[kname],
+                   "library_backend": lib["backend"],
+                   "library_causal_backend": lib_causal["backend"]}
+            fwd = kname == "flash_fwd"
+            if fwd:
+                rec.update(facts)
             if dtype == torch.bfloat16:
                 records[kname] = rec
             log(f"[kernel] {kname} {str(dtype)[6:]} BH={bh} T={LONG_T} d={D} "
-                f"non-causal, every kv_length T: kernel {ms[kname]:.4f} ms, "
-                f"causal {causal_ms[kname]:.4f} ms; "
-                f"plain {plain_ms[kname]:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}); sdpa ({name}) "
-                f"{'forward' if kname == 'flash_fwd' else 'backward (dq+dk+dv)'}"
-                f" {lib[kname]:.4f} ms")
-        del q, k, v, do, o, lse, delta, args, leaves, co, clse, cdelta, cargs
+                f"every kv_length T: kernel {ms[kname]:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms[kname]:.1f}% of bound; causal "
+                f"{causal_ms[kname]:.4f} ms, bound "
+                f"{causal_bounds[kname]:.4f} ms, "
+                f"{100 * causal_bounds[kname] / causal_ms[kname]:.1f}% of "
+                f"bound; plain {plain_ms[kname]:.4f} ms; sdpa "
+                f"({lib['backend']}) "
+                f"{'forward' if fwd else 'backward (dq+dk+dv)'} "
+                f"{lib[kname]:.4f} ms, causal {lib_causal[kname]:.4f} ms"
+                + (f"; {_facts_text(facts)}" if fwd else ""))
+        del q, k, v, do, o, lse, delta, args, co, clse, cdelta, cargs
+        del q4, k4, v4, do4
         torch.cuda.empty_cache()
+    records["flash_fwd"]["serving_shape"] = _stream_fwd_serving(fa, gen)
     return records
 
 
@@ -1709,6 +1797,8 @@ def phase_rtc(card):
             + f" (atol {RTC_ATOL}; axpy exact)")
         if (rows, cols) != RTC_TIMED:
             small = {"softmax_fwd": time_ms(lambda: srtc.softmax_fwd(x, y)),
+                     "torch.softmax": time_ms(
+                         lambda: torch.softmax(x, dim=1)),
                      "softmax_bwd": time_ms(
                          lambda: srtc.softmax_bwd(label, y, dx))}
             for name, (a, b, _dt) in ab.items():
@@ -1716,6 +1806,9 @@ def phase_rtc(card):
             log(f"[rtc] {rows}x{cols} kernel times: "
                 + ", ".join(f"{k} {v:.4f} ms" for k, v in small.items())
                 + f" ({card})")
+            path_shape = {"rows": rows, "cols": cols,
+                          "ms": small["softmax_fwd"],
+                          "library_ms": small["torch.softmax"]}
             continue
         n = rows * cols
         work = {"softmax_fwd": (8 * n, 5 * n, torch.float32),
@@ -1759,6 +1852,7 @@ def phase_rtc(card):
         for rec in records.values():
             rec.update(host_us_per_launch=host_us,
                        first_use_compile_s=compile_s)
+        records["softmax_fwd"]["path_shape"] = path_shape
 
     # the user API's own drive, counted: each kernel through its wrapper
     # at the MLP head's shape

@@ -33,6 +33,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -80,28 +81,32 @@ ABLATIONS = {
 }
 
 
-def _variant_source(subs):
-    with open(_SRC) as f:
+def variant_source(path, subs):
+    """The text of the kernel source at `path` with the substitutions
+    `subs` made, its `#include "x.cuh"` lines pointing into csrc/."""
+    with open(path) as f:
         src = f.read()
     for old, new in subs:
         if old not in src:
             raise RuntimeError(f"ablation no longer matches the source: "
                                f"{old!r}")
         src = src.replace(old, new)
-    return src.replace('#include "flash_common.cuh"',
-                       f'#include "{_kernels._CSRC}/flash_common.cuh"')
+    return re.sub(r'#include "(\w+\.cuh)"',
+                  lambda m: f'#include "{_kernels._CSRC}/{m.group(1)}"', src)
 
 
-def build(names):
-    """{name: path of the built library} for the ablations `names`, one
-    nvcc each, all started together."""
+def build_variants(path, variants):
+    """{name: path of the built library} for `variants` ({name:
+    substitutions}) of the kernel source at `path`, one nvcc each, all
+    started together."""
     os.makedirs(_OUT, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(path))[0]
     procs = {}
-    for name in names:
-        cu = os.path.join(_OUT, f"{name}.cu")
+    for name, subs in variants.items():
+        cu = os.path.join(_OUT, f"{stem}-{name}.cu")
         with open(cu, "w") as f:
-            f.write(_variant_source(ABLATIONS[name][0]))
-        so = os.path.join(_OUT, f"lib{name}.so")
+            f.write(variant_source(path, subs))
+        so = os.path.join(_OUT, f"lib{stem}-{name}.so")
         procs[name] = (so, subprocess.Popen(
             [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -112,6 +117,11 @@ def build(names):
             raise RuntimeError(f"nvcc failed for ablation {name}:\n{log}")
         built[name] = so
     return built
+
+
+def build(names):
+    """{name: path of the built library} for the ablations `names`."""
+    return build_variants(_SRC, {n: ABLATIONS[n][0] for n in names})
 
 
 def _use(path):

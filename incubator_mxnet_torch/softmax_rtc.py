@@ -8,9 +8,11 @@ package's `rtc.PallasKernel`, whose body the user writes).
     prob.backward()                                # dx = prob - onehot
 
 `softmax_rtc` is registered when this module is imported.  Its forward
-is `softmax_fwd` (one warp a row: the row's max, the sum of exp, then
-p = exp(x - max) / sum, reading the row three times, which stays in L1
-and L2), its backward `softmax_bwd` (SoftmaxOutput's gradient
+is `softmax_fwd` (a row of up to 1024 columns read once into a warp's
+registers: its max, the sum of exp, then p = exp(x - max) / sum with one
+exp an element, 16-byte accesses where the row allows; a wider row in an
+online pass and a writing pass),
+its backward `softmax_bwd` (SoftmaxOutput's gradient
 p - onehot(label), one thread an element; it needs no head gradient);
 labels are float32, as MXNet's are, truncated to integers.  `axpy<T>`
 (y = a·x + y, float32 arithmetic, for float32 and bfloat16) is the
@@ -34,25 +36,146 @@ __all__ = ["SOURCE", "EXPORTS", "kernels", "softmax_fwd", "softmax_bwd",
            "SoftmaxRTC", "SoftmaxRTCProp"]
 
 SOURCE = r"""
-// softmax over each row of x (rows x cols), one warp a row
+// softmax over the rows of x (rows x cols), y = p or, req 3 (MXNet's
+// kAddTo), y += p, a warp a row.  Each element is read once and its exp
+// taken once for rows of at most 1024 columns, which stay in registers:
+// 16-byte loads and stores where cols % 4 == 0 and x and y are 16-byte
+// aligned, scalar ones elsewhere.  Wider rows take an online pass (the
+// running max and the sum rescaled with it) and a pass that writes: two
+// reads.  Any launch of whole warps covers every row.
+#define SM_NEG_INF __int_as_float(0xff800000)
+
+__device__ __forceinline__ float sm_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float sm_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// e / s from inv = 1 / s: one product and one correction step
+__device__ __forceinline__ float sm_div(float e, float s, float inv) {
+  const float q = e * inv;
+  return fmaf(fmaf(-s, q, e), inv, q);
+}
+
+__device__ __forceinline__ float sm_out(float p, const float *y, int req) {
+  return req == 3 ? *y + p : p;
+}
+
+// a row of at most 1024 columns over a warp, 32 scalars a lane
+__device__ __forceinline__ void sm_row(const float *xr, float *yr, int cols,
+                                       int req, int lane) {
+  float v[32];
+  float m = SM_NEG_INF;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int i = lane + 32 * k;
+    v[k] = i < cols ? xr[i] : SM_NEG_INF;
+    m = fmaxf(m, v[k]);
+  }
+  m = sm_max(m);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    v[k] = expf(v[k] - m);
+    s += v[k];
+  }
+  s = sm_sum(s);
+  const float inv = 1.f / s;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int i = lane + 32 * k;
+    if (i < cols) yr[i] = sm_out(sm_div(v[k], s, inv), yr + i, req);
+  }
+}
+
+// a row of at most 128 * K columns over a warp, K float4 a lane
+template <int K>
+__device__ __forceinline__ void sm_row4(const float *xr, float *yr, int cols,
+                                        int req, int lane) {
+  const float4 *x4 = reinterpret_cast<const float4 *>(xr);
+  float4 *y4 = reinterpret_cast<float4 *>(yr);
+  const int n4 = cols >> 2;
+  float4 v[K];
+  float m = SM_NEG_INF;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + 32 * k;
+    v[k] = j < n4 ? x4[j]
+                  : make_float4(SM_NEG_INF, SM_NEG_INF, SM_NEG_INF,
+                                SM_NEG_INF);
+    m = fmaxf(m, fmaxf(fmaxf(v[k].x, v[k].y), fmaxf(v[k].z, v[k].w)));
+  }
+  m = sm_max(m);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k].x = expf(v[k].x - m);
+    v[k].y = expf(v[k].y - m);
+    v[k].z = expf(v[k].z - m);
+    v[k].w = expf(v[k].w - m);
+    s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+  }
+  s = sm_sum(s);
+  const float inv = 1.f / s;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + 32 * k;
+    if (j < n4) {
+      float4 p = make_float4(sm_div(v[k].x, s, inv), sm_div(v[k].y, s, inv),
+                             sm_div(v[k].z, s, inv), sm_div(v[k].w, s, inv));
+      if (req == 3) {
+        const float4 o = y4[j];
+        p.x += o.x;
+        p.y += o.y;
+        p.z += o.z;
+        p.w += o.w;
+      }
+      y4[j] = p;
+    }
+  }
+}
+
+// a row of any width over a warp: max and sum in one online pass, then
+// the pass that writes
+__device__ __forceinline__ void sm_row_wide(const float *xr, float *yr,
+                                            int cols, int req, int lane) {
+  float m = SM_NEG_INF, s = 0.f;
+  for (int i = lane; i < cols; i += 32) {
+    const float x = xr[i];
+    if (x > m) {
+      s = s * expf(m - x) + 1.f;
+      m = x;
+    } else {
+      s += x == m ? 1.f : expf(x - m);
+    }
+  }
+  const float mr = sm_max(m);
+  s = sm_sum(m == mr ? s : s * expf(m - mr));
+  const float inv = 1.f / s;
+  for (int i = lane; i < cols; i += 32)
+    yr[i] = sm_out(sm_div(expf(xr[i] - mr), s, inv), yr + i, req);
+}
+
 extern "C" __global__ void softmax_fwd(const float *__restrict__ x,
                                        float *__restrict__ y, int rows,
                                        int cols, int req) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;            // whole warps: blockDim.x % 32 == 0
-  const float *xr = x + (long long)row * cols;
-  float *yr = y + (long long)row * cols;
-  float m = __int_as_float(0xff800000);                    // -inf
-  for (int i = lane; i < cols; i += 32) m = fmaxf(m, xr[i]);
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  float s = 0.f;
-  for (int i = lane; i < cols; i += 32) s += expf(xr[i] - m);
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  for (int i = lane; i < cols; i += 32) {
-    const float p = expf(xr[i] - m) / s;
-    yr[i] = req == 3 ? yr[i] + p : p;              // 3: MXNet's kAddTo
+  const int warp = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int warps = (int)((gridDim.x * blockDim.x) >> 5);
+  const bool vec = (cols & 3) == 0 &&
+      ((reinterpret_cast<unsigned long long>(x) |
+        reinterpret_cast<unsigned long long>(y)) & 15) == 0;
+  for (int r = warp; r < rows; r += warps) {
+    const float *xr = x + (long long)r * cols;
+    float *yr = y + (long long)r * cols;
+    if (cols > 1024) sm_row_wide(xr, yr, cols, req, lane);
+    else if (vec) sm_row4<8>(xr, yr, cols, req, lane);
+    else sm_row(xr, yr, cols, req, lane);
   }
 }
 
@@ -82,7 +205,7 @@ __global__ void axpy(const T *__restrict__ x, T *__restrict__ y, float a,
 """
 EXPORTS = ("axpy<float>", "axpy<__nv_bfloat16>")
 REQ = {"write": 1, "add": 3}         # MXNet's OpReqType codes
-FWD_THREADS = 256                    # 8 rows a block
+FWD_THREADS = 256                    # 8 warps a block
 THREADS = 256
 _AXPY_SIG = "const {t} *x, {t} *y, float a, int64_t n"
 

@@ -295,6 +295,16 @@ STREAM_SHAPES = [(48, 2048, 2048, 64, 512, 1024), (3, 256, 256, 64, 128, 128),
                  (3, 100, 100, 64, 100, 100), (3, 48, 80, 40, 48, 80),
                  (2, 256, 384, 256, 128, 128)]
 STREAM_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in STREAM_SHAPES]
+# the forward's persistent grid (one block an SM, 132 on an H100 SXM, over
+# work tiles of 192 query rows, 11 a batch-head at T = 2048, walked in
+# groups of 132 // 11 = 12 batch-heads): one batch-head (fewer tiles than
+# blocks), 131 and 133 (a last group of 11 and of 1 batch-heads, a last
+# round that fills part of the grid), BERT-base's serving batch-heads at
+# T = 2048, and lengths of one row or key
+FWD_SHAPES = STREAM_SHAPES + [
+    (bh, 2048, 2048, 64, 512, 1024) for bh in (1, 131, 133, 192)] + [
+    (3, 1, 1, 64, 1, 1), (2, 64, 200, 64, 64, 200)]
+FWD_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in FWD_SHAPES]
 
 
 def _stream_inputs(card, shape, dtype, seed, zero_len=True):
@@ -314,7 +324,7 @@ def _stream_inputs(card, shape, dtype, seed, zero_len=True):
 
 @DTYPES
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=STREAM_IDS)
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=FWD_IDS)
 def test_flash_fwd_matches_plain_version(card, dtype, causal, shape):
     """Kernel row 2: o and lse; a row with kv_length 0 gets lse -1e30."""
     q, k, v, _, lengths = _stream_inputs(card, shape, dtype, sum(shape))
@@ -332,6 +342,51 @@ def test_flash_fwd_matches_plain_version(card, dtype, causal, shape):
     assert (lse[live] - rlse[live]).abs().max().item() <= 1e-4
     assert torch.all(lse[~live] == -1e30)
     assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("blocks", [(512, 1024), (128, 128)])
+def test_flash_fwd_lengths_at_key_step_edges(card, causal, blocks):
+    """Row 2 in bf16 with kv_length 0, 1, 127, 128, 129 and T: the key
+    step that holds the length, the steps the kernel masks and the ones
+    it does not; lse exactly -1e30 where kv_length is 0."""
+    T = 1024
+    q, k, v, _, _ = _stream_inputs(card, (12, T, T, 64, *blocks),
+                                   torch.bfloat16, 21)
+    lengths = torch.tensor([0, 1, 127, 128, 129, T] * 2, dtype=torch.int32,
+                           device=card)
+    o, lse = flash_fwd(q, k, v, lengths, 0.125, causal, *blocks)
+    ro, rlse = flash_fwd_reference(q, k, v, lengths, 0.125, causal, *blocks)
+    torch.cuda.synchronize()
+    assert (o.float() - ro.float()).abs().max().item() <= ATOL[torch.bfloat16]
+    live = lengths > 0
+    assert (lse[live] - rlse[live]).abs().max().item() <= 1e-4
+    assert torch.all(lse[~live] == -1e30)
+    assert torch.isfinite(o.float()).all()
+
+
+def test_flash_fwd_back_to_back_on_a_side_stream(card):
+    """Two row-2 launches with different inputs, one causal, queued back
+    to back on a stream other than the default one, each against its
+    plain version: a stage, a q buffer, an o box or a tensor map of the
+    first launch still in use would spoil the second."""
+    shape = (48, 2048, 2048, 64, 512, 1024)
+    ins = [_stream_inputs(card, shape, torch.bfloat16, seed)[:3]
+           + (_stream_inputs(card, shape, torch.bfloat16, seed)[4],)
+           for seed in (31, 32)]
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        outs = [flash_fwd(*x, 0.125, causal, 512, 1024)
+                for x, causal in zip(ins, (False, True))]
+    torch.cuda.synchronize()
+    for x, causal, (o, lse) in zip(ins, (False, True), outs):
+        ro, rlse = flash_fwd_reference(*x, 0.125, causal, 512, 1024)
+        live = x[3] > 0
+        assert (o.float() - ro.float()).abs().max().item() \
+            <= ATOL[torch.bfloat16]
+        assert (lse[live] - rlse[live]).abs().max().item() <= 1e-4
+        assert torch.all(lse[~live] == -1e30)
 
 
 @DTYPES
@@ -765,7 +820,12 @@ def test_bottleneck_kernels_refuse_float32(card):
 RTC_ATOL = 1e-6
 
 
-@pytest.mark.parametrize("rows,cols", [(1024, 10), (8192, 1000), (3, 33)])
+# rows of 10 and 33 columns (a warp a row in registers, scalar accesses),
+# 1000 and 1024 (a warp a row in registers, 16-byte accesses), 1025 and
+# 4096 (the online pass and the writing pass)
+@pytest.mark.parametrize("rows,cols", [(1024, 10), (8192, 1000), (3, 33),
+                                       (257, 33), (64, 1024), (64, 1025),
+                                       (64, 4096)])
 def test_rtc_softmax_kernels_match_plain(card, rows, cols):
     from incubator_mxnet_torch import rtc, softmax_rtc as srtc
     gen = torch.Generator(device=card).manual_seed(rows)
@@ -796,6 +856,28 @@ def test_rtc_softmax_kernels_match_plain(card, rows, cols):
     assert dict(rtc.launch_counts) == {
         "softmax_fwd": 2, "softmax_bwd": 1, "axpy<float>": 1,
         "axpy<__nv_bfloat16>": 1}
+
+
+@pytest.mark.parametrize("rows,cols", [(256, 1000), (64, 4096), (9, 12)])
+def test_rtc_softmax_fwd_on_misaligned_views(card, rows, cols):
+    """x and y cut one float into a buffer, so neither is 16-byte
+    aligned: the forward takes its scalar accesses, writing and adding."""
+    from incubator_mxnet_torch import softmax_rtc as srtc
+    gen = torch.Generator(device=card).manual_seed(cols)
+    n = rows * cols
+    bx = torch.randn(n + 1, generator=gen, device=card) * 4
+    by = torch.rand(n + 1, generator=gen, device=card)
+    x, y = (b[1:].view(rows, cols) for b in (bx, by))
+    assert x.data_ptr() % 16 and y.data_ptr() % 16
+    want = torch.empty_like(x)
+    srtc.softmax_fwd_plain(x, want, rows, cols, 1)
+    y0 = y.clone()
+    srtc.softmax_fwd(x, y, req="add")
+    torch.cuda.synchronize()
+    assert (y - (y0 + want)).abs().max().item() <= 2 * RTC_ATOL
+    srtc.softmax_fwd(x, y)
+    torch.cuda.synchronize()
+    assert (y - want).abs().max().item() <= RTC_ATOL
 
 
 def test_rtc_compile_error_raises_with_nvcc_message(card):
