@@ -236,20 +236,6 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [row0, row0 + ROWS) of a (nrows, 64) bf16 matrix into a padded
-// [ROWS][ld] shared tile, 16 bytes per copy; rows past nrows are zeros.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_rows64(bf16* dst, int ld,
-                                            const bf16* src, int row0,
-                                            int nrows, int tid) {
-  for (int i = tid; i < ROWS * 8; i += NTHREADS) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * ld + c, src + (size_t)(ok ? row0 + r : 0) * 64 + c,
-               ok);
-  }
-}
-
 // Rows [row0, row0 + rows) of a (n, d) matrix of T into a [*][ld] float
 // shared tile (plain loads, for the FMA kernels); rows past n are zeros.
 template <typename T>

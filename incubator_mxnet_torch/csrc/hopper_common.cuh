@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the persistent attention
-// forward kernels (flash_short_fwd.cu `short_fwd_tma`, flash_fwd.cu
-// `fwd_tma`): mbarriers, TMA loads and stores over 3-d tensor maps in
-// 128-byte swizzle, bulk-group waits, named barriers, the wgmma
-// descriptors, fences and the two wgmma shapes both kernels run, and on
-// the host the tensor-map encoder, found through the CUDA runtime so
-// that a library links against nothing but the runtime.
+// kernels, forward (flash_short_fwd.cu `short_fwd_tma`, flash_fwd.cu
+// `fwd_tma`) and backward (flash_bwd.cu `bwd_dq_tma`, `bwd_dkv_tma`):
+// mbarriers, TMA loads and stores over 3-d tensor maps in 128-byte
+// swizzle, the arrival of cp.async copies on an mbarrier, bulk-group
+// waits, named barriers, the wgmma descriptors, fences and the wgmma
+// shapes the kernels run, and on the host the tensor-map encoder, found
+// through the CUDA runtime so that a library links against nothing but
+// the runtime.
 #pragma once
 #include <cuda.h>   // CUtensorMap and its encoder's types; no -lcuda
 #include <cuda_runtime.h>
@@ -28,6 +30,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted among the arrivals the barrier expects).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -224,6 +234,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&acc)[32],
         "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
         "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x 64 per warpgroup, f32) = A·Bᵀ (+ acc unless scale_d is 0)
+// over k = 16: A in registers, as in `wgmma_m64n64k16_rs`, B a tile of
+// K-major rows as in the ss forms (descriptor db).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_abt(float (&acc)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------

@@ -120,6 +120,23 @@ def test_cross_attention_matches_jax(dtype, causal):
                   _jax_kernels(arrs, lengths, **kw), lengths, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("blocks", [(128, 384), (384, 128)],
+                         ids=["bq128-bk384", "bq384-bk128"])
+def test_backward_at_blocks_unlike_the_kernel_tiles(blocks, causal, dtype):
+    """T = 384 with JAX blocks whose tiles the CUDA kernels' own (128
+    query rows, 128 keys, 64-row steps) cross: the plain versions, the
+    card's yardstick, against `_bwd`; under causal a row with kv_length 0
+    averages the key tiles of its JAX query tile."""
+    arrs = _arrays(19, 3, 384, 384, 16)
+    lengths = np.array([0, 384, 200], np.int32)
+    kw = dict(dtype=dtype, scale=0.25, causal=causal, bq=blocks[0],
+              bk=blocks[1])
+    _assert_match(_port_kernels(arrs, lengths, **kw),
+                  _jax_kernels(arrs, lengths, **kw), lengths, dtype)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_default_blocks_fit_1152(causal, monkeypatch):
     """T = 1152 at the default blocks: `_fit_block` gives 384 for both,

@@ -26,9 +26,12 @@ T = 128, d = 64 kernel is tried at batch-head counts below, around and
 far above its grid (one block an SM), with kv_length 0, 1 and T among
 the rows, on a side stream twice back to back; its o must also equal
 p·v of its own saved p in float32 within o's bfloat16 rounding (2^-8
-of |p·v|, plus 1e-5 for the order of the float32 sums).  The bottleneck
-backward's two kernels (row 8) take their own tolerances, stated where
-they are defined below.
+of |p·v|, plus 1e-5 for the order of the float32 sums).  The persistent
+streaming kernels (bf16, d = 64) are tried around their grids, two
+launches of each queued back to back on a side stream, and the
+backward's (rows 3 and 4) twice on the same inputs, which must give the
+same bits.  The bottleneck backward's two kernels (row 8) take their own
+tolerances, stated where they are defined below.
 """
 import numpy as np
 import pytest
@@ -286,25 +289,30 @@ def test_bert_train_step_runs_the_training_kernel(card):
 
 # (BH, Tq, Tk, d, block_q, block_k): the training shape, the TPU
 # kernels' small blocks, cross attention, a length only a smaller JAX
-# block divides, ragged tiles of the kernels' own, and widths off the
-# tensor-core path
+# block divides, a length that ends inside the kernels' own tiles, JAX
+# blocks of 128 and 384 whose tiles the kernels' 192-row (forward) and
+# 128-row or 128-key (backward) tiles cross, and widths off the
+# tensor-core path (the FMA kernels)
 STREAM_SHAPES = [(48, 2048, 2048, 64, 512, 1024), (3, 256, 256, 64, 128, 128),
                  (4, 1024, 2048, 64, 512, 1024),
                  (2, 1152, 1152, 64, _fit_block(512, 1152),
                   _fit_block(1024, 1152)),
-                 (3, 100, 100, 64, 100, 100), (3, 48, 80, 40, 48, 80),
-                 (2, 256, 384, 256, 128, 128)]
-STREAM_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in STREAM_SHAPES]
-# the forward's persistent grid (one block an SM, 132 on an H100 SXM, over
-# work tiles of 192 query rows, 11 a batch-head at T = 2048, walked in
-# groups of 132 // 11 = 12 batch-heads): one batch-head (fewer tiles than
-# blocks), 131 and 133 (a last group of 11 and of 1 batch-heads, a last
-# round that fills part of the grid), BERT-base's serving batch-heads at
-# T = 2048, and lengths of one row or key
-FWD_SHAPES = STREAM_SHAPES + [
+                 (3, 100, 100, 64, 100, 100),
+                 (2, 384, 384, 64, 128, 384), (2, 384, 384, 64, 384, 128),
+                 (3, 48, 80, 40, 48, 80), (2, 256, 384, 256, 128, 128)]
+# the persistent grids (one block an SM, 132 on an H100 SXM): the
+# forward's work tiles of 192 query rows (11 a batch-head at T = 2048,
+# walked in groups of 132 // 11 = 12 batch-heads) and the backward's of
+# 128 query rows or 128 keys (16 a batch-head, in groups of 8): one
+# batch-head (fewer tiles than blocks), 131 and 133 (a last group of part
+# of its batch-heads, a last round that fills part of the grid),
+# BERT-base's serving batch-heads at T = 2048, and lengths of one row or
+# key
+GRID_SHAPES = STREAM_SHAPES + [
     (bh, 2048, 2048, 64, 512, 1024) for bh in (1, 131, 133, 192)] + [
     (3, 1, 1, 64, 1, 1), (2, 64, 200, 64, 64, 200)]
-FWD_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in FWD_SHAPES]
+GRID_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}-{s[4]}x{s[5]}"
+            for s in GRID_SHAPES]
 
 
 def _stream_inputs(card, shape, dtype, seed, zero_len=True):
@@ -324,7 +332,7 @@ def _stream_inputs(card, shape, dtype, seed, zero_len=True):
 
 @DTYPES
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", FWD_SHAPES, ids=FWD_IDS)
+@pytest.mark.parametrize("shape", GRID_SHAPES, ids=GRID_IDS)
 def test_flash_fwd_matches_plain_version(card, dtype, causal, shape):
     """Kernel row 2: o and lse; a row with kv_length 0 gets lse -1e30."""
     q, k, v, _, lengths = _stream_inputs(card, shape, dtype, sum(shape))
@@ -391,7 +399,7 @@ def test_flash_fwd_back_to_back_on_a_side_stream(card):
 
 @DTYPES
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=STREAM_IDS)
+@pytest.mark.parametrize("shape", GRID_SHAPES, ids=GRID_IDS)
 def test_flash_bwd_matches_plain_versions(card, dtype, causal, shape):
     """Kernel rows 3 and 4 from the plain forward's o and lse, kv_length
     0 included: dq, dk, dv within GRAD_RTOL of the largest reference."""
@@ -407,11 +415,65 @@ def test_flash_bwd_matches_plain_versions(card, dtype, causal, shape):
     torch.cuda.synchronize()
     assert launch_counts == dict(NO_LAUNCH, flash_bwd_dq=1, flash_bwd_dkv=1)
     ref = (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
-    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+    # with one key a row (Tq = Tk = 1) p is 1, dp equals delta, and dq
+    # and dk cancel to exactly 0: there they are held to the scale of the
+    # terms that cancel, the plain versions' gradients with delta = 0
+    no_delta = args[:5] + (torch.zeros_like(delta),) + args[6:]
+    terms = (flash_bwd_dq_reference(*no_delta),
+             *flash_bwd_dkv_reference(*no_delta))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, ref, terms):
         assert a.dtype == dtype and a.shape == b.shape, name
         err = (a.float() - b.float()).abs().max().item()
-        top = b.float().abs().max().item()
+        top = b.float().abs().max().item() or c.float().abs().max().item()
         assert err <= GRAD_RTOL[dtype] * top, (name, err, top)
+
+
+def _bwd_args(card, shape, seed, causal):
+    """The backward kernels' arguments on seeded bf16 inputs, kv_length 0
+    and T among the rows, from the plain forward's o and lse."""
+    q, k, v, do, lengths = _stream_inputs(card, shape, torch.bfloat16, seed)
+    o, lse = flash_fwd_reference(q, k, v, lengths, 0.125, causal,
+                                 *shape[4:])
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return (q, k, v, do, lse, delta, lengths, 0.125, causal, *shape[4:])
+
+
+def _assert_bwd_matches_plain(args, got):
+    ref = (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        assert err <= GRAD_RTOL[torch.bfloat16] * top, (name, err, top)
+
+
+def test_flash_bwd_back_to_back_on_a_side_stream(card):
+    """Rows 3 and 4 on two inputs, one causal, queued back to back on a
+    stream other than the default one, each against its plain versions:
+    a stage, a k/v or q/do buffer, a gradient box or a tensor map of one
+    launch still in use would spoil the next."""
+    shape = (48, 2048, 2048, 64, 512, 1024)
+    args = [_bwd_args(card, shape, seed, causal)
+            for seed, causal in ((33, False), (34, True))]
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        outs = [(flash_bwd_dq(*a), *flash_bwd_dkv(*a)) for a in args]
+    torch.cuda.synchronize()
+    for a, got in zip(args, outs):
+        _assert_bwd_matches_plain(a, got)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_repeats_bit_for_bit(card, causal):
+    """Each block owns its output rows and sums in a fixed order, so two
+    launches on the same inputs give the same dq, dk and dv to the bit."""
+    args = _bwd_args(card, (48, 2048, 2048, 64, 512, 1024), 35, causal)
+    first = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    second = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+    _assert_bwd_matches_plain(args, first)
 
 
 @DTYPES
