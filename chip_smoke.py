@@ -46,9 +46,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    `FlashShortBTHD`'s gradients against torch autograd through the plain
    forward; each kernel's time, its plain version's, the library call's
    (SDPA on the transposed views; for row 6 its backward less its
-   forward), the bound and the share of it (row 5's two forms also the
-   traced name and grid of one launch and the host time of one wrapper
-   call), and
+   forward), the bound and the share of it (row 5's two forms and row 6
+   also the traced name and grid of one launch and the host time of one
+   wrapper call), and
    `multi_head_attention`'s time on the default
    route (row 1 or 1b and `flash_short_bwd` with their layout copies) and
    on the BTHD route.
@@ -91,7 +91,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    stage 1's 1x1 expand (M = 256*56*56, C = 64, K = 256), its reverse
    (C = 256, K = 64), a stage-2 shape (M = 256*28*28, 128 -> 512) and a
    ragged stage-4 M (256*7*7 = 12544, 512 -> 2048); the kernels', the
-   plain versions' and autograd's times at stage 1 and its reverse; then
+   plain versions' and autograd's times at stage 1 and its reverse, each
+   kernel's share of its bound, and the apply pass's traced kernel name
+   and grid and the host time of one wrapper call there; then
    the tool's own entry (`tools.bottleneck_bwd.main`): the isolated stage
    at its default shape and the 3-block stack (`--full-block`), whose
    fused form launches both kernels.
@@ -137,6 +139,7 @@ of the repository.
 import http.client
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -253,7 +256,8 @@ def phase_build():
         f"{time.time() - t0:.1f} s (built now: {sorted(logs) or 'none'})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -284,16 +288,22 @@ def traced_launch(fn, kernel, attempts=8):
     the launch counts and the checks against the plain versions show
     each launch), so a call whose trace holds no kernel event is traced
     again after a pause, the profiler recording the host beside the card
-    on every other attempt; after `attempts` empty traces the launch is
-    reported as not traced, (None, None).  A trace whose kernel events
-    hold no launch of `kernel`, or more than one, fails."""
+    on every other attempt and the later attempts tracing three calls
+    in one session (a trace has also been seen to keep some of a
+    session's kernel events and lose the rest, so a trace without a
+    launch of `kernel` is taken as lost too); after `attempts` such
+    traces the launch is reported as not traced, (None, None).  A trace
+    with more launches of `kernel` than calls, or launches that differ
+    in name or grid, fails."""
     from torch.profiler import profile, ProfilerActivity
     for i in range(attempts):
         activities = [ProfilerActivity.CUDA] + (
             [ProfilerActivity.CPU] if i % 2 else [])
+        calls = 1 if i < attempts // 2 else 3
         torch.cuda.synchronize()
         with profile(activities=activities) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
@@ -304,25 +314,30 @@ def traced_launch(fn, kernel, attempts=8):
                    if str(e.get("cat", "")).lower() == "kernel"]
         found = [(e["name"], e["args"]["grid"]) for e in kernels
                  if kernel in e.get("name", "")]
-        if kernels and len(found) != 1:
+        if len(found) > calls or len(set((n, tuple(g))
+                                         for n, g in found)) > 1:
             raise AssertionError(
-                f"the trace of one call holds {len(found)} launches of "
-                f"{kernel} among its {len(kernels)} kernel events")
+                f"the trace of {calls} call(s) holds {len(found)} launches "
+                f"of {kernel} among its {len(kernels)} kernel events")
         if found:
             name, grid = found[0]
-            return name.split("(")[0].split("<")[0].split()[-1], grid
-        log(f"[trace] no kernel event in the trace of one call of "
-            f"{kernel}; tracing another call")
+            # the first identifier that holds `kernel`, namespaces,
+            # template arguments and parameters left out
+            return next(w for w in re.findall(r"[A-Za-z_]\w*", name)
+                        if kernel in w), grid
+        log(f"[trace] no launch of {kernel} among the {len(kernels)} "
+            f"kernel events of the trace of {calls} call(s); tracing again")
         time.sleep(1.0)
-    log(f"[trace] {kernel}: no kernel event in {attempts} traces; its "
-        f"launch is reported as not traced")
+    log(f"[trace] {kernel}: no launch in {attempts} traces; it is reported "
+        f"as not traced")
     return None, None
 
 
-def _launch_facts(fn):
-    """The short forward kernel's name and grid, from the trace of one
+def _launch_facts(fn, kernel="short_fwd_"):
+    """The name and grid of the launch of the kernel whose name holds
+    `kernel` (by default the short forward's), from the trace of one
     wrapper call fn(), and the host microseconds of one such call."""
-    name, grid = traced_launch(fn, "short_fwd_")
+    name, grid = traced_launch(fn, kernel)
     return {"kernel": name, "grid": grid, "host_us": host_us(fn)}
 
 
@@ -948,6 +963,11 @@ def phase_bthd_kernels():
                 facts = {"flash_short_bthd_fwd_train": _launch_facts(
                     lambda: fa.flash_short_bthd_fwd_train(
                         q, k, v, lengths, scale, False))}
+                if dtype == torch.bfloat16:
+                    # one launch a call (float32 takes two FMA kernels)
+                    facts["flash_short_bthd_bwd"] = _launch_facts(
+                        lambda: fa.flash_short_bthd_bwd(
+                            q, k, v, do, delta, p, scale), "bthd_bwd_")
                 recs = {"flash_short_bthd_fwd_train": (
                             fwd_ms, fwd_plain, None,
                             _bound(4 * nbytes + pbytes + batch * 4,
@@ -1437,21 +1457,30 @@ def phase_bottleneck(card):
                       "bottleneck_bwd_apply": _bound(
                           io + 5 * vec + 2 * M * C + 4 * C * K,
                           6 * M * C * K, torch.bfloat16)}
+            # the apply pass's persistent kernel: its traced grid and
+            # the host time of one wrapper call
+            facts = {"bottleneck_bwd_apply": _launch_facts(
+                lambda: bnb.bottleneck_bwd_apply(dy, x, w, m, inv, gamma,
+                                                 s1, s2), "bnb_apply")}
             for name in ms:
                 bound_ms, bound_by = bounds[name]
+                fact = facts.get(name, {})
                 log(f"[bottleneck] {name} {what} M={M} C={C} K={K}: kernel "
                     f"{ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by})")
+                    f"bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{100 * bound_ms / ms[name]:.1f}% of bound"
+                    + (f", {_facts_text(fact)}" if fact else ""))
                 if what == "stage 1":
                     records[name] = {
                         "max_abs_err": abs_err[name], "ms": ms[name],
                         "plain_ms": plain_ms[name], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None,
-                        "torch_vjp_ms": vjp_ms}
+                        "torch_vjp_ms": vjp_ms, **fact}
                 else:
                     records[name]["reversed"] = {
                         "ms": ms[name], "plain_ms": plain_ms[name],
-                        "bound_ms": bound_ms, "torch_vjp_ms": vjp_ms}
+                        "bound_ms": bound_ms, "torch_vjp_ms": vjp_ms,
+                        **fact}
             log(f"[bottleneck] {what}: both kernels "
                 f"{sum(ms.values()):.4f} ms against torch autograd's "
                 f"backward of bn_dot {vjp_ms:.4f} ms (cuBLAS and "

@@ -26,29 +26,67 @@
 //     resident at once: the blocks of one group then read the same x and
 //     dy tiles at about the same time, and the second read comes from L2.
 //   * Pass 1 (`bnb_reduce`): block (kt, g) owns K tile kt.
-//   * Pass 2 (`bnb_apply`): two kinds of block in one launch.  Block
-//     (ct·nK + j, g) writes dx[rows, ct] = Σ_kt dz[rows, kt]·W[ct, kt]ᵀ
-//     for the row tiles g + G·j, g + G·j + G·nK, ..., recomputing z and dz
-//     for every K tile; block (nC·nK + ct·nK + kt, g) accumulates
-//     dW[ct, kt] += x[rows, ct]ᵀ·dz[rows, kt] over the row tiles g, g + G,
-//     ....  A dx block walks nK times fewer rows than a dW block and does
-//     nK times the work on each, so every block of the launch does the
-//     same number of tile steps.  Both recompute z over all of C, so z is
-//     computed 2·C/64 times per pass (twice at the stage-1 shape, C = 64).
+//   * Pass 2 at any shape but the two below (`bnb_apply`): two kinds of
+//     block in one launch.  Block (ct·nK + j, g) writes dx[rows, ct] =
+//     Σ_kt dz[rows, kt]·W[ct, kt]ᵀ for the row tiles g + G·j,
+//     g + G·j + G·nK, ..., recomputing z and dz for every K tile; block
+//     (nC·nK + ct·nK + kt, g) accumulates dW[ct, kt] += x[rows, ct]ᵀ·
+//     dz[rows, kt] over the row tiles g, g + G, ....  A dx block walks nK
+//     times fewer rows than a dW block and does nK times the work on
+//     each, so every block of the launch does the same number of tile
+//     steps.  Both recompute z over all of C, so z is computed 2·C/64
+//     times per pass.
+//   * Pass 2 at ResNet-50 stage 1's 1x1 expand (C = 64, K = 256) and its
+//     reverse (C = 256, K = 64), the two shapes of the tool's path
+//     (`bnb_apply_tma`): one persistent block an SM reads dy and x once
+//     and writes dx once, z and dz computed once a row.  W (32 KB at both
+//     shapes) is loaded once a block by TMA and stays in shared memory as
+//     64 x 64 boxes in 128-byte swizzle, read both ways by wgmma's
+//     transpose bits: N-major (its rows are the k of the product) for
+//     z = x·W, K-major for dx = dz·Wᵀ.  A producer warpgroup (one
+//     thread) brings each 64-row tile's x (C columns) and dy (K columns)
+//     by TMA into a ring of 4 stages of 40 KB; the rest of it gives its
+//     registers away (`setmaxnreg`: 24 a thread, 240 to each consumer
+//     thread).  Two consumer warpgroups take the block's tiles in turns
+//     (consumer c the tiles c, c + 2, ... and stages c, c + 2), each
+//     working a tile alone, so that one's elementwise work runs while
+//     the other's products and loads do.  For each 64-column chunk kc
+//     of K: z = x·W[:, kc] (wgmma, f32, x K-major); dz as `form_dz`,
+//     rounded to bf16 once, written over dy in the stage and kept as the
+//     register operand of dx; dW[:, kc] += xᵀ·dz (wgmma with x read
+//     transposed, M-major, and dz N-major, both from the stage) into f32
+//     accumulators that live across all of the consumer's tiles; and
+//     dx += dz·W[:, kc]ᵀ (C = 64), or at K = 64 dx[:, cc] = dz·W[cc]ᵀ box
+//     by box (C = 256).  dx is rounded once to bf16 into x's boxes of
+//     the stage, which its products have read, and written by TMA store;
+//     a consumer gives the stage back once that store has read it,
+//     after its next tile's products are issued.  At the end the two
+//     consumers' dW are added in shared memory in a fixed order into the
+//     block's one partial, and `sum_partials` adds the G blocks' partials
+//     in a fixed order: two launches give the same bits.  The split is
+//     by rows, not by K: a consumer holding z and dx of a 64-row tile and
+//     dW at its full 64·256 needs 32 + 32 + 128 accumulator registers,
+//     within its 240, and the consumers never wait on each other.
+//     ptxas (-Xptxas -v): 168 registers a thread at launch, the
+//     consumers' raised to 240 by `setmaxnreg`; no stack at 256 -> 64,
+//     72 bytes of stack (spills) at 64 -> 256 (orderings of the chunk
+//     steps that spill less were no faster, PERF.md).
 //   * Ragged M, C and K: rows of x and dy past M, and columns past C or K,
-//     are staged as zeros, and m, inv, g as zeros past K.  A zero row adds
-//     nothing to s1, s2 (dy = 0) or dW (x = 0); dx is stored only for rows
-//     < M and columns < C.  The TPU kernel ran M // bm tiles and left the
-//     tail rows out; this one covers every row.
+//     are staged as zeros (TMA fills its boxes past M with zeros), and m,
+//     inv, g as zeros past K.  A zero row adds nothing to s1, s2 (dy = 0)
+//     or dW (x = 0); dx is stored only for rows < M (a TMA store writes
+//     nothing past the tensor) and columns < C.  The TPU kernel ran
+//     M // bm tiles and left the tail rows out; these cover every row.
 //
 // Bound on an H100 SXM at ResNet-50 stage 1 (M = 256·56·56 = 802,816,
 // C = 64, K = 256): pass 1 reads dy and x, 514 MB, 0.153 ms at 3.35 TB/s;
 // pass 2 reads dy and x and writes dx, 617 MB, 0.184 ms.  Their products
-// take 0.027 and 0.080 ms at 989 TFLOP/s, so both are bound by memory.
-// This design reads dy and x from memory about once per pass when L2
-// serves the groups' repeated reads; TMA, wgmma and one block covering
-// several K tiles are later work.
+// take 0.027 and 0.080 ms at 989 TFLOP/s, so both are bound by memory;
+// the reverse (C = 256, K = 64) moves 925 MB in pass 2, 0.276 ms.
+// `bnb_reduce` reads dy and x from memory about once when L2 serves the
+// groups' repeated reads; `bnb_apply_tma` reads them once.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -343,6 +381,297 @@ __global__ void __launch_bounds__(NTHR)
   }
 }
 
+// ---------------------------------------------------------------------
+// Pass 2 at ResNet-50 stage 1's two shapes, (C, K) = (64, 256) and
+// (256, 64): `bnb_apply_tma` (see the header).  NC = C/64, NK = K/64.
+// ---------------------------------------------------------------------
+namespace apply_tma {
+constexpr int BOX = 64 * 64 * 2;        // 64 rows x 64 columns of bf16: 8 KB
+constexpr int STAGES = 4;               // two row tiles a consumer
+constexpr int THREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int PAIR = 3;                 // named barrier of both consumers
+static_assert(STAGES % 2 == 0, "each consumer owns every other stage");
+// a consumer gives its last tile's stage back once its next tile's has
+// arrived (where that is another stage), so that the dx store of one
+// tile runs while the next one's products do
+constexpr bool DEFER = STAGES > 2;
+
+template <int NC, int NK> struct Shape {
+  static constexpr int STAGE = (NC + NK) * BOX;      // x, dy: 40 KB
+  static constexpr int WBYTES = NC * NK * BOX;       // W: 32 KB
+  static constexpr size_t SMEM =                     // + 5 (K) f32, slack
+      (size_t)STAGES * STAGE + WBYTES + 5 * 64 * NK * sizeof(float) + 1024;
+};
+}  // namespace apply_tma
+
+// x, dy, dx (1, M, C or K) and W (1, C, K), read and written as 64 x 64
+// boxes in 128-byte swizzle.
+struct ApplyMaps {
+  CUtensorMap x, dy, w, dx;
+};
+
+// dz = a·(dy − s1/n − zh·s2/n), zh = (z − m)·inv, as `form_dz`; the
+// division by n is one product by rn = 1/n and one correction step
+// (flash_short_fwd.cu `quotient`), which is the correctly rounded
+// quotient wherever it is a normal float: the bits of `form_dz`'s.
+__device__ __forceinline__ float apply_dz(float z, float dy, float m,
+                                          float inv, float a, float s1n,
+                                          float s2, float n, float rn) {
+  const float zh = (z - m) * inv;
+  const float x = zh * s2;
+  const float q = x * rn;
+  return a * (dy - s1n - fmaf(fmaf(-n, q, x), rn, q));
+}
+
+// dz of one 64-column chunk of a row tile, from the chunk's z (this
+// lane's accumulators: rows lr0, lr1, columns 8j + 2t + {0, 1}) and dy
+// read from its swizzled box: rounded to bf16 over dy in the box, and
+// as the register A fragments of dx = dz·Wᵀ (columns 16kk.. are k-step
+// kk).  cols holds m, inv, a, s1/n, s2 of the chunk's 64 columns, K
+// apart.
+__device__ __forceinline__ void apply_form_dz(uint32_t (&da)[4][4],
+                                              unsigned char* dyb,
+                                              const float (&z)[32],
+                                              const float* cols, int K,
+                                              float n, float rn, int lr0,
+                                              int lr1, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 m = *reinterpret_cast<const float2*>(cols + c);
+    const float2 inv = *reinterpret_cast<const float2*>(cols + K + c);
+    const float2 a = *reinterpret_cast<const float2*>(cols + 2 * K + c);
+    const float2 s1n = *reinterpret_cast<const float2*>(cols + 3 * K + c);
+    const float2 s2 = *reinterpret_cast<const float2*>(cols + 4 * K + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t* at = reinterpret_cast<uint32_t*>(
+          dyb + sw128_at(h ? lr1 : lr0, j) + 4 * t);
+      const float2 dy =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+      const uint32_t dz = pack_bf16(
+          apply_dz(z[4 * j + 2 * h], dy.x, m.x, inv.x, a.x, s1n.x, s2.x, n,
+                   rn),
+          apply_dz(z[4 * j + 2 * h + 1], dy.y, m.y, inv.y, a.y, s1n.y, s2.y,
+                   n, rn));
+      *at = dz;
+      da[j >> 1][2 * (j & 1) + h] = dz;
+    }
+  }
+}
+
+// Pass 2, persistent: grid G <= the SMs, G·C·K f32 partials of dW.
+template <int NC, int NK>
+__global__ void __launch_bounds__(apply_tma::THREADS, 1)
+    bnb_apply_tma(const __grid_constant__ ApplyMaps maps,
+                  const float* __restrict__ m, const float* __restrict__ inv,
+                  const float* __restrict__ gam,
+                  const float* __restrict__ s1, const float* __restrict__ s2,
+                  float* __restrict__ partw, int M) {
+  using namespace apply_tma;
+  constexpr int C = 64 * NC, K = 64 * NK, STAGE = Shape<NC, NK>::STAGE;
+  extern __shared__ unsigned char apply_smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], wfull;
+  unsigned char* ring = smem_align1024(apply_smem_raw);
+  unsigned char* wbuf = ring + STAGES * STAGE;         // box (cc, kc)
+  float* cols = reinterpret_cast<float*>(wbuf + NC * NK * BOX);
+  const int tid = threadIdx.x;
+  const int n_tiles = (M + 63) / 64;
+  const float n = (float)M;
+  for (int k = tid; k < K; k += THREADS) {
+    cols[k] = m[k];
+    cols[K + k] = inv[k];
+    cols[2 * K + k] = gam[k] * inv[k];
+    cols[3 * K + k] = s1[k] / n;
+    cols[4 * K + k] = s2[k];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);          // its consumer's lead thread
+    }
+    mbar_init(&wfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // the producer: one thread loads W once and then each row tile's x
+    // and dy into the ring; the warpgroup gives its registers away
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(&wfull, NC * NK * BOX);
+      for (int cc = 0; cc < NC; ++cc)
+        for (int kc = 0; kc < NK; ++kc)
+          tma_load(wbuf + (cc * NK + kc) * BOX, &maps.w, &wfull, 64 * kc,
+                   64 * cc, 0);
+      int i = 0;
+      for (int rt = blockIdx.x; rt < n_tiles; rt += gridDim.x, ++i) {
+        const int s = i % STAGES;
+        unsigned char* st = ring + s * STAGE;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE);
+        for (int cc = 0; cc < NC; ++cc)
+          tma_load(st + cc * BOX, &maps.x, &full[s], 64 * cc, 64 * rt, 0);
+        for (int kc = 0; kc < NK; ++kc)
+          tma_load(st + (NC + kc) * BOX, &maps.dy, &full[s], 64 * kc,
+                   64 * rt, 0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // Consumer c takes the block's row tiles c, c + 2, ... (its stages are
+  // c, c + 2, ...); warp w holds rows w*16 + g and w*16 + g + 8.
+  const int c = tid / 128 - 1;
+  const int ctid = tid % 128;
+  const int w = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int lr0 = w * 16 + g, lr1 = lr0 + 8;
+  const bool lead = ctid == 0;
+  const float rn = 1.f / n;
+  float dw[NC * NK][32];                // dW[cc][kc] over every tile
+#pragma unroll
+  for (int b = 0; b < NC * NK; ++b)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dw[b][e] = 0.f;
+  int prev = -1;                        // a stage not yet given back
+  auto release = [&] {
+    if (prev >= 0 && lead) {
+      bulk_wait_read<0>();              // its dx store has read it
+      mbar_arrive(&empty[prev]);
+    }
+    prev = -1;
+  };
+  mbar_wait(&wfull, 0);
+  int i = c;
+  for (int rt = blockIdx.x + c * gridDim.x; rt < n_tiles;
+       rt += 2 * gridDim.x, i += 2) {
+    const int s = i % STAGES;
+    unsigned char* st = ring + s * STAGE;             // x box cc at cc*BOX
+    if (!DEFER) release();
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    float dx[32];                       // dx of 64 columns of C
+    uint32_t da[4][4];                  // dz of one K chunk, bf16
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dx[e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NK; ++kc) {
+      unsigned char* dyb = st + (NC + kc) * BOX;      // dy, then dz
+      // z = x·W[:, kc]: x K-major, W's rows (c) the k of the product
+      float z[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) z[e] = 0.f;
+      fence_regs(z);
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const uint64_t ax = sw128_desc(st + cc * BOX);
+        const uint64_t bw = sw128_desc(wbuf + (cc * NK + kc) * BOX);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n64k16_ss<0, 1>(z, ax + 2 * ks, bw + 128 * ks, cc | ks);
+      }
+      wgmma_commit();
+      if (DEFER && kc == 0) release();
+      wgmma_wait<0>();                  // also dW, dx of chunk kc - 1
+      fence_regs(z);
+      fence_regs(da);
+      apply_form_dz(da, dyb, z, cols + 64 * kc, K, n, rn, lr0, lr1, t);
+      fence_async_smem();
+      warpgroup_sync(1 + c);            // the chunk's dz is in its box
+#pragma unroll
+      for (int b = 0; b < NC * NK; ++b) fence_regs(dw[b]);
+      fence_regs(da);
+      wgmma_fence();
+      // dW[:, kc] += xᵀ·dz: x read transposed (M-major), dz N-major
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const uint64_t ax = sw128_desc(st + cc * BOX);
+        const uint64_t bz = sw128_desc(dyb);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n64k16_ss<1, 1>(dw[cc * NK + kc], ax + 128 * ks,
+                                   bz + 128 * ks, 1);
+      }
+      if (NC == 1) {
+        // dx += dz·W[:, kc]ᵀ: W's rows (c) the columns of the product
+        const uint64_t bw = sw128_desc(wbuf + kc * BOX);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n64k16_rs_abt(dx, da[ks], bw + 2 * ks, kc | ks);
+      }
+      wgmma_commit();
+    }
+    if (NC == 1) {
+      wgmma_wait<0>();
+      fence_regs(dx);
+      fence_regs(da);
+      bwd_stage(st, dx, lr0, lr1, t);   // over x: every read of it is done
+    } else {
+      // NK == 1: dx[:, cc] = dz·W[cc]ᵀ a box at a time, over x's box cc
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        fence_regs(dx);
+        wgmma_fence();
+        const uint64_t bw = sw128_desc(wbuf + cc * BOX);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n64k16_rs_abt(dx, da[ks], bw + 2 * ks, ks);
+        wgmma_commit();
+        wgmma_wait<0>();                // and every dW product of the tile
+        fence_regs(dx);
+        bwd_stage(st + cc * BOX, dx, lr0, lr1, t);
+      }
+      fence_regs(da);
+    }
+    fence_async_smem();
+    warpgroup_sync(1 + c);
+    if (lead) {
+      for (int cc = 0; cc < NC; ++cc)
+        tma_store(&maps.dx, st + cc * BOX, 64 * cc, 64 * rt, 0);
+      bulk_commit();                    // rows past M are not written
+    }
+    prev = s;
+  }
+  release();
+  if (lead) bulk_wait_all();
+#pragma unroll
+  for (int b = 0; b < NC * NK; ++b) fence_regs(dw[b]);
+
+  // the block's dW partial: consumer 1's sums through the (now idle)
+  // ring, added to consumer 0's in that order
+  float* red = reinterpret_cast<float*>(ring);        // [NC*NK*32][128]
+  pair_sync(PAIR);                      // every store has read the ring
+  if (c == 1) {
+#pragma unroll
+    for (int b = 0; b < NC * NK; ++b)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) red[(b * 32 + e) * 128 + ctid] = dw[b][e];
+  }
+  pair_sync(PAIR);
+  if (c == 0) {
+    float* dst = partw + (size_t)blockIdx.x * C * K;
+#pragma unroll
+    for (int b = 0; b < NC * NK; ++b) {
+      const int cc = b / NK, kc = b % NK;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * j + 2 * h;
+          const int row = 64 * cc + (h ? lr1 : lr0);
+          const int col = 64 * kc + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(dst + (size_t)row * K + col) =
+              make_float2(dw[b][e] + red[(b * 32 + e) * 128 + ctid],
+                          dw[b][e + 1] + red[(b * 32 + e + 1) * 128 + ctid]);
+        }
+      }
+    }
+  }
+}
+
 // out[i] = Σ_{g < G} part[g·n + i], in the order g = 0, 1, ...
 __global__ void sum_partials(const float* __restrict__ part, int groups,
                              long long n, float* __restrict__ out) {
@@ -370,12 +699,50 @@ cudaError_t launch_sum(const float* part, int groups, long long n, float* out,
 
 }  // namespace
 
+// The shapes `bnb_apply_tma` serves: (NC, NK) = (C/64, K/64) of ResNet-50
+// stage 1's 1x1 expand and its reverse, or (0, 0).
+static void tma_shape(int C, int K, int& nc, int& nk) {
+  nc = nk = 0;
+  if (C == 64 && K == 256) nc = 1, nk = 4;
+  if (C == 256 && K == 64) nc = 4, nk = 1;
+}
+
+template <int NC, int NK>
+static cudaError_t launch_apply_tma(const void* dy, const void* x,
+                                    const void* w, const float* m,
+                                    const float* inv, const float* gamma,
+                                    const float* s1, const float* s2,
+                                    float* part, void* dx, int M, int groups,
+                                    cudaStream_t st) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  constexpr int C = 64 * NC, K = 64 * NK;
+  ApplyMaps maps;
+  if (!(encode(fn, &maps.x, x, C, M, 1, C, (long long)M * C, 64) &&
+        encode(fn, &maps.dy, dy, K, M, 1, K, (long long)M * K, 64) &&
+        encode(fn, &maps.w, w, K, C, 1, K, (long long)C * K, 64) &&
+        encode(fn, &maps.dx, dx, C, M, 1, C, (long long)M * C, 64)))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = apply_tma::Shape<NC, NK>::SMEM;
+  cudaError_t err = allow_smem(bnb_apply_tma<NC, NK>, smem);
+  if (err != cudaSuccess) return err;
+  bnb_apply_tma<NC, NK><<<groups, apply_tma::THREADS, smem, st>>>(
+      maps, m, inv, gamma, s1, s2, part, M);
+  return cudaGetLastError();
+}
+
 // The number of row groups G of a pass (0: reduce, 1: apply) at this
-// shape: as many as let every block of the launch be resident at once on
-// the current device, at least 1 and at most the number of row tiles.
+// shape, which is also the number of partial sums the pass writes: for
+// `bnb_apply_tma` its grid, one block an SM, at most one a row tile;
+// otherwise as many as let every block of the launch be resident at once
+// on the current device, at least 1 and at most the number of row tiles.
 // Returns a negative CUDA error on failure.  The caller sizes the partial
 // buffers (G·K twice for reduce, G·C·K for apply) from it.
 extern "C" int bottleneck_bwd_groups(int pass, int M, int C, int K) {
+  const Geo geo = geometry(M, C, K, 1);
+  int nc, nk;
+  tma_shape(C, K, nc, nk);
+  if (pass == 1 && nc > 0) return persistent_grid(geo.nM);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -389,7 +756,6 @@ extern "C" int bottleneck_bwd_groups(int pass, int M, int C, int K) {
                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                           &per_sm, bnb_apply, NTHR, APPLY_SMEM);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const Geo geo = geometry(M, C, K, 1);
   const long long tiles = pass == 0 ? geo.nK : 2LL * geo.nC * geo.nK;
   long long groups = (long long)sms * (per_sm > 0 ? per_sm : 1) / tiles;
   if (groups > geo.nM) groups = geo.nM;
@@ -416,7 +782,8 @@ extern "C" int bottleneck_bwd_reduce(const void* dy, const void* x,
   return static_cast<int>(err);
 }
 
-// Pass 2: dx (M, C) bf16 and dW (C, K) f32 through part (G·C·K f32).
+// Pass 2: dx (M, C) bf16 and dW (C, K) f32 through part (G·C·K f32):
+// `bnb_apply_tma` at the two shapes it serves, `bnb_apply` at any other.
 extern "C" int bottleneck_bwd_apply(const void* dy, const void* x,
                                     const void* w, const float* m,
                                     const float* inv, const float* gamma,
@@ -424,14 +791,25 @@ extern "C" int bottleneck_bwd_apply(const void* dy, const void* x,
                                     float* part, void* dx, float* dw, int M,
                                     int C, int K, int groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo geo = geometry(M, C, K, groups);
-  cudaError_t err = allow_smem(bnb_apply, APPLY_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bnb_apply<<<dim3(2 * geo.nC * geo.nK, groups), NTHR, APPLY_SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(dy), m, inv, gamma, s1, s2,
-      static_cast<bf16*>(dx), part, geo);
-  err = cudaGetLastError();
+  int nc, nk;
+  tma_shape(C, K, nc, nk);
+  cudaError_t err;
+  if (nc == 1) {
+    err = launch_apply_tma<1, 4>(dy, x, w, m, inv, gamma, s1, s2, part, dx,
+                                 M, groups, st);
+  } else if (nc == 4) {
+    err = launch_apply_tma<4, 1>(dy, x, w, m, inv, gamma, s1, s2, part, dx,
+                                 M, groups, st);
+  } else {
+    const Geo geo = geometry(M, C, K, groups);
+    err = allow_smem(bnb_apply, APPLY_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bnb_apply<<<dim3(2 * geo.nC * geo.nK, groups), NTHR, APPLY_SMEM, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const bf16*>(dy), m, inv, gamma, s1, s2,
+        static_cast<bf16*>(dx), part, geo);
+    err = cudaGetLastError();
+  }
   if (err == cudaSuccess)
     err = launch_sum(part, groups, (long long)C * K, dw, st);
   return static_cast<int>(err);

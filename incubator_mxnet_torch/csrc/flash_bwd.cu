@@ -121,13 +121,6 @@ __device__ __forceinline__ float bwd_ds(float p, float dp, float scale,
   return p * fmaf(dp, scale, -dls);
 }
 
-// The first 1024-byte aligned byte of dynamic shared memory from raw,
-// taken as an offset from raw so that the compiler's loads and stores
-// through it stay shared-memory ones.
-__device__ __forceinline__ unsigned char* smem_align1024(unsigned char* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
 // Work tile `idx` of a launch with `nt` tiles a batch-head: its
 // batch-head and tile.  The tiles go `group` batch-heads at a time, so
 // that the blocks that run at once stream the rows of few batch-heads,
@@ -212,20 +205,6 @@ __device__ __forceinline__ void bwd_pack(uint32_t (&a)[KS][4],
     a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
     a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
     a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// A consumer's f32 accumulators (64 x 64) as bf16 in a 64-row swizzled
-// box, row lr0 and lr1 of this lane.
-__device__ __forceinline__ void bwd_stage(unsigned char* box,
-                                          const float (&acc)[32], int lr0,
-                                          int lr1, int t) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(box + sw128_at(lr0, dt) + 4 * t) =
-        pack_bf16(acc[4 * dt], acc[4 * dt + 1]);
-    *reinterpret_cast<uint32_t*>(box + sw128_at(lr1, dt) + 4 * t) =
-        pack_bf16(acc[4 * dt + 2], acc[4 * dt + 3]);
   }
 }
 

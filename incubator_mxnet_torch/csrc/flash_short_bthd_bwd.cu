@@ -22,19 +22,40 @@
 // the TPU kernel does.
 //
 // Design.
-//   * bf16, T = 128, d = 64 (BERT's training shape): `bthd_bwd_mma`, one
-//     block of 8 warps per batch-head.  q, k, v, do (16 KB each) and p
-//     (32 KB) are staged in shared memory with cp.async.  Phase 1, warp w
-//     owns keys 16w..16w+15: dpᵀ = v·doᵀ in mma.sync registers (v rows as
-//     the A operand), pᵀ read from the staged p, dsᵀ formed in registers
-//     and written back over the same p entries (each warp reads and
-//     writes only its own key columns), then dv += pᵀ·do and dk += dsᵀ·q
-//     with pᵀ and dsᵀ reused from the accumulators as A operands and do,
-//     q read down their columns with ldmatrix.trans, 32 queries at a time
-//     to bound registers.  Phase 2, warp w owns queries 16w..16w+15:
-//     dq = ds·k from the ds rows in shared memory and k by ldmatrix.trans.
-//     Each block owns its (b, h), so no atomics.  106.5 KiB of shared
-//     memory, so two blocks fit an SM if the registers allow.
+//   * bf16, T = 128, d = 64 (BERT's training shape): `bthd_bwd_tma`, one
+//     persistent block an SM walking the batch-heads bh = blockIdx.x,
+//     + gridDim.x, ...  A producer warpgroup, whose first warp works,
+//     loads each batch-head's q, k, v, do (through a tensor map each,
+//     with that tensor's own row and batch strides, 128 x 64 boxes) and
+//     p (two 128 x 64 boxes: the queries of keys 0-63 and of 64-127) by
+//     TMA, and delta (512 bytes, a row a lane) by cp.async arriving on
+//     the stage's barrier, into a ring of 2 stages, so that the next
+//     batch-head's loads run under this one's math; the rest of the
+//     warpgroup gives its registers away (`setmaxnreg`: 24 a thread, 240
+//     to each consumer thread).  Shared memory holds what TMA writes:
+//     128-byte rows in 128-byte swizzle (`sw128_at`), which wgmma's
+//     descriptors and the elementwise loads address, 96 KiB a stage (q,
+//     k, v, do 16 KiB each, p 32 KiB) plus 512 bytes of delta: 193 KiB
+//     with 1 KiB to align the ring.  ptxas (-Xptxas -v): 168 registers a
+//     thread at launch (240 for a consumer), 8 bytes of stack.
+//   * Two consumer warpgroups; consumer c owns keys 64c..64c+63.
+//     dpᵀ = v·doᵀ (wgmma m64n128k16, v's and do's rows K-major); dsᵀ =
+//     (pᵀ·(dpᵀ − delta))·scale rounded to bf16 in the accumulators, pᵀ
+//     read from the consumer's p box and ds written back over it
+//     (`bthd_ds`); dv = pᵀ·do and dk = dsᵀ·q (wgmma m64n64k16 with pᵀ,
+//     dsᵀ as the register operand and do, q read N-major: their rows are
+//     the queries).  Then, once both consumers' ds are in shared memory
+//     (a named barrier), consumer c owns queries 64c..64c+63: dq = ds·k
+//     (wgmma, ds K-major from the two p boxes, k N-major).  The products
+//     are wgmma because every operand is already in shared memory as TMA
+//     wrote it, and one instruction of a warpgroup covers what 16
+//     mma.sync and their ldmatrix loads did.  dq, dk and dv are rounded
+//     once to bf16 into the stage buffers they replace (q → dq, do → dk,
+//     v → dv: v's rows once dpᵀ has read them, q and do once both
+//     consumers' products have) and leave by TMA store; each consumer
+//     gives the stage back once its stores have read it, after the next
+//     batch-head's first products are issued.  Each block owns its
+//     batch-heads, so no atomics, and two launches give the same bits.
 //   * float32, and bf16 of other shapes (any T <= 512, d <= 256):
 //     `bthd_bwd_dq_fma` (a block per 16 query rows, key chunks of 32
 //     streamed through shared memory) and `bthd_bwd_dkv_fma` (a block per
@@ -45,160 +66,252 @@
 // d = 64, bf16): q, k, v, do 47.2 MB + p 23.6 MB + delta 0.4 MB in,
 // dq, dk, dv 35.4 MB out, ~106.6 MB, 32 us at 3.35 TB/s; the 4·2·T²·d
 // per batch-head, 6.0 GFLOP, take 6 us at 989 TFLOP/s.  So the kernel is
-// bound by memory.  The design reads every input byte once and writes
-// every output once; the scores' (T, T) intermediates never leave the
-// SM.  TMA, wgmma and overlapping one batch-head's loads with another's
-// math are later work.
+// bound by memory.  It reads every input byte once and writes every
+// output once; the scores' (T, T) intermediates never leave the SM.  The
+// 720 batch-heads make 5.45 rounds of 132 blocks, so the SMs that take 6
+// set the time.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 // ---------------------------------------------------------------------
-// Tensor-core kernel: bf16, T = 128, d = 64.
+// Persistent TMA + wgmma kernel: bf16, T = 128, d = 64.
 // ---------------------------------------------------------------------
-constexpr int BN = 128;              // T
-constexpr int BD = 64;               // d
-constexpr int LD = BD + 8;           // padded (T, d) rows: conflict-free
-constexpr int LDP = BN + 8;          // padded p / ds rows
-constexpr int NW = BN / 16;          // warps: 16 keys, then 16 queries each
-constexpr int NTHR = NW * 32;
-constexpr int HALF = 32;             // queries per phase-1 step
-constexpr size_t MMA_SMEM =
-    (size_t)(4 * BN * LD + BN * LDP) * sizeof(bf16) + BN * sizeof(float);
+namespace bt {
+constexpr int N = 128, D = 64;          // the one shape of this kernel
+constexpr int STAGES = 2;
+constexpr int TILE = N * D * 2;         // q, k, v or do of a head: 16 KB
+constexpr int BOX = 64 * D * 2;         // 64 rows of one: 8 KB
+constexpr int STAGE = 6 * TILE;         // q, k, v, do, p (two key boxes)
+constexpr int CONSUMERS = 256;          // threads of 2 consumer warpgroups
+constexpr int THREADS = 384;            // consumers + a producer warpgroup
+// registers a thread of the producer and of a consumer warpgroup keep
+// (`setmaxnreg`): 65,536 an SM in all
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int PAIR = 3;                 // named barrier of both consumers
+// a consumer gives the last batch-head's stage back once the next one's
+// has arrived (where that is another stage), so that the last one's
+// stores run while the next one's products do
+constexpr bool DEFER = STAGES > 1;
+constexpr size_t SMEM =                 // + delta, slack to align the ring
+    (size_t)STAGES * STAGE + STAGES * N * sizeof(float) + 1024;
+}  // namespace bt
 
-// Rows [0, BN) of one head of a (B, T, H, 64) bf16 tensor into a padded
-// [BN][LD] shared tile, 16 bytes per copy.
-__device__ __forceinline__ void stage_head(bf16* dst, const bf16* src,
-                                           long long ts, int tid) {
-  for (int i = tid; i < BN * 8; i += NTHR) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    cp_async16(dst + r * LD + c, src + (size_t)r * ts + c, true);
-  }
-}
+// The tensor maps of one launch (`launch_tma`): q, k, v, do (B, T, H*d)
+// with their own strides as 128 x 64 boxes, p (B*H, T, T) as 128 x 64
+// boxes (the queries of 64 keys), dq, dk, dv (B, T, H*d) as 64 x 64 boxes.
+struct BthdMaps {
+  CUtensorMap q, k, v, dout, p, dq, dk, dv;
+};
 
-// Rows [16w, 16w + 16) of a padded tile (warp w's own rows, staged there
-// from its accumulators) to one head of a contiguous (B, T, H, 64) output.
-__device__ __forceinline__ void store_rows(bf16* dst, long long ts,
-                                           const bf16* tile, int warp,
-                                           int lane) {
-  for (int i = lane; i < 16 * 8; i += 32) {
-    const int r = warp * 16 + i / 8, c = (i % 8) * 8;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ts + c) =
-        *reinterpret_cast<const uint4*>(tile + r * LD + c);
-  }
-}
-
-// The f32 accumulators of 16 rows x 64 columns into rows `row` and
-// row + 8 of a padded tile, rounded to bf16.
-__device__ __forceinline__ void stage_acc(bf16* tile, int row,
-                                          const float (&acc)[8][4], int t) {
+// dsᵀ over the saved pᵀ for this lane's keys lr0, lr1 (of the
+// consumer's 64, the rows of its dpᵀ) and queries 8j + 2t + {0, 1}
+// (columns): ds = (p·(dp − delta))·scale rounded to bf16, written over p
+// in the consumer's key box of the stage, and pᵀ, dsᵀ as the register A
+// fragments of pᵀ·do and dsᵀ·q (queries 16kk.. are k-step kk).
+__device__ __forceinline__ void bthd_ds(uint32_t (&pa)[8][4],
+                                        uint32_t (&da)[8][4],
+                                        unsigned char* pbox,
+                                        const float (&dp)[64],
+                                        const float* delta, float scale,
+                                        int lr0, int lr1, int t) {
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(tile + row * LD + c) =
-        pack_bf16(acc[dt][0], acc[dt][1]);
-    *reinterpret_cast<uint32_t*>(tile + (row + 8) * LD + c) =
-        pack_bf16(acc[dt][2], acc[dt][3]);
+  for (int j = 0; j < 16; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = h ? lr1 : lr0;
+      bf16 pp[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bf16* at = reinterpret_cast<bf16*>(
+            pbox + sw128_at(8 * j + 2 * t + e, key >> 3) + 2 * (key & 7));
+        pp[e] = *at;
+        ds[e] = __float2bfloat16(__bfloat162float(pp[e]) *
+                                 (dp[4 * j + 2 * h + e] - (e ? dl.y : dl.x)) *
+                                 scale);
+        *at = ds[e];
+      }
+      const __nv_bfloat162 p2 = __halves2bfloat162(pp[0], pp[1]);
+      const __nv_bfloat162 d2 = __halves2bfloat162(ds[0], ds[1]);
+      pa[j >> 1][2 * (j & 1) + h] = *reinterpret_cast<const uint32_t*>(&p2);
+      da[j >> 1][2 * (j & 1) + h] = *reinterpret_cast<const uint32_t*>(&d2);
+    }
   }
 }
 
-__global__ void __launch_bounds__(NTHR)
-bthd_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ delta, const bf16* __restrict__ p,
-             bf16* __restrict__ dq, bf16* __restrict__ dk,
-             bf16* __restrict__ dv, Rows rq, Rows rk, Rows rv, Rows rdo,
-             int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char bwd_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(bwd_smem);   // [BN][LD], later dq
-  bf16* ks = qs + BN * LD;                        // [BN][LD]
-  bf16* vs = ks + BN * LD;                        // [BN][LD], later dv
-  bf16* dos = vs + BN * LD;                       // [BN][LD], later dk
-  bf16* ps = dos + BN * LD;                       // [BN][LDP]: p, then ds
-  float* dls = reinterpret_cast<float*>(ps + BN * LDP);   // [BN] delta
-
-  const int bh = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  stage_head(qs, q + head_at(rq, bh, heads, BD), rq.ts, tid);
-  stage_head(ks, k + head_at(rk, bh, heads, BD), rk.ts, tid);
-  stage_head(vs, v + head_at(rv, bh, heads, BD), rv.ts, tid);
-  stage_head(dos, dout + head_at(rdo, bh, heads, BD), rdo.ts, tid);
-  const bf16* pb = p + (size_t)bh * BN * BN;
-  for (int i = tid; i < BN * BN / 8; i += NTHR) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    cp_async16(ps + r * LDP + c, pb + (size_t)r * BN + c, true);
+// One warp's share of loading batch-head bh into stage st: lane 0 issues
+// the TMA loads of q, k, v, do and p, every lane copies delta rows by
+// cp.async, and each lane's copies arrive on `full` when they land.
+__device__ __forceinline__ void bthd_load(const BthdMaps& maps,
+                                          unsigned char* st, float* dl,
+                                          const float* delta, int bh,
+                                          int heads, uint64_t* full,
+                                          int lane) {
+  using namespace bt;
+  const int b = bh / heads, h = bh % heads;
+  if (lane == 0) {
+    mbar_expect_tx(full, STAGE);
+    tma_load(st, &maps.q, full, h * D, 0, b);
+    tma_load(st + TILE, &maps.k, full, h * D, 0, b);
+    tma_load(st + 2 * TILE, &maps.v, full, h * D, 0, b);
+    tma_load(st + 3 * TILE, &maps.dout, full, h * D, 0, b);
+    tma_load(st + 4 * TILE, &maps.p, full, 0, 0, bh);
+    tma_load(st + 5 * TILE, &maps.p, full, 64, 0, bh);
   }
-  if (tid < BN) cp_async4(dls + tid, delta + (size_t)bh * BN + tid, true);
-  cp_async_commit();
-  cp_async_wait<0>();
+  for (int r = lane; r < N; r += 32)
+    cp_async4(dl + r, delta + (size_t)bh * N + r, true);
+  mbar_arrive_cp_async(full);
+}
+
+__global__ void __launch_bounds__(bt::THREADS, 1)
+bthd_bwd_tma(const __grid_constant__ BthdMaps maps,
+             const float* __restrict__ delta, int bh_total, int heads,
+             float scale) {
+  using namespace bt;
+  extern __shared__ unsigned char bt_smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  unsigned char* ring = smem_align1024(bt_smem_raw);
+  float* dls = reinterpret_cast<float*>(ring + STAGES * STAGE);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);      // the TMA, each producer lane
+      mbar_init(&empty[s], 2);          // each consumer's lead thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // phase 1: this warp's 16 keys (rows of dpᵀ, pᵀ, dsᵀ, dk, dv)
-  const int wrow = warp * 16 + g;
-  uint32_t va[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(va[kk], vs, wrow, LD, kk, t);
-  float dkc[8][4], dvc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkc[dt][e] = dvc[dt][e] = 0.f;
+  if (tid >= CONSUMERS) {
+    // the producer warpgroup: its first warp loads each batch-head
+    // (`bthd_load`); the warpgroup gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int lane = tid - CONSUMERS;
+    if (lane >= 32) return;
+    int i = 0;
+    for (int bh = blockIdx.x; bh < bh_total; bh += gridDim.x, ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+      bthd_load(maps, ring + s * STAGE, dls + s * N, delta, bh, heads,
+                &full[s], lane);
+    }
+    return;
+  }
 
-#pragma unroll 1
-  for (int q0 = 0; q0 < BN; q0 += HALF) {
-    const bf16* qt = qs + q0 * LD;
-    const bf16* dot = dos + q0 * LD;
-    float dp[4][4];
-    mma_abt<4>(dp, va, dot, LD, g, t);        // dpᵀ = v·doᵀ
-    float pv[4][4], dsv[4][4];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // Consumer c owns keys c*64 .. c*64+63 of every batch-head (the rows of
+  // its dpᵀ, dk, dv; warp w holds keys w*16 + g and w*16 + g + 8), then
+  // queries c*64 .. c*64+63 (the rows of its dq).
+  const int c = tid / 128;
+  const int ctid = tid & 127;
+  const int w = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int lr0 = w * 16 + g, lr1 = lr0 + 8;
+  const bool lead = ctid == 0;
+  int prev = -1;                        // a stage not yet given back
+  auto release = [&] {
+    if (prev >= 0 && lead) {
+      bulk_wait_read<0>();              // its dq, dk, dv stores read it
+      mbar_arrive(&empty[prev]);
+    }
+    prev = -1;
+  };
+  int i = 0;
+  for (int bh = blockIdx.x; bh < bh_total; bh += gridDim.x, ++i) {
+    const int s = i % STAGES;
+    unsigned char* qs = ring + s * STAGE;             // then dq
+    unsigned char* ks = qs + TILE;
+    unsigned char* vs = qs + 2 * TILE;                // then dv
+    unsigned char* dos = qs + 3 * TILE;               // then dk
+    unsigned char* ps = qs + 4 * TILE;                // p, then ds
+    const int b = bh / heads, h = bh % heads;
+    if (!DEFER) release();
+    mbar_wait(&full[s], (i / STAGES) & 1);
+
+    // dpᵀ = v·doᵀ: this consumer's 64 keys (v's rows, K-major) against
+    // the 128 queries (do's rows, K-major)
+    float dp[64];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int e = 0; e < 64; ++e) dp[e] = 0.f;
+    fence_regs(dp);
+    wgmma_fence();
+    {
+      const uint64_t av = sw128_desc(vs + c * BOX);
+      const uint64_t bd = sw128_desc(dos);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = q0 + nt * 8 + 2 * t + (e & 1);
-        const int key = e < 2 ? wrow : wrow + 8;
-        bf16* at = ps + qr * LDP + key;
-        const float pp = to_f(*at);
-        const float x = pp * (dp[nt][e] - dls[qr]) * scale;
-        const bf16 xr = __float2bfloat16(x);
-        pv[nt][e] = pp;
-        dsv[nt][e] = __bfloat162float(xr);
-        *at = xr;                             // ds in place of p
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16_ss(dp, av + 2 * kk, bd + 2 * kk, kk);
+    }
+    wgmma_commit();
+    if (DEFER) release();
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    uint32_t pa[8][4], da[8][4];
+    bthd_ds(pa, da, ps + c * TILE, dp, dls + s * N, scale, lr0, lr1, t);
+    fence_async_smem();                 // ds, for the other consumer's dq
+
+    // dv = pᵀ·do, dk = dsᵀ·q over the 128 queries: pᵀ, dsᵀ in registers,
+    // do and q read N-major (their rows are the queries)
+    float dv[32], dk[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dv[e] = dk[e] = 0.f;
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+    {
+      const uint64_t bd = sw128_desc(dos), bq = sw128_desc(qs);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        wgmma_m64n64k16_rs(dv, pa[kk], bd + (uint64_t)(kk * 16 * 128 >> 4));
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        wgmma_m64n64k16_rs(dk, da[kk], bq + (uint64_t)(kk * 16 * 128 >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    bwd_stage(vs + c * BOX, dv, lr0, lr1, t);         // v's rows are read
+    pair_sync(PAIR);                    // ds complete; q and do read
+    bwd_stage(dos + c * BOX, dk, lr0, lr1, t);
+
+    // dq = ds·k for queries c*64..: ds K-major from the two key boxes, k
+    // N-major (its rows are the keys)
+    float dq[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+    fence_regs(dq);
+    wgmma_fence();
+    {
+      const uint64_t bk = sw128_desc(ks);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint64_t ad =
+            sw128_desc(ps + (kk >> 2) * TILE + c * BOX) + 2 * (kk & 3);
+        wgmma_m64n64k16_ss<0, 1>(dq, ad, bk + (uint64_t)(kk * 16 * 128 >> 4),
+                                 kk);
       }
     }
-    uint32_t pa[2][4], dsa[2][4];              // k-steps of 16 queries
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      pack_a(pa[j], pv[2 * j], pv[2 * j + 1]);
-      pack_a(dsa[j], dsv[2 * j], dsv[2 * j + 1]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    bwd_stage(qs + c * BOX, dq, lr0, lr1, t);         // q's rows are read
+    fence_async_smem();
+    warpgroup_sync(1 + c);
+    if (lead) {
+      tma_store(&maps.dv, vs + c * BOX, h * D, c * 64, b);
+      tma_store(&maps.dk, dos + c * BOX, h * D, c * 64, b);
+      tma_store(&maps.dq, qs + c * BOX, h * D, c * 64, b);
+      bulk_commit();
     }
-    mma_ab<2>(dvc, pa, dot, LD, lane);        // dv += pᵀ·do
-    mma_ab<2>(dkc, dsa, qt, LD, lane);        // dk += dsᵀ·q
+    prev = s;
   }
-  __syncthreads();          // every warp's ds written; q, do, p read
-
-  const size_t row = (size_t)heads * BD;     // outputs: (B, T, H, d)
-  const size_t ob =
-      (size_t)(bh / heads) * BN * row + (size_t)(bh % heads) * BD;
-  stage_acc(dos, wrow, dkc, t);
-  stage_acc(vs, wrow, dvc, t);
-  __syncwarp();
-  store_rows(dk + ob, row, dos, warp, lane);
-  store_rows(dv + ob, row, vs, warp, lane);
-
-  // phase 2: this warp's 16 queries, dq = ds·k
-  uint32_t da[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) load_a(da[j], ps, wrow, LDP, j, t);
-  float dqc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqc[dt][e] = 0.f;
-  mma_ab<8>(dqc, da, ks, LD, lane);
-  stage_acc(qs, wrow, dqc, t);
-  __syncwarp();
-  store_rows(dq + ob, row, qs, warp, lane);
+  release();
+  if (lead) bulk_wait_all();
 }
 
 // ---------------------------------------------------------------------
@@ -399,6 +512,53 @@ static cudaError_t launch_fma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The tensor-core kernel's launch: a tensor map for each of q, k, v, do
+// (their own row and batch strides), p and the three outputs.  TMA reads
+// and writes through a map only from a 16-byte-aligned base with row and
+// batch strides that are multiples of 16 bytes; any other tensor is
+// refused here (the wrapper hands such a view over as a contiguous copy).
+static cudaError_t launch_tma(const void* q, const void* k, const void* v,
+                              const void* dout, const float* delta,
+                              const void* p, void* dq, void* dk, void* dv,
+                              int batch, int heads, Rows rq, Rows rk,
+                              Rows rv, Rows rdo, float scale,
+                              cudaStream_t st) {
+  using namespace bt;
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  auto aligned = [&](const void* base, long long ts, long long bs) {
+    return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ts * 2 % 16 == 0 &&
+           (batch == 1 || bs * 2 % 16 == 0);
+  };
+  const long long width = (long long)heads * D;
+  if (!(aligned(q, rq.ts, rq.bs) && aligned(k, rk.ts, rk.bs) &&
+        aligned(v, rv.ts, rv.bs) && aligned(dout, rdo.ts, rdo.bs) &&
+        aligned(p, N, N * N) && aligned(dq, width, N * width) &&
+        aligned(dk, width, N * width) && aligned(dv, width, N * width) &&
+        reinterpret_cast<uintptr_t>(delta) % 4 == 0))
+    return cudaErrorMisalignedAddress;
+  // a batch stride is never read when batch == 1; the map still wants a
+  // multiple of 16 bytes there
+  auto outer = [&](const Rows& r) { return batch > 1 ? r.bs : N * r.ts; };
+  BthdMaps maps;
+  const bool ok =
+      encode(fn, &maps.q, q, width, N, batch, rq.ts, outer(rq), N) &&
+      encode(fn, &maps.k, k, width, N, batch, rk.ts, outer(rk), N) &&
+      encode(fn, &maps.v, v, width, N, batch, rv.ts, outer(rv), N) &&
+      encode(fn, &maps.dout, dout, width, N, batch, rdo.ts, outer(rdo), N) &&
+      encode(fn, &maps.p, p, N, N, (long long)batch * heads, N, N * N, N) &&
+      encode(fn, &maps.dq, dq, width, N, batch, width, N * width, 64) &&
+      encode(fn, &maps.dk, dk, width, N, batch, width, N * width, 64) &&
+      encode(fn, &maps.dv, dv, width, N, batch, width, N * width, 64);
+  if (!ok) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(bthd_bwd_tma, SMEM);
+  if (err != cudaSuccess) return err;
+  const int bh = batch * heads;
+  bthd_bwd_tma<<<persistent_grid(bh), THREADS, SMEM, st>>>(maps, delta, bh,
+                                                           heads, scale);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------
 // Host entry point.  q, k, v, do: (batch, n, heads, d) with element
 // (b, t, h, e) at b*x_bs + t*x_ts + h*d + e, bf16 (is_bf16 = 1) or
@@ -421,17 +581,9 @@ extern "C" int flash_short_bthd_bwd(
       rdo{do_bs, do_ts};
   const int bh = batch * heads;
   cudaError_t err;
-  if (is_bf16 && n == BN && d == BD) {
-    err = allow_smem(bthd_bwd_mma, MMA_SMEM);
-    if (err == cudaSuccess) {
-      bthd_bwd_mma<<<bh, NTHR, MMA_SMEM, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), delta,
-          static_cast<const bf16*>(p), static_cast<bf16*>(dq),
-          static_cast<bf16*>(dk), static_cast<bf16*>(dv), rq, rk, rv, rdo,
-          heads, scale);
-      err = cudaGetLastError();
-    }
+  if (is_bf16 && n == bt::N && d == bt::D) {
+    err = launch_tma(q, k, v, dout, delta, p, dq, dk, dv, batch, heads, rq,
+                     rk, rv, rdo, scale, st);
   } else if (is_bf16) {
     err = launch_fma<bf16>(q, k, v, dout, delta, p, dq, dk, dv, bh, n, d, rq,
                            rk, rv, rdo, heads, scale, st);

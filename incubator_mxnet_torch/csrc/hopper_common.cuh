@@ -1,16 +1,20 @@
-// Hopper (sm_90a) building blocks shared by the persistent attention
-// kernels, forward (flash_short_fwd.cu `short_fwd_tma`, flash_fwd.cu
-// `fwd_tma`) and backward (flash_bwd.cu `bwd_dq_tma`, `bwd_dkv_tma`):
-// mbarriers, TMA loads and stores over 3-d tensor maps in 128-byte
-// swizzle, the arrival of cp.async copies on an mbarrier, bulk-group
-// waits, named barriers, the wgmma descriptors, fences and the wgmma
-// shapes the kernels run, and on the host the tensor-map encoder, found
-// through the CUDA runtime so that a library links against nothing but
-// the runtime.
+// Hopper (sm_90a) building blocks shared by the persistent kernels:
+// the attention forward (flash_short_fwd.cu `short_fwd_tma`, flash_fwd.cu
+// `fwd_tma`) and backward (flash_bwd.cu `bwd_dq_tma`, `bwd_dkv_tma`;
+// flash_short_bthd_bwd.cu `bthd_bwd_tma`) and the bottleneck backward's
+// apply pass (bottleneck_bwd.cu `bnb_apply_tma`): mbarriers, TMA loads
+// and stores over 3-d tensor maps in 128-byte swizzle, the arrival of
+// cp.async copies on an mbarrier, bulk-group waits, named barriers, the
+// wgmma descriptors, fences and the wgmma shapes the kernels run, the
+// staging of accumulators in swizzled boxes, and on the host the
+// tensor-map encoder, found through the CUDA runtime so that a library
+// links against nothing but the runtime.
 #pragma once
 #include <cuda.h>   // CUtensorMap and its encoder's types; no -lcuda
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"   // pack_bf16
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -138,6 +142,27 @@ __device__ __forceinline__ int sw128_at(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
+// The first 1024-byte aligned byte of dynamic shared memory from raw,
+// taken as an offset from raw so that the compiler's loads and stores
+// through it stay shared-memory ones.
+__device__ __forceinline__ unsigned char* smem_align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// A warpgroup's f32 accumulators (64 x 64) as bf16 in a 64-row swizzled
+// box, row lr0 and lr1 of this lane.
+__device__ __forceinline__ void bwd_stage(unsigned char* box,
+                                          const float (&acc)[32], int lr0,
+                                          int lr1, int t) {
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    *reinterpret_cast<uint32_t*>(box + sw128_at(lr0, dt) + 4 * t) =
+        pack_bf16(acc[4 * dt], acc[4 * dt + 1]);
+    *reinterpret_cast<uint32_t*>(box + sw128_at(lr1, dt) + 4 * t) =
+        pack_bf16(acc[4 * dt + 2], acc[4 * dt + 3]);
+  }
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -261,6 +286,37 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_abt(float (&acc)[32],
         "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
         "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// acc (64 x 64 per warpgroup, f32) = A·B (+ acc unless scale_d is 0)
+// over k = 16, both operands 64-wide boxes in shared memory: A (64 rows
+// of M) K-major (TA = 0: each row of the box one row of A) or M-major
+// (TA = 1: each row of the box one k of A, read transposed), B K-major
+// (TB = 0: each row one column n of B) or N-major (TB = 1: each row one
+// k of B).  A K-major operand steps 32 bytes along its rows a k-step,
+// an M- or N-major one 16 rows (2048 bytes).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&acc)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------------

@@ -12,9 +12,13 @@ two passes over the rows, each a hand-written CUDA kernel
                                           in registers, rounded to bf16;
                                           dx = dz·Wᵀ, dW = Σ xᵀ·dz
 
-so z is never read from memory and dz never written to it.  The shapes
-default to ResNet-50 stage 1's 1x1 expand convolution as a product:
-M = 256·56·56 rows, C = 64 -> K = 256.  On the card:
+so z is never read from memory and dz never written to it.  At the two
+shapes the tool's path runs, ResNet-50 stage 1's 1x1 expand (C = 64 ->
+K = 256) and its reverse (256 -> 64), pass 2 is a persistent kernel that
+reads dy and x once and keeps W in shared memory (`bnb_apply_tma`); at
+any other shape it is `bnb_apply`.  The shapes default to the expand
+convolution as a product: M = 256·56·56 rows, C = 64 -> K = 256.  On the
+card:
 
     python -m incubator_mxnet_torch.tools.bottleneck_bwd [--rows M]
         [--cin C] [--cout K] [--full-block] [--json OUT]

@@ -189,6 +189,36 @@ def test_backward_matches_jax_on_the_same_residuals(dtype):
                grad=True)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_at_the_kernel_shape_follows_the_jax_rules(causal):
+    """The backward at the persistent kernel's shape (bf16, T = 128,
+    d = 64, H = 12), kv_length 0, T/3 and T over the batch, against
+    `_bwd_short_bthd` (interpret mode) from the same saved (o, p) and do:
+    causal needs no mask in the backward, and a row with kv_length 0
+    (p = 1/T) sends gradient into k as the JAX kernel does."""
+    shape = (3, 128, 12, 64)
+    buf, do = _inputs(shape, 4)
+    lengths = _lengths("mixed", 3, 128)
+    jq, jk, jv = (jnp.asarray(np.ascontiguousarray(a), jnp.bfloat16)
+                  for a in _views(buf, shape))
+    jlen = jnp.asarray(lengths).reshape(3, 1, 1)
+    jo, jp = _fwd_short_bthd(jq, jk, jv, jlen, 0.125, causal, True, True)
+    jdo = jnp.asarray(do).astype(jnp.bfloat16)
+    ref = _bwd_short_bthd(0.125, causal, True, (jq, jk, jv, jlen, jo, jp),
+                          jdo)[:3]
+    views = _views(torch.from_numpy(buf).to(torch.bfloat16), shape)
+    to, tp = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+              .to(torch.bfloat16) for x in (jo, jp))
+    tdo = torch.from_numpy(do).to(torch.bfloat16)
+    delta = (tdo.float() * to.float()).sum(-1).transpose(1, 2).contiguous()
+    got = flash_short_bthd_bwd(*views, tdo, delta, tp, 0.125)
+    dk_dead = got[1][0].float().abs().max().item()
+    assert dk_dead > 0          # kv_length 0: gradient reaches k
+    for a, b in zip(got, ref):
+        _close(a.float().numpy(), np.asarray(b.astype(jnp.float32)),
+               "bfloat16", grad=True)
+
+
 def test_grads_match_autograd_through_plain_version():
     """With every kv_length > 0, `FlashShortBTHD` equals torch autograd
     through the plain forward (float32, 1e-5)."""

@@ -31,7 +31,11 @@ streaming kernels (bf16, d = 64) are tried around their grids, two
 launches of each queued back to back on a side stream, and the
 backward's (rows 3 and 4) twice on the same inputs, which must give the
 same bits.  The bottleneck backward's two kernels (row 8) take their own
-tolerances, stated where they are defined below.
+tolerances, stated where they are defined below.  Row 6's persistent
+kernel (bf16, T = 128, d = 64) is tried below its grid and off a
+multiple of it, and row 8b's (ResNet-50 stage 1's two widths) at a
+ragged M, fewer row tiles than SMs and one tile a block, each twice on
+the same inputs, which must give the same bits.
 """
 import numpy as np
 import pytest
@@ -734,6 +738,64 @@ def test_flash_short_bthd_grads_match_autograd_through_plain(
     assert grads[0].dtype == dtype and err <= GRAD_RTOL[dtype] * top
 
 
+# the persistent row-6 kernel (bf16, T = 128, d = 64) at batch-heads
+# below its grid (B = 1) and not a multiple of it (B = 61)
+BTHD_BWD_TMA_SHAPES = [(1, 128, 12, 64), (61, 128, 12, 64)]
+BTHD_BWD_TMA_IDS = ["x".join(map(str, s)) for s in BTHD_BWD_TMA_SHAPES]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", BTHD_BWD_TMA_SHAPES, ids=BTHD_BWD_TMA_IDS)
+def test_bthd_bwd_tma_matches_plain_and_repeats(card, causal, shape):
+    """Row 6's persistent kernel on views of a (B, T, 3E) buffer, with
+    kv_length 0 among the rows, from the plain forward's o and p: dq, dk,
+    dv within GRAD_RTOL of the largest reference, one launch a call, and
+    the same bits from a second launch on the same inputs."""
+    q, k, v, do, lengths = _bthd_inputs(card, shape, torch.bfloat16,
+                                        11 + shape[0])
+    scale = shape[3] ** -0.5
+    o, p = flash_short_bthd_reference(q, k, v, lengths, scale, causal,
+                                      save_p=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    reset_launch_counts()
+    got = flash_short_bthd_bwd(q, k, v, do, delta, p, scale)
+    again = flash_short_bthd_bwd(q, k, v, do, delta, p, scale)
+    torch.cuda.synchronize()
+    assert launch_counts == dict(NO_LAUNCH, flash_short_bthd_bwd=2)
+    ref = flash_short_bthd_bwd_reference(q, k, v, do, delta, p, scale)
+    for name, a, b, a2 in zip(("dq", "dk", "dv"), got, ref, again):
+        assert torch.equal(a, a2), name
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        assert err <= GRAD_RTOL[torch.bfloat16] * top, (name, err, top)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_short_bthd_kv_length_zero_follows_the_jax_rule(card, causal):
+    """`FlashShortBTHD` on a batch whose kv_length-0 elements have p = 1/T:
+    their gradients (into k too) are the plain backward's on the plain
+    forward's o and p, within GRAD_RTOL of its largest value."""
+    shape = (61, 128, 12, 64)
+    q, k, v, do, lengths = _bthd_inputs(card, shape, torch.bfloat16, 23)
+    lengths[::7] = 0
+    B, T, H, d = shape
+    E = H * d
+    base = torch.cat([t.reshape(B, T, E) for t in (q, k, v)], -1)
+    buf = base.clone().requires_grad_()
+    views = [buf[..., i * E:(i + 1) * E].reshape(shape) for i in range(3)]
+    FlashShortBTHD.apply(*views, lengths, 0.125, causal).backward(do)
+    o, p = flash_short_bthd_reference(q, k, v, lengths, 0.125, causal,
+                                      save_p=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    ref = flash_short_bthd_bwd_reference(q, k, v, do, delta, p, 0.125)
+    rule = torch.cat([g.reshape(B, T, E) for g in ref], -1)
+    dead = lengths == 0
+    assert dead.sum().item() > 1
+    err = (buf.grad[dead].float() - rule[dead].float()).abs().max().item()
+    top = rule[dead].float().abs().max().item()
+    assert top > 0 and err <= GRAD_RTOL[torch.bfloat16] * top, (err, top)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_multi_head_attention_bthd_route_reads_views_in_place(
         card, causal, monkeypatch):
@@ -865,6 +927,44 @@ def test_conv1x1bn_grads_match_autograd(card):
         grads.append(torch.autograd.grad(loss, leaves))
     for a, b in zip(grads[1], grads[0]):
         assert _rel(a, b) <= BNB_VJP_RTOL
+
+
+def _bnb_apply_cases(card):
+    """Row counts of the persistent apply kernel: ragged, fewer row tiles
+    than SMs, and exactly one 64-row tile a block."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    return {"ragged": 4096 + 37, "few_tiles": 100, "one_tile_a_block":
+            64 * sms}
+
+
+@pytest.mark.parametrize("case", ["ragged", "few_tiles", "one_tile_a_block"])
+@pytest.mark.parametrize("cin,cout", [(64, 256), (256, 64)],
+                         ids=["64x256", "256x64"])
+def test_bottleneck_apply_tma_matches_and_repeats(card, case, cin, cout):
+    """The persistent apply kernel at both ResNet-50 stage-1 widths:
+    dx and dW against the plain version within BNB_RTOL, the pair against
+    autograd of `bn_dot` within BNB_VJP_RTOL, one launch a call, and the
+    same bits from a second launch on the same inputs."""
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    M = _bnb_apply_cases(card)[case]
+    x, w, gamma, beta, dy, m, inv = _bnb_inputs(card, M, cin, cout, seed=3)
+    s1, s2 = bnb.bottleneck_reduce_reference(dy, x, w, m, inv)
+    bnb.reset_launch_counts()
+    got = bnb.bottleneck_bwd_apply(dy, x, w, m, inv, gamma, s1, s2)
+    again = bnb.bottleneck_bwd_apply(dy, x, w, m, inv, gamma, s1, s2)
+    torch.cuda.synchronize()
+    assert bnb.launch_counts == {"bottleneck_bwd_reduce": 0,
+                                 "bottleneck_bwd_apply": 2}
+    ref = bnb.bottleneck_apply_reference(dy, x, w, m, inv, gamma, s1, s2)
+    for name, a, b, a2 in zip(("dx", "dw"), ref, got, again):
+        assert torch.equal(b, a2), name
+        assert torch.isfinite(b).all(), name
+        assert _rel(a, b) <= BNB_RTOL, (name, _rel(a, b))
+    leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+    want = torch.autograd.grad(bnb.bn_dot(*leaves)[0], leaves, dy)
+    pair = bnb.bottleneck_bwd(dy, x, w, m, inv, gamma)
+    for name, a, b in zip(("dx", "dw", "dgamma", "dbeta"), want, pair):
+        assert _rel(a, b) <= BNB_VJP_RTOL, (name, _rel(a, b))
 
 
 def test_bottleneck_kernels_refuse_float32(card):
