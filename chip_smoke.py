@@ -92,8 +92,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    (C = 256, K = 64), a stage-2 shape (M = 256*28*28, 128 -> 512) and a
    ragged stage-4 M (256*7*7 = 12544, 512 -> 2048); the kernels', the
    plain versions' and autograd's times at stage 1 and its reverse, each
-   kernel's share of its bound, and the apply pass's traced kernel name
-   and grid and the host time of one wrapper call there; then
+   kernel's share of its bound, and each pass's traced kernel name and
+   grid and the host time of one wrapper call there; then
    the tool's own entry (`tools.bottleneck_bwd.main`): the isolated stage
    at its default shape and the 3-block stack (`--full-block`), whose
    fused form launches both kernels.
@@ -1457,11 +1457,15 @@ def phase_bottleneck(card):
                       "bottleneck_bwd_apply": _bound(
                           io + 5 * vec + 2 * M * C + 4 * C * K,
                           6 * M * C * K, torch.bfloat16)}
-            # the apply pass's persistent kernel: its traced grid and
-            # the host time of one wrapper call
-            facts = {"bottleneck_bwd_apply": _launch_facts(
-                lambda: bnb.bottleneck_bwd_apply(dy, x, w, m, inv, gamma,
-                                                 s1, s2), "bnb_apply")}
+            # the persistent kernels of both passes: each one's traced
+            # grid and the host time of one wrapper call
+            facts = {"bottleneck_bwd_reduce": _launch_facts(
+                         lambda: bnb.bottleneck_bwd_reduce(dy, x, w, m, inv),
+                         "bnb_reduce"),
+                     "bottleneck_bwd_apply": _launch_facts(
+                         lambda: bnb.bottleneck_bwd_apply(dy, x, w, m, inv,
+                                                          gamma, s1, s2),
+                         "bnb_apply")}
             for name in ms:
                 bound_ms, bound_by = bounds[name]
                 fact = facts.get(name, {})

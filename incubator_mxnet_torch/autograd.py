@@ -138,14 +138,26 @@ def _head_grads(heads, head_grads):
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Reverse sweep from `heads` (NDArrays recorded under `record()`);
-    gradients land in the leaves' `.grad` per their `grad_req`."""
-    heads = _tensors(heads)
-    grads = [torch.ones_like(h) if g is None else g.to(h.dtype)
-             for h, g in zip(heads, _head_grads(heads, head_grads))]
-    if not all(h.requires_grad for h in heads):
-        raise MXNetError(
-            "cannot differentiate a head that was not produced by a "
-            "recorded op and has no grad attached")
+    gradients land in the leaves' `.grad` per their `grad_req`.  A head
+    that no gradient-taking input reaches writes nothing."""
+    from .ndarray import NDArray
+    if isinstance(heads, (NDArray, torch.Tensor)):
+        heads = [heads]
+    pairs = []
+    for h, g in zip(heads, _head_grads(heads, head_grads)):
+        t = h._data if isinstance(h, NDArray) else h
+        if t.requires_grad:
+            pairs.append((t, torch.ones_like(t) if g is None
+                          else g.to(t.dtype)))
+        elif not (getattr(h, "_recorded", False) or t.grad is not None):
+            raise MXNetError(
+                "cannot differentiate a head that was not produced by a "
+                "recorded op and has no grad attached")
+    # A head recorded from inputs that take no gradient (or a "null"
+    # leaf) has nothing to write: the JAX sweep passes over it.
+    if not pairs:
+        return
+    heads, grads = map(list, zip(*pairs))
     with torch.no_grad():
         for leaf in _reachable_leaves(heads):
             if getattr(leaf, "_grad_req", "write") == "write" and \

@@ -25,7 +25,8 @@
 //     a given G, which the host picks so that every block of a launch is
 //     resident at once: the blocks of one group then read the same x and
 //     dy tiles at about the same time, and the second read comes from L2.
-//   * Pass 1 (`bnb_reduce`): block (kt, g) owns K tile kt.
+//   * Pass 1 at any shape but the two below (`bnb_reduce`): block
+//     (kt, g) owns K tile kt, so x is staged once per K tile.
 //   * Pass 2 at any shape but the two below (`bnb_apply`): two kinds of
 //     block in one launch.  Block (ct·nK + j, g) writes dx[rows, ct] =
 //     Σ_kt dz[rows, kt]·W[ct, kt]ᵀ for the row tiles g + G·j,
@@ -71,6 +72,23 @@
 //     consumers' raised to 240 by `setmaxnreg`; no stack at 256 -> 64,
 //     72 bytes of stack (spills) at 64 -> 256 (orderings of the chunk
 //     steps that spill less were no faster, PERF.md).
+//   * Pass 1 at the same two shapes (`bnb_reduce_tma`): pass 2's
+//     machinery without dz, dx or dW.  One persistent block an SM loads
+//     W once by TMA (the same swizzled boxes, read N-major for z = x·W);
+//     a producer warp brings each 64-row tile's x and dy into a ring of
+//     4 stages of 40 KB, so x and dy are read from memory once (the old
+//     kernel staged x once per K tile and restaged W every row tile).
+//     Two consumer warpgroups take the tiles in turns; for each 64-column
+//     chunk of K a consumer computes z with wgmma (f32), zh = (z − m)·inv
+//     and adds dy and dy·zh of its two rows to per-column sums kept in
+//     registers across all of its tiles (2·16 a chunk a thread: 128 at
+//     64 -> 256).  It gives the stage back once its products are waited
+//     for and its dy read; a reduction stores nothing, so no store holds
+//     a stage.  At the end the sums go across the 8 lanes of one column,
+//     then the 4 warps and the 2 consumers, in a fixed order, into the
+//     block's row of a (G, 2K) partial (s1 then s2), which one
+//     `sum_partials` launch adds in a fixed order: no float atomics, and
+//     two launches give the same bits.
 //   * Ragged M, C and K: rows of x and dy past M, and columns past C or K,
 //     are staged as zeros (TMA fills its boxes past M with zeros), and m,
 //     inv, g as zeros past K.  A zero row adds nothing to s1, s2 (dy = 0)
@@ -84,7 +102,8 @@
 // take 0.027 and 0.080 ms at 989 TFLOP/s, so both are bound by memory;
 // the reverse (C = 256, K = 64) moves 925 MB in pass 2, 0.276 ms.
 // `bnb_reduce` reads dy and x from memory about once when L2 serves the
-// groups' repeated reads; `bnb_apply_tma` reads them once.
+// groups' repeated reads; `bnb_reduce_tma` and `bnb_apply_tma` read them
+// once.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -230,12 +249,12 @@ __device__ __forceinline__ void form_dz(bf16* dzs, const float (&acc)[8][4],
   }
 }
 
-// Pass 1.  grid (nK, G).  part1, part2: (G, K) f32.
+// Pass 1.  grid (nK, G).  part: (G, 2K) f32, s1 then s2 in each row.
 __global__ void __launch_bounds__(NTHR)
     bnb_reduce(const bf16* __restrict__ x, const bf16* __restrict__ w,
                const bf16* __restrict__ dy, const float* __restrict__ m,
-               const float* __restrict__ inv, float* __restrict__ part1,
-               float* __restrict__ part2, Geo geo) {
+               const float* __restrict__ inv, float* __restrict__ part,
+               Geo geo) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* ws = xs + 2 * TILE;
@@ -289,8 +308,8 @@ __global__ void __launch_bounds__(NTHR)
         a += red[wi * TN + c];
         b += red[4 * TN + wi * TN + c];
       }
-      part1[(size_t)grp * geo.K + k] = a;
-      part2[(size_t)grp * geo.K + k] = b;
+      part[(size_t)grp * 2 * geo.K + k] = a;
+      part[(size_t)grp * 2 * geo.K + geo.K + k] = b;
     }
   }
 }
@@ -672,14 +691,203 @@ __global__ void __launch_bounds__(apply_tma::THREADS, 1)
   }
 }
 
-// out[i] = Σ_{g < G} part[g·n + i], in the order g = 0, 1, ...
+// ---------------------------------------------------------------------
+// Pass 1 at the same two shapes: `bnb_reduce_tma` (see the header).
+// ---------------------------------------------------------------------
+namespace reduce_tma {
+constexpr int RING = 4;                 // stages: two row tiles a consumer
+constexpr int CONSUMERS = 2;            // warpgroups taking tiles in turns
+constexpr int THREADS = 128 * (1 + CONSUMERS);
+// ptxas sizes the registers at launch for three warpgroups (168 a
+// thread) whatever CONSUMERS is, so that `setmaxnreg` only ever raises
+// the consumers' count
+constexpr int BOUND = 384;
+constexpr int LOW_REGS = 24, HIGH_REGS = 240;       // producer, consumers
+constexpr int SUMS = 3;                 // named barrier of the consumers
+static_assert(RING % CONSUMERS == 0, "a stage belongs to one consumer");
+
+template <int NC, int NK> struct Shape {
+  static constexpr int K = 64 * NK;
+  static constexpr int STAGE = (NC + NK) * apply_tma::BOX;   // x, dy: 40 KB
+  static constexpr int WBYTES = NC * NK * apply_tma::BOX;     // W: 32 KB
+  static constexpr int RED = CONSUMERS * 4 * 2 * K;  // f32: a warp's s1, s2
+  static constexpr size_t SMEM =                     // + m, inv; slack
+      (size_t)RING * STAGE + WBYTES + (2 * K + RED) * sizeof(float) + 1024;
+};
+}  // namespace reduce_tma
+
+struct ReduceMaps {
+  CUtensorMap x, dy, w;
+};
+
+// Pass 1, persistent: grid G <= the SMs, part (G, 2K) f32.
+template <int NC, int NK>
+__global__ void __launch_bounds__(reduce_tma::BOUND, 1)
+    bnb_reduce_tma(const __grid_constant__ ReduceMaps maps,
+                   const float* __restrict__ m,
+                   const float* __restrict__ inv, float* __restrict__ part,
+                   int M) {
+  using namespace reduce_tma;
+  using apply_tma::BOX;
+  constexpr int K = 64 * NK, STAGE = Shape<NC, NK>::STAGE;
+  extern __shared__ unsigned char reduce_smem_raw[];
+  __shared__ __align__(8) uint64_t full[RING], empty[RING], wfull;
+  unsigned char* ring = smem_align1024(reduce_smem_raw);
+  unsigned char* wbuf = ring + RING * STAGE;            // box (cc, kc)
+  float* cols = reinterpret_cast<float*>(wbuf + NC * NK * BOX);  // m, inv
+  float* red = cols + 2 * K;            // [consumer][warp][s1 | s2][K]
+  const int tid = threadIdx.x;
+  const int n_tiles = (M + 63) / 64;
+  for (int k = tid; k < K; k += THREADS) {
+    cols[k] = m[k];
+    cols[K + k] = inv[k];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);          // the lead lane of each warp
+    }
+    mbar_init(&wfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // the producer: one thread loads W once and then each row tile's x
+    // and dy into the ring; the warpgroup gives its registers away
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LOW_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(&wfull, NC * NK * BOX);
+      for (int cc = 0; cc < NC; ++cc)
+        for (int kc = 0; kc < NK; ++kc)
+          tma_load(wbuf + (cc * NK + kc) * BOX, &maps.w, &wfull, 64 * kc,
+                   64 * cc, 0);
+      int i = 0;
+      for (int rt = blockIdx.x; rt < n_tiles; rt += gridDim.x, ++i) {
+        const int s = i % RING;
+        unsigned char* st = ring + s * STAGE;
+        mbar_wait(&empty[s], ((i / RING) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE);
+        for (int cc = 0; cc < NC; ++cc)
+          tma_load(st + cc * BOX, &maps.x, &full[s], 64 * cc, 64 * rt, 0);
+        for (int kc = 0; kc < NK; ++kc)
+          tma_load(st + (NC + kc) * BOX, &maps.dy, &full[s], 64 * kc,
+                   64 * rt, 0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(HIGH_REGS));
+  // Consumer c takes the block's row tiles c, c + CONSUMERS, ... (its
+  // stages likewise); warp w holds rows w*16 + g and w*16 + g + 8, and
+  // of each 64-column chunk kc the columns 8j + 2t + {0, 1}.
+  const int c = tid / 128 - 1;
+  const int ctid = tid % 128;
+  const int w = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int lr0 = w * 16 + g, lr1 = lr0 + 8;
+  float s1[NK][16], s2[NK][16];         // [kc][2j + e]: over every tile
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s1[kc][e] = s2[kc][e] = 0.f;
+  mbar_wait(&wfull, 0);
+  int i = c;
+  for (int rt = blockIdx.x + c * gridDim.x; rt < n_tiles;
+       rt += CONSUMERS * gridDim.x, i += CONSUMERS) {
+    const int s = i % RING;
+    const unsigned char* st = ring + s * STAGE;       // x box cc at cc*BOX
+    mbar_wait(&full[s], (i / RING) & 1);
+#pragma unroll
+    for (int kc = 0; kc < NK; ++kc) {
+      // zc = x·W[:, kc]: x K-major, W's rows (c) the k of the product
+      float zc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) zc[e] = 0.f;
+      fence_regs(zc);
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const uint64_t ax = sw128_desc(st + cc * BOX);
+        const uint64_t bw = sw128_desc(wbuf + (cc * NK + kc) * BOX);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n64k16_ss<0, 1>(zc, ax + 2 * ks, bw + 128 * ks, cc | ks);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(zc);
+      // s1 += dy, s2 += dy·zh, zh = (z − m)·inv, dy from its swizzled box
+      const unsigned char* dyb = st + (NC + kc) * BOX;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 mm =
+            *reinterpret_cast<const float2*>(cols + 64 * kc + 8 * j + 2 * t);
+        const float2 iv = *reinterpret_cast<const float2*>(
+            cols + K + 64 * kc + 8 * j + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 d = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  dyb + sw128_at(h ? lr1 : lr0, j) + 4 * t));
+          s1[kc][2 * j] += d.x;
+          s1[kc][2 * j + 1] += d.y;
+          s2[kc][2 * j] += d.x * ((zc[4 * j + 2 * h] - mm.x) * iv.x);
+          s2[kc][2 * j + 1] += d.y * ((zc[4 * j + 2 * h + 1] - mm.y) * iv.y);
+        }
+      }
+    }
+    // the tile's x and dy are read (its products waited for): give the
+    // stage back
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // Deterministic sums: the 8 lanes of one t hold the same columns (sum
+  // them), lane t writes its warp's sums, then each column adds the
+  // warps of consumer 0, then those of consumer 1, in that order, into
+  // the block's row of part.
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      float a = s1[kc][e], b = s2[kc][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+      }
+      if (g == 0) {
+        const int col = 64 * kc + 8 * (e >> 1) + 2 * t + (e & 1);
+        float* r = red + (c * 4 + w) * 2 * K;
+        r[col] = a;
+        r[K + col] = b;
+      }
+    }
+  }
+  asm volatile("bar.sync %0, %1;\n" ::"n"(SUMS), "n"(128 * CONSUMERS)
+               : "memory");
+  for (int k = tid - 128; k < 2 * K; k += 128 * CONSUMERS) {
+    float v = 0.f;
+    for (int q = 0; q < CONSUMERS * 4; ++q) v += red[q * 2 * K + k];
+    part[(size_t)blockIdx.x * 2 * K + k] = v;
+  }
+}
+
+// out[i] = Σ_{g < G} part[g·stride + i] for i < n, in the order
+// g = 0, 1, ...; entries from `split` on go to out2[i − split].
 __global__ void sum_partials(const float* __restrict__ part, int groups,
-                             long long n, float* __restrict__ out) {
+                             long long n, long long stride, long long split,
+                             float* __restrict__ out,
+                             float* __restrict__ out2) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += part[g * n + i];
-    out[i] = s;
+    for (int g = 0; g < groups; ++g) s += part[g * stride + i];
+    if (i < split)
+      out[i] = s;
+    else
+      out2[i - split] = s;
   }
 }
 
@@ -688,19 +896,23 @@ Geo geometry(int M, int C, int K, int G) {
              (K + TN - 1) / TN, G};
 }
 
-cudaError_t launch_sum(const float* part, int groups, long long n, float* out,
-                       cudaStream_t st) {
+// The G partial rows of length `stride` summed (their first n entries):
+// out gets entries [0, split), out2 the rest.
+cudaError_t launch_sum(const float* part, int groups, long long n,
+                       long long stride, long long split, float* out,
+                       float* out2, cudaStream_t st) {
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   sum_partials<<<(int)(blocks < 4096 ? blocks : 4096), threads, 0, st>>>(
-      part, groups, n, out);
+      part, groups, n, stride, split, out, out2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The shapes `bnb_apply_tma` serves: (NC, NK) = (C/64, K/64) of ResNet-50
-// stage 1's 1x1 expand and its reverse, or (0, 0).
+// The shapes `bnb_reduce_tma` and `bnb_apply_tma` serve: (NC, NK) =
+// (C/64, K/64) of ResNet-50 stage 1's 1x1 expand and its reverse, or
+// (0, 0).
 static void tma_shape(int C, int K, int& nc, int& nk) {
   nc = nk = 0;
   if (C == 64 && K == 256) nc = 1, nk = 4;
@@ -731,18 +943,40 @@ static cudaError_t launch_apply_tma(const void* dy, const void* x,
   return cudaGetLastError();
 }
 
+template <int NC, int NK>
+static cudaError_t launch_reduce_tma(const void* dy, const void* x,
+                                     const void* w, const float* m,
+                                     const float* inv, float* part, int M,
+                                     int groups, cudaStream_t st) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  constexpr int C = 64 * NC, K = 64 * NK;
+  ReduceMaps maps;
+  if (!(encode(fn, &maps.x, x, C, M, 1, C, (long long)M * C, 64) &&
+        encode(fn, &maps.dy, dy, K, M, 1, K, (long long)M * K, 64) &&
+        encode(fn, &maps.w, w, K, C, 1, K, (long long)C * K, 64)))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = reduce_tma::Shape<NC, NK>::SMEM;
+  cudaError_t err = allow_smem(bnb_reduce_tma<NC, NK>, smem);
+  if (err != cudaSuccess) return err;
+  bnb_reduce_tma<NC, NK><<<groups, reduce_tma::THREADS, smem, st>>>(
+      maps, m, inv, part, M);
+  return cudaGetLastError();
+}
+
 // The number of row groups G of a pass (0: reduce, 1: apply) at this
-// shape, which is also the number of partial sums the pass writes: for
-// `bnb_apply_tma` its grid, one block an SM, at most one a row tile;
-// otherwise as many as let every block of the launch be resident at once
-// on the current device, at least 1 and at most the number of row tiles.
-// Returns a negative CUDA error on failure.  The caller sizes the partial
-// buffers (G·K twice for reduce, G·C·K for apply) from it.
+// shape, which is also the number of partial sums the pass writes: at
+// the two shapes of the persistent kernels their grid, one block an SM,
+// at most one a row tile; otherwise as many as let every block of the
+// launch be resident at once on the current device, at least 1 and at
+// most the number of row tiles.  Returns a negative CUDA error on
+// failure.  The caller sizes the partial buffers (G·2K for reduce, G·C·K
+// for apply) from it.
 extern "C" int bottleneck_bwd_groups(int pass, int M, int C, int K) {
   const Geo geo = geometry(M, C, K, 1);
   int nc, nk;
   tma_shape(C, K, nc, nk);
-  if (pass == 1 && nc > 0) return persistent_grid(geo.nM);
+  if (nc > 0) return persistent_grid(geo.nM);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -762,23 +996,33 @@ extern "C" int bottleneck_bwd_groups(int pass, int M, int C, int K) {
   return groups < 1 ? 1 : (int)groups;
 }
 
-// Pass 1: s1, s2 (K) f32 through part (2·G·K f32 scratch).
+// Pass 1: s1, s2 (K) f32 through part ((G, 2K) f32 scratch, s1 then s2
+// in each row, summed by one launch): `bnb_reduce_tma` at the two shapes
+// it serves, `bnb_reduce` at any other.
 extern "C" int bottleneck_bwd_reduce(const void* dy, const void* x,
                                      const void* w, const float* m,
                                      const float* inv, float* part, float* s1,
                                      float* s2, int M, int C, int K, int groups,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo geo = geometry(M, C, K, groups);
-  cudaError_t err = allow_smem(bnb_reduce, REDUCE_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  float* part2 = part + (size_t)groups * K;
-  bnb_reduce<<<dim3(geo.nK, groups), NTHR, REDUCE_SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(dy), m, inv, part, part2, geo);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_sum(part, groups, K, s1, st);
-  if (err == cudaSuccess) err = launch_sum(part2, groups, K, s2, st);
+  int nc, nk;
+  tma_shape(C, K, nc, nk);
+  cudaError_t err;
+  if (nc == 1) {
+    err = launch_reduce_tma<1, 4>(dy, x, w, m, inv, part, M, groups, st);
+  } else if (nc == 4) {
+    err = launch_reduce_tma<4, 1>(dy, x, w, m, inv, part, M, groups, st);
+  } else {
+    const Geo geo = geometry(M, C, K, groups);
+    err = allow_smem(bnb_reduce, REDUCE_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bnb_reduce<<<dim3(geo.nK, groups), NTHR, REDUCE_SMEM, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const bf16*>(dy), m, inv, part, geo);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess)
+    err = launch_sum(part, groups, 2LL * K, 2LL * K, K, s1, s2, st);
   return static_cast<int>(err);
 }
 
@@ -811,6 +1055,7 @@ extern "C" int bottleneck_bwd_apply(const void* dy, const void* x,
     err = cudaGetLastError();
   }
   if (err == cudaSuccess)
-    err = launch_sum(part, groups, (long long)C * K, dw, st);
+    err = launch_sum(part, groups, (long long)C * K, (long long)C * K,
+                     (long long)C * K, dw, nullptr, st);
   return static_cast<int>(err);
 }

@@ -35,7 +35,17 @@ class DeferredInitializationError(MXNetError):
 
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        """`lr_mult` and `wd_mult` scale the learning rate and weight
+        decay that `gluon.Trainer` applies to this parameter.  Only the
+        "default" (dense) storage is ported: row-sparse `stype` or
+        `grad_stype` raises."""
+        for arg, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st != "default":
+                raise MXNetError(f"{name}: {arg} {st!r} is not ported "
+                                 f"yet; only 'default' storage is")
         self.name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype_name(dtype)
@@ -44,8 +54,10 @@ class Parameter:
         if grad_req not in _GRAD_REQS:
             raise MXNetError(f"invalid grad_req {grad_req!r}")
         self._grad_req = grad_req if differentiable else "null"
-        self.lr_mult = 1.0
-        self.wd_mult = 1.0
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.stype = stype
+        self.grad_stype = grad_stype
         self._data = None           # nn.Parameter once initialized
         self._deferred_init = None  # (init, device, default_init)
         self._owners = []           # (weakref to Block, attribute name)

@@ -20,7 +20,7 @@ import torch
 
 from ..base import MXNetError, torch_dtype, dtype_name
 from ..context import Context, as_device
-from ..autograd import grad_scope
+from ..autograd import grad_scope, is_recording
 
 __all__ = ["NDArray", "array", "zeros", "zeros_like", "ones_like", "save",
            "load", "load_tensors", "to_numpy"]
@@ -31,13 +31,16 @@ _GRAD_REQS = ("write", "add", "null")
 class NDArray:
     """An n-dimensional array on one device."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "_recorded")
 
     def __init__(self, data):
         if not isinstance(data, torch.Tensor):
             raise MXNetError(f"NDArray wraps a torch.Tensor, got "
                              f"{type(data).__name__}")
         self._data = data
+        # made inside `record()`: `backward` from it is a sweep, which
+        # writes nothing when no input takes a gradient
+        self._recorded = is_recording()
 
     @property
     def data(self):
@@ -90,15 +93,14 @@ class NDArray:
 
     # -- autograd ------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Make this array a leaf that receives a gradient: a zero buffer
-        of its shape, overwritten ("write") or accumulated ("add") by
-        each `backward`."""
+        """Make this array a leaf with a zero gradient buffer of its
+        shape, overwritten ("write") or accumulated ("add") by each
+        `backward`; with "null" no backward writes it."""
         if grad_req not in _GRAD_REQS:
             raise MXNetError(f"invalid grad_req {grad_req!r}")
         t = self._data.detach()
-        if grad_req != "null":
-            t.requires_grad_(True)
-            t.grad = torch.zeros_like(t)
+        t.requires_grad_(grad_req != "null")
+        t.grad = torch.zeros_like(t)
         t._grad_req = grad_req
         self._data = t
 
@@ -170,6 +172,57 @@ class NDArray:
     def __neg__(self):
         return self._op(torch.neg)
 
+    def _inplace(self, method, o):
+        """`x op= o` writes into x's own tensor, so every holder of x
+        (a Parameter's `data()` too) sees the new values, as the JAX
+        package's `_inplace` rebinds the one array they share.  Inside
+        `record()` torch's in-place rules apply."""
+        with grad_scope():
+            getattr(self._data, method)(self._raw(o))
+        return self
+
+    def __iadd__(self, o):
+        return self._inplace("add_", o)
+
+    def __isub__(self, o):
+        return self._inplace("sub_", o)
+
+    def __imul__(self, o):
+        return self._inplace("mul_", o)
+
+    def __itruediv__(self, o):
+        return self._inplace("div_", o)
+
+    # -- comparison and truth -------------------------------------------
+    def _compare(self, fn, o):
+        """1 where `fn` holds and 0 elsewhere, in the data's dtype (the
+        JAX `broadcast_equal` family)."""
+        if not isinstance(o, (NDArray, torch.Tensor, int, float, bool,
+                              _np.ndarray, _np.number)):
+            return NotImplemented
+        if isinstance(o, (_np.ndarray, _np.number)):
+            o = torch.as_tensor(o, device=self._data.device)
+        with torch.no_grad():
+            return NDArray(fn(self._data, self._raw(o)).to(self._data.dtype))
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._compare(torch.eq, o)
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._compare(torch.ne, o)
+
+    __hash__ = None   # a mutable array, as in the JAX package
+
+    def __bool__(self):
+        if self.size != 1:
+            raise ValueError("The truth value of an NDArray with multiple "
+                             "elements is ambiguous")
+        return bool(self.asscalar())
+
     # -- shape ---------------------------------------------------------
     def reshape(self, *shape, **kwargs):
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
@@ -199,21 +252,22 @@ def to_numpy(t):
 
 def array(source_array, ctx=None, dtype=None):
     """An NDArray of `source_array` on `ctx` (default: the current
-    context, gpu(0)).  The dtype defaults to the source's, float32 for
-    Python data.  The result owns its storage, as the JAX package's
-    does: writing into it never changes the source, on any device."""
+    context, gpu(0)).  The dtype defaults, as in the JAX package, to a
+    numpy array's own (float32 for float64), a tensor's or NDArray's
+    own, and float32 for Python lists, tuples and scalars and numpy
+    scalars.  A 0-d source gives a 0-d array.  The result owns its
+    storage, as the JAX package's does: writing into it never changes
+    the source, on any device."""
     if isinstance(source_array, NDArray):
         source_array = source_array._data
     if isinstance(source_array, torch.Tensor):
         t = source_array
     else:
         src = _np.asarray(source_array)
-        if dtype is None and src.dtype == _np.float64:
+        if dtype is None and not (isinstance(source_array, _np.ndarray)
+                                  and src.dtype != _np.float64):
             src = src.astype(_np.float32)
-        src = _np.ascontiguousarray(src)
-        if not src.flags.writeable:
-            src = src.copy()
-        t = torch.from_numpy(src)
+        t = torch.from_numpy(_np.require(src, requirements=("C", "W")))
     dev = as_device(ctx)
     return NDArray(t.to(device=dev, dtype=None if dtype is None
                         else torch_dtype(dtype), copy=True))

@@ -75,12 +75,25 @@ def slice_axis(data, *, axis, begin=0, end=None):
 
 @register("pick")
 def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
-    """data's element at `index` along `axis`; indices outside the axis
-    clamp to it ("clip")."""
+    """data's element at `index` along `axis`, with the JAX op's rules
+    (`jnp.take_along_axis`, which ignores `mode`): indices are truncated
+    to integers, one in [-size, -1] counts from the end, and any other
+    outside [0, size) gives `jnp`'s fill: NaN for float data, the least
+    value of a signed integer type, the largest of an unsigned one, True
+    for bool."""
     size = data.shape[axis]
     idx = index.to(torch.int64)
-    idx = idx.clamp(0, size - 1) if mode == "clip" else idx % size
-    out = data.gather(axis, idx.unsqueeze(axis))
+    idx = torch.where(idx < 0, idx + size, idx)
+    valid = ((idx >= 0) & (idx < size)).unsqueeze(axis)
+    out = data.gather(axis, idx.clamp(0, size - 1).unsqueeze(axis))
+    if data.is_floating_point():
+        fill = float("nan")
+    elif data.dtype == torch.bool:
+        fill = True
+    else:
+        info = torch.iinfo(data.dtype)
+        fill = info.max if info.min == 0 else info.min
+    out = out.masked_fill(~valid, fill)
     return out if keepdims else out.squeeze(axis)
 
 

@@ -14,9 +14,10 @@ two passes over the rows, each a hand-written CUDA kernel
 
 so z is never read from memory and dz never written to it.  At the two
 shapes the tool's path runs, ResNet-50 stage 1's 1x1 expand (C = 64 ->
-K = 256) and its reverse (256 -> 64), pass 2 is a persistent kernel that
-reads dy and x once and keeps W in shared memory (`bnb_apply_tma`); at
-any other shape it is `bnb_apply`.  The shapes default to the expand
+K = 256) and its reverse (256 -> 64), each pass is a persistent kernel
+that reads dy and x once and keeps W in shared memory (`bnb_reduce_tma`,
+`bnb_apply_tma`); at any other shape they are `bnb_reduce` and
+`bnb_apply`.  The shapes default to the expand
 convolution as a product: M = 256·56·56 rows, C = 64 -> K = 256.  On the
 card:
 
@@ -165,6 +166,7 @@ def _launch_reduce(dy, x, w, m, inv):
     if M == 0:
         return s1.zero_(), s2.zero_()
     groups = _groups(0, M, C, K)
+    # (groups, 2K): each group's s1 then s2, summed by one launch
     part = torch.empty(2 * groups * K, dtype=torch.float32, device=dy.device)
     fn = entry("bottleneck_bwd", name, [ctypes.c_void_p] * 8
                + [ctypes.c_int] * 4 + [ctypes.c_void_p])

@@ -33,8 +33,8 @@ backward's (rows 3 and 4) twice on the same inputs, which must give the
 same bits.  The bottleneck backward's two kernels (row 8) take their own
 tolerances, stated where they are defined below.  Row 6's persistent
 kernel (bf16, T = 128, d = 64) is tried below its grid and off a
-multiple of it, and row 8b's (ResNet-50 stage 1's two widths) at a
-ragged M, fewer row tiles than SMs and one tile a block, each twice on
+multiple of it, and rows 8a's and 8b's (ResNet-50 stage 1's two
+widths) at a ragged M, fewer row tiles than SMs and one tile a block, each twice on
 the same inputs, which must give the same bits.
 """
 import numpy as np
@@ -930,8 +930,8 @@ def test_conv1x1bn_grads_match_autograd(card):
 
 
 def _bnb_apply_cases(card):
-    """Row counts of the persistent apply kernel: ragged, fewer row tiles
-    than SMs, and exactly one 64-row tile a block."""
+    """Row counts of the persistent kernels: ragged, fewer row tiles than
+    SMs, and exactly one 64-row tile a block."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     return {"ragged": 4096 + 37, "few_tiles": 100, "one_tile_a_block":
             64 * sms}
@@ -957,6 +957,36 @@ def test_bottleneck_apply_tma_matches_and_repeats(card, case, cin, cout):
                                  "bottleneck_bwd_apply": 2}
     ref = bnb.bottleneck_apply_reference(dy, x, w, m, inv, gamma, s1, s2)
     for name, a, b, a2 in zip(("dx", "dw"), ref, got, again):
+        assert torch.equal(b, a2), name
+        assert torch.isfinite(b).all(), name
+        assert _rel(a, b) <= BNB_RTOL, (name, _rel(a, b))
+    leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+    want = torch.autograd.grad(bnb.bn_dot(*leaves)[0], leaves, dy)
+    pair = bnb.bottleneck_bwd(dy, x, w, m, inv, gamma)
+    for name, a, b in zip(("dx", "dw", "dgamma", "dbeta"), want, pair):
+        assert _rel(a, b) <= BNB_VJP_RTOL, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("case", ["ragged", "few_tiles", "one_tile_a_block"])
+@pytest.mark.parametrize("cin,cout", [(64, 256), (256, 64)],
+                         ids=["64x256", "256x64"])
+def test_bottleneck_reduce_tma_matches_and_repeats(card, case, cin, cout):
+    """The persistent reduce kernel at both ResNet-50 stage-1 widths: s1
+    and s2 against the plain version within BNB_RTOL, one launch a call,
+    the same bits from a second launch on the same inputs, and the pair
+    (reduce, then apply) against autograd of `bn_dot` within
+    BNB_VJP_RTOL."""
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    M = _bnb_apply_cases(card)[case]
+    x, w, gamma, beta, dy, m, inv = _bnb_inputs(card, M, cin, cout, seed=4)
+    bnb.reset_launch_counts()
+    got = bnb.bottleneck_bwd_reduce(dy, x, w, m, inv)
+    again = bnb.bottleneck_bwd_reduce(dy, x, w, m, inv)
+    torch.cuda.synchronize()
+    assert bnb.launch_counts == {"bottleneck_bwd_reduce": 2,
+                                 "bottleneck_bwd_apply": 0}
+    ref = bnb.bottleneck_reduce_reference(dy, x, w, m, inv)
+    for name, a, b, a2 in zip(("s1", "s2"), ref, got, again):
         assert torch.equal(b, a2), name
         assert torch.isfinite(b).all(), name
         assert _rel(a, b) <= BNB_RTOL, (name, _rel(a, b))
