@@ -130,7 +130,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    0.9, batch 1024) through `ParallelTrainer.step` 3 times and
    `run_steps(10)` with the plain loss (timed with CUDA events), then 3
    imperative iterations with the softmax_rtc head.
-19. A JSON line describing each kernel, then the card line, then the
+19. `[rnn-check]`: the fused `RNN` op on cuda:0 against the same op on
+   the CPU at T = 7, N = 3, I = 5, H = 6, 2 layers, every mode (lstm,
+   gru, rnn_tanh, rnn_relu), uni- and bidirectional: out, hy, cy and the
+   gradients of data, parameters and states, in float32 (TF32 off) and
+   in bf16; bf16 against float32 on the card by cosine; the bf16 op's
+   float32 cell state on the card against the CPU's; and the two bf16
+   product routes (`torch.mm(..., out_dtype=torch.float32)`, the
+   forward's, and the float32 product, the backward's) timed at
+   `bench_lstm`'s recurrent and input shapes.
+20. `[train-lstm]`: `bench_lstm` (`LSTMLanguageModel(10000, 650, 650, 2
+   layers)`, Xavier, bf16, SoftmaxCrossEntropyLoss, SGD lr 1.0): first
+   two steps on a 4 x 35 batch from one set of weights on the card and
+   on the CPU, losses and weights compared; then a seeded batch of
+   512 x 35 token ids through `ParallelTrainer.step` 3 times and
+   `run_steps(10)` timed with CUDA events: step ms, tokens/s, one
+   profiled step's device ms, idle share, top kernels and launching ops;
+   losses finite and falling; no hand kernel.  Beside it, as a yardstick
+   that nothing on the path calls, cuDNN's `torch.nn.LSTM(650, 650, 2)`
+   in bf16 at (35, 512, 650), forward and forward + backward.
+21. `[lstm-example]`: the word-LM example's loop (`example/gluon/
+   word_language_model/train.py:97-157`): its first three batches at
+   dropout 0 from one set of weights on the card and on the CPU in
+   float32, losses, carried states and weights compared; then its
+   defaults (emsize and nhid 200, 2 layers, batch 32, bptt 35, dropout
+   0.2, SGD lr 1.0, `clip_gradient` 0.25) on its synthetic corpus of 500
+   words from seed 0, TNC, the hidden state carried and detached, 4
+   epochs, then one predict-mode pass over the validation split: train
+   and validation perplexity below 450.
+22. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -138,6 +166,7 @@ of the repository.
 """
 import http.client
 import json
+import math
 import os
 import re
 import shutil
@@ -2062,6 +2091,492 @@ def phase_train_lenet(card):
     return _rtc_counts()
 
 
+# ---------------------------------------------------------------------
+# the PTB LSTM: the fused RNN op, bench_lstm, the word-LM example's loop
+# ---------------------------------------------------------------------
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+# [rnn-check] at T = 7, N = 3, I = 5, H = 6, 2 layers: the op on the card
+# against the CPU in float32 (TF32 off: the same arithmetic, sums in
+# another order), relative to each value's largest; in bf16 the card
+# against the CPU, whose op tests/test_torch_rnn.py holds against the JAX
+# package, at that test's bf16 gradient tolerance (rtol and atol 2^-7 of
+# each value's largest: both devices run one formula, and a sum in
+# another order can move a rounded h or gradient one bf16 step); bf16
+# against float32 on the card by cosine; the bf16 op's float32 cell
+# state on the card against the CPU's, whose products of bf16 values are
+# exact in float32 (a product rounded to bf16 would move it ~1e-3)
+RNN_RTOL = 1e-5
+RNN_BF16_TOL = dict(rtol=2 ** -7, atol_of_max=2 ** -7)
+RNN_MIN_COS = 0.999
+RNN_GRAD_MIN_COS = 0.99
+RNN_CY_ATOL = 1e-5
+LSTM_VOCAB, LSTM_WIDTH, LSTM_LAYERS = 10000, 650, 2       # bench_lstm's
+LSTM_BATCH, LSTM_SEQ = 512, 35
+LSTM_SGD = {"learning_rate": 1.0}
+# [train-lstm]'s parity check: bench_lstm's model at full width from one
+# set of weights through two ParallelTrainer steps on a 4 x 35 batch on
+# the card and on the CPU (held against the JAX package by
+# tests/test_torch_lstm_lm.py), at that test's bf16 tolerances: losses
+# rtol 1e-3, weights rtol and atol 2^-7 of each weight's largest
+LSTM_CHECK_BATCH, LSTM_CHECK_STEPS = 4, 2
+LSTM_LOSS_TOL = dict(rtol=1e-3, atol_of_max=0.0)
+LSTM_WEIGHT_TOL = dict(rtol=2 ** -7, atol_of_max=2 ** -7)
+# the word-LM example's defaults (example/gluon/word_language_model/
+# train.py:97-111) on its synthetic corpus, four epochs (its default is
+# two): at lr 1.0 SGD learns the corpus's unigram first, whose
+# perplexity (423.6) the train perplexity nears by the fourth and holds
+# (the JAX package's example runs the same course), so the perplexity
+# gate (0.9 x the vocabulary) cannot tell a working recurrence; the
+# parity check before it does: the loop's first three batches at
+# dropout 0 from one set of weights on the card and on the CPU (held
+# against the JAX package by tests/test_torch_lstm_lm.py), in float32
+# with TF32 off, at that test's float32 tolerances: losses rtol 1e-5,
+# carried states and weights rtol 1e-4 and atol 1e-5 of each one's
+# largest
+EX_VOCAB, EX_WIDTH, EX_LAYERS, EX_BATCH, EX_BPTT = 500, 200, 2, 32, 35
+EX_DROPOUT, EX_LR, EX_CLIP, EX_EPOCHS = 0.2, 1.0, 0.25, 4
+EX_MAX_PPL = 0.9 * EX_VOCAB
+EX_CHECK_BATCHES = 3
+EX_LOSS_TOL = dict(rtol=1e-5, atol_of_max=0.0)
+EX_STATE_TOL = dict(rtol=1e-4, atol_of_max=1e-5)
+
+
+def _tol_ratio(got, ref, rtol, atol_of_max):
+    """The largest |got - ref| / (rtol |ref| + atol_of_max max |ref|) of
+    two float arrays or tensors: at most 1 where they agree."""
+    got, ref = (torch.as_tensor(np.asarray(t, np.float32))
+                if not isinstance(t, torch.Tensor) else t.detach().float()
+                .cpu() for t in (got, ref))
+    bound = rtol * ref.abs() + atol_of_max * ref.abs().max()
+    return ((got - ref).abs() / bound.clamp_min(1e-30)).max().item()
+
+
+def _rnn_inputs(mode, bidirectional, seed):
+    """Seeded float64 inputs of the RNN op at T = 7, N = 3, I = 5, H = 6,
+    2 layers, and its attributes."""
+    from incubator_mxnet_torch.ops import rnn as rnn_op
+    T_, N_, I_, H_, L_ = 7, 3, 5, 6, 2
+    D_ = 2 if bidirectional else 1
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(T_, N_, I_), rng.uniform(
+        -0.4, 0.4, rnn_op.rnn_param_size(L_, I_, H_, bidirectional, mode)),
+        0.5 * rng.randn(L_ * D_, N_, H_)]
+    if mode == "lstm":
+        arrays.append(0.5 * rng.randn(L_ * D_, N_, H_))
+    kw = dict(state_size=H_, num_layers=L_, mode=mode,
+              bidirectional=bidirectional)
+    return arrays, kw
+
+
+def _rnn_run(inputs, kw, seed=1):
+    """The RNN op's outputs and the gradients of every input for seeded
+    cotangents, all as float32 CPU tensors."""
+    from incubator_mxnet_torch.ops import rnn as rnn_op
+    outs = rnn_op.rnn(*inputs, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=gen).to(o) for o in outs]
+    grads = torch.autograd.grad(outs, inputs, cots)
+    return [t.detach().float().cpu() for t in (*outs, *grads)]
+
+
+def _rnn_route_ms(m, k, n):
+    """The two routes of a bf16 (m, k) x (k, n) product with a float32
+    result: cuBLAS's bf16 GEMM with float32 output (the forward's) and
+    both operands taken to float32, TF32 off (the backward's products
+    are such float32 GEMMs): device ms of each, the first's largest
+    error against float64, and host µs of a call of the first, of the
+    float32 GEMM and of the plain bf16 GEMM."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+    b = torch.randn(k, n, device="cuda", generator=gen).bfloat16()
+    a32, b32 = a.float(), b.float()
+    mixed = time_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
+    upcast = time_ms(lambda: a.float() @ b.float())
+    exact = (torch.mm(a, b, out_dtype=torch.float32)
+             - a.double() @ b.double()).abs().max().item()
+    host = [host_us(f) for f in (
+        lambda: torch.mm(a, b, out_dtype=torch.float32),
+        lambda: torch.mm(a32, b32), lambda: torch.mm(a, b))]
+    return mixed, upcast, exact, host
+
+
+def phase_rnn_check(card):
+    """The RNN op on cuda:0 against the CPU in float32 and in bf16 for
+    every mode, uni- and bidirectional; bf16 against float32 on the
+    card; the product route's times at bench_lstm's shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {}
+    for mode in RNN_MODES:
+        for bi in (False, True):
+            seed = RNN_MODES.index(mode) * 2 + bi
+            res = {}
+            arrays, kw = _rnn_inputs(mode, bi, seed)
+            for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                            ("cuda", torch.bfloat16),
+                            ("cpu", torch.bfloat16)):
+                # float64 -> float32 -> bf16 on both devices alike
+                ts = [torch.tensor(a, dtype=torch.float32).to(dev, dt)
+                      .requires_grad_() for a in arrays]
+                res[dev, dt] = _rnn_run(ts, kw)
+            n_out = 3 if mode == "lstm" else 2
+            gpu32, cpu32 = res["cuda", torch.float32], res["cpu",
+                                                           torch.float32]
+            errs = [((g - c).abs().max() / c.abs().max()).item()
+                    for g, c in zip(gpu32, cpu32)]
+            gpu16, cpu16 = res["cuda", torch.bfloat16], res["cpu",
+                                                            torch.bfloat16]
+            bf16 = max(_tol_ratio(g, c, **RNN_BF16_TOL)
+                       for g, c in zip(gpu16, cpu16))
+            cos = [_cos(g, c) for g, c in zip(gpu16, gpu32)]
+            cy_err = (gpu16[2] - cpu16[2]).abs().max().item() \
+                if mode == "lstm" else 0.0
+            tag = f"{mode}{' bidirectional' if bi else ''}"
+            log(f"[rnn-check] {tag}: cuda vs cpu float32 rel. error "
+                f"out/states {max(errs[:n_out]):.2e}, gradients "
+                f"{max(errs[n_out:]):.2e} (rtol {RNN_RTOL}); cuda vs cpu "
+                f"bf16, outputs and gradients, {bf16:.3f} of the tolerance "
+                f"(rtol and atol 2^-7 of the largest); bf16 vs float32 on "
+                f"the card cos out/states {min(cos[:n_out]):.5f}, "
+                f"gradients {min(cos[n_out:]):.5f}"
+                + (f"; bf16 cy cuda vs cpu {cy_err:.2e} (atol "
+                   f"{RNN_CY_ATOL})" if mode == "lstm" else ""))
+            worst[tag] = (max(errs), bf16, min(cos[:n_out]),
+                          min(cos[n_out:]), cy_err)
+            if not (max(errs) <= RNN_RTOL and bf16 <= 1
+                    and min(cos[:n_out]) >= RNN_MIN_COS
+                    and min(cos[n_out:]) >= RNN_GRAD_MIN_COS
+                    and cy_err <= RNN_CY_ATOL
+                    and all(torch.isfinite(t).all() for r in res.values()
+                            for t in r)):
+                raise AssertionError(f"[rnn-check] {tag} disagrees")
+    tokens = LSTM_BATCH * LSTM_SEQ
+    for what, m in (("recurrent", LSTM_BATCH), ("input projection", tokens)):
+        mixed, upcast, exact, host = _rnn_route_ms(m, LSTM_WIDTH,
+                                                   4 * LSTM_WIDTH)
+        log(f"[rnn-check] bf16 product route at {what} {m}x{LSTM_WIDTH}x"
+            f"{4 * LSTM_WIDTH}: torch.mm(out_dtype=float32) {mixed:.4f} ms "
+            f"(the forward's; max |error| against float64 {exact:.2e}), "
+            f"float32, TF32 off {upcast:.4f} ms (the backward's, twice a "
+            f"product); host µs a call: out_dtype {host[0]:.1f}, float32 "
+            f"{host[1]:.1f}, plain bf16 {host[2]:.1f} ({card})")
+    return worst
+
+
+def _lstm_net(ctx):
+    """`bench_lstm`'s model on `ctx`: Xavier from seed 0, cast to bf16."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch.models import LSTMLanguageModel
+    mx.random.seed(0)
+    net = LSTMLanguageModel(LSTM_VOCAB, embed_dim=LSTM_WIDTH,
+                            hidden=LSTM_WIDTH, layers=LSTM_LAYERS,
+                            dropout=0.0)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.cast("bfloat16")
+    return net
+
+
+def _lstm_trainer(net, ctx):
+    """`bench_lstm`'s ParallelTrainer: SoftmaxCrossEntropyLoss, SGD."""
+    from incubator_mxnet_torch import gluon, parallel
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    return parallel.ParallelTrainer(net, lambda o, y: loss_fn(o, y),
+                                    optimizer="sgd",
+                                    optimizer_params=LSTM_SGD,
+                                    mesh=parallel.default_mesh(ctx=ctx))
+
+
+def _tokens(rng, batch):
+    """Two (batch, LSTM_SEQ) arrays of token ids (data, labels)."""
+    return [rng.randint(0, LSTM_VOCAB, (batch, LSTM_SEQ)).astype(np.float32)
+            for _ in range(2)]
+
+
+def _weights(block):
+    return {k: v.data().asnumpy().astype(np.float32)
+            for k, v in block._collect_params_with_prefix().items()}
+
+
+def _lstm_parity():
+    """bench_lstm's model at full width from one set of weights through
+    LSTM_CHECK_STEPS ParallelTrainer steps on the card and on the CPU;
+    the worst losses' and weights' share of their tolerances."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.convert import params_from_jax
+    arrays = _tokens(np.random.RandomState(1), LSTM_CHECK_BATCH)
+    start, runs = None, []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = _lstm_net(ctx)
+        if start is None:
+            start = _weights(net)
+        else:
+            params_from_jax(net, start, ctx=ctx)
+        tr = _lstm_trainer(net, ctx)
+        with ctx:
+            x, y = (nd.array(a) for a in arrays)
+        runs.append(([tr.step(x, y).asscalar()
+                      for _ in range(LSTM_CHECK_STEPS)], _weights(net)))
+    (gl, gw), (cl, cw) = runs
+    return (gl, cl, _tol_ratio(gl, cl, **LSTM_LOSS_TOL),
+            max(_tol_ratio(gw[k], cw[k], **LSTM_WEIGHT_TOL) for k in cw))
+
+
+def phase_train_lstm(card):
+    """`bench_lstm` at full width: first held against the CPU on a small
+    batch, then trained through ParallelTrainer, beside cuDNN's LSTM at
+    the same shape (a yardstick: nothing on the path calls it)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    gl, cl, loss_r, weight_r = _lstm_parity()
+    log(f"[train-lstm] parity at full width, batch {LSTM_CHECK_BATCH}x"
+        f"{LSTM_SEQ}, {LSTM_CHECK_STEPS} steps from one set of weights: "
+        f"losses cuda " + ", ".join(f"{v:.5f}" for v in gl) + ", cpu "
+        + ", ".join(f"{v:.5f}" for v in cl) + f" ({loss_r:.3f} of rtol "
+        f"1e-3); weights {weight_r:.3f} of the tolerance (rtol and atol "
+        f"2^-7 of the largest)")
+    if not (loss_r <= 1 and weight_r <= 1):
+        raise AssertionError("[train-lstm] the card disagrees with the CPU")
+    t0 = time.time()
+    net = _lstm_net(mx.gpu(0))
+    tr = _lstm_trainer(net, mx.gpu(0))
+    x, y = (nd.array(a) for a in _tokens(np.random.RandomState(0),
+                                          LSTM_BATCH))
+    tokens = LSTM_BATCH * LSTM_SEQ
+    _reset_all_counts()
+    losses = [tr.step(x, y).asscalar() for _ in range(3)]
+    log(f"[train-lstm] LSTMLanguageModel({LSTM_VOCAB}, {LSTM_WIDTH}/"
+        f"{LSTM_WIDTH}, {LSTM_LAYERS} layers) bf16, batch {LSTM_BATCH}x"
+        f"{LSTM_SEQ}, SGD {LSTM_SGD}: built and 3 steps in "
+        f"{time.time() - t0:.1f} s; losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    k = 10
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses.append(tr.run_steps(k, x, y).asscalar())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / k
+    log(f"[train-lstm] run_steps({k}): loss {losses[-1]:.4f}, step "
+        f"{step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} tokens/s (CUDA "
+        f"events over the {k} steps) ({card})")
+    dev_ms, launches = log_profile(
+        lambda: losses.append(tr.step(x, y).asscalar()),
+        f"one {LSTM_BATCH}x{LSTM_SEQ} training step", tag="[train-lstm]",
+        top=15)
+    log(f"[train-lstm] profiled step: {dev_ms:.2f} ms of device time in "
+        f"{launches} launches; against the {step_ms:.2f} ms step of "
+        f"run_steps({k}) the device is idle {1 - dev_ms / step_ms:.3f} of "
+        f"the step")
+    if any(_all_counts().values()):
+        raise AssertionError(f"[train-lstm] launched hand kernels "
+                             f"{_all_counts()}: the LSTM has none")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train-lstm] losses {losses} are not finite "
+                             f"and falling")
+    log(f"[train-lstm] losses over {len(losses)} steps: "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    del net, tr
+    cudnn = torch.nn.LSTM(LSTM_WIDTH, LSTM_WIDTH, LSTM_LAYERS).cuda() \
+        .bfloat16()
+    xs = torch.randn(LSTM_SEQ, LSTM_BATCH, LSTM_WIDTH, device="cuda",
+                     dtype=torch.bfloat16, requires_grad=True)
+
+    def fwd_bwd():
+        out, _ = cudnn(xs)
+        out.sum().backward()
+    with torch.no_grad():
+        fwd = time_ms(lambda: cudnn(xs), iters=10)
+    both = time_ms(fwd_bwd, iters=10)
+    log(f"[train-lstm] yardstick, cuDNN torch.nn.LSTM({LSTM_WIDTH}, "
+        f"{LSTM_WIDTH}, {LSTM_LAYERS}) bf16 at ({LSTM_SEQ}, {LSTM_BATCH}, "
+        f"{LSTM_WIDTH}): forward {fwd:.3f} ms, forward + backward "
+        f"{both:.3f} ms ({card})")
+    return step_ms
+
+
+def _synthetic_corpus(vocab, n=60000, seed=0):
+    """The example's Markov-chain corpus (`synthetic_corpus`)."""
+    rng = np.random.RandomState(seed)
+    trans = rng.randint(0, vocab, size=(vocab, 4))
+    data = np.empty(n, np.int32)
+    data[0] = 0
+    for i in range(1, n):
+        data[i] = trans[data[i - 1], rng.randint(0, 4)]
+    return data
+
+
+def _batchify(data, batch_size):
+    nb = len(data) // batch_size
+    return data[:nb * batch_size].reshape(batch_size, nb).T
+
+
+def _get_batch(source, i, bptt):
+    from incubator_mxnet_torch import nd
+    seq_len = min(bptt, source.shape[0] - 1 - i)
+    return (nd.array(source[i:i + seq_len].astype(np.float32)),
+            nd.array(source[i + 1:i + 1 + seq_len].astype(np.float32)))
+
+
+def _word_lm_model(dropout=EX_DROPOUT):
+    """The example's `RNNModel` (train.py:25-48) written against the port."""
+    from incubator_mxnet_torch import gluon
+    from incubator_mxnet_torch.gluon import nn, rnn
+
+    class RNNModel(gluon.Block):
+        def __init__(self, vocab_size, num_embed, num_hidden, num_layers,
+                     dropout=0.2, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(vocab_size, num_embed)
+                self.rnn = rnn.LSTM(num_hidden, num_layers, dropout=dropout,
+                                    input_size=num_embed)
+                self.decoder = nn.Dense(vocab_size, in_units=num_hidden,
+                                        flatten=False)
+                self.num_hidden = num_hidden
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            decoded = self.decoder(output)
+            return decoded, hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+    return RNNModel(EX_VOCAB, EX_WIDTH, EX_WIDTH, EX_LAYERS, dropout)
+
+
+def _example_batch(model, trainer, loss_fn, hidden, x, y):
+    """One batch of the example's loop (train.py:135-145): the hidden
+    state detached, forward, backward, `trainer.step(1)`.  Returns the
+    batch's mean loss (an NDArray) and the new hidden state."""
+    from incubator_mxnet_torch import autograd
+    hidden = [h.detach() for h in hidden]
+    with autograd.record():
+        out, hidden = model(x, hidden)
+        loss = loss_fn(out.reshape(-1, out.shape[-1]),
+                       y.reshape(-1)).mean()
+    loss.backward()
+    trainer.step(1)
+    return loss, hidden
+
+
+def _example_trainer(model):
+    from incubator_mxnet_torch import gluon
+    return gluon.Trainer(model.collect_params(), "sgd",
+                         {"learning_rate": EX_LR, "clip_gradient": EX_CLIP})
+
+
+def _example_parity(train_data):
+    """The example's loop over its first EX_CHECK_BATCHES batches at
+    dropout 0, from one set of weights, on the card and on the CPU in
+    float32: the worst losses', carried states' and weights' share of
+    their tolerances."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import gluon, nd
+    from incubator_mxnet_torch.convert import params_from_jax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start, runs = None, []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mx.random.seed(0)
+        model = _word_lm_model(dropout=0.0)
+        model.initialize(mx.init.Xavier(), ctx=ctx)
+        if start is None:
+            start = _weights(model)
+        else:
+            params_from_jax(model, start, ctx=ctx)
+        trainer = _example_trainer(model)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses = []
+        with ctx:
+            hidden = model.begin_state(func=nd.zeros, batch_size=EX_BATCH,
+                                       ctx=ctx)
+            for i in range(0, EX_CHECK_BATCHES * EX_BPTT, EX_BPTT):
+                x, y = _get_batch(train_data, i, EX_BPTT)
+                loss, hidden = _example_batch(model, trainer, loss_fn,
+                                              hidden, x, y)
+                losses.append(loss.asscalar())
+        runs.append((losses, [h.asnumpy() for h in hidden],
+                     _weights(model)))
+    (gl, gh, gw), (cl, ch, cw) = runs
+    return (gl, cl, _tol_ratio(gl, cl, **EX_LOSS_TOL),
+            max(_tol_ratio(g, c, **EX_STATE_TOL) for g, c in zip(gh, ch)),
+            max(_tol_ratio(gw[k], cw[k], **EX_STATE_TOL) for k in cw))
+
+
+def phase_lstm_example(card):
+    """The word-LM example's loop (train.py:97-157): its first batches
+    held against the CPU, then its defaults on its synthetic corpus:
+    TNC, the hidden state carried and detached, gluon.Trainer SGD with
+    clip_gradient; then one predict-mode pass over the validation
+    split."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, gluon, nd
+    corpus = _synthetic_corpus(EX_VOCAB)
+    n = len(corpus)
+    train_data = _batchify(corpus[:int(n * 0.9)], EX_BATCH)
+    val_data = _batchify(corpus[int(n * 0.9):], EX_BATCH)
+    gl, cl, loss_r, state_r, weight_r = _example_parity(train_data)
+    log(f"[lstm-example] parity over the first {EX_CHECK_BATCHES} batches "
+        f"at dropout 0 from one set of weights, float32: losses cuda "
+        + ", ".join(f"{v:.6f}" for v in gl) + ", cpu "
+        + ", ".join(f"{v:.6f}" for v in cl) + f" ({loss_r:.3f} of rtol "
+        f"1e-5); carried states {state_r:.3f} and weights {weight_r:.3f} of "
+        f"the tolerance (rtol 1e-4, atol 1e-5 of the largest)")
+    if not (loss_r <= 1 and state_r <= 1 and weight_r <= 1):
+        raise AssertionError("[lstm-example] the card disagrees with the "
+                             "CPU")
+    mx.random.seed(0)
+    model = _word_lm_model()
+    model.initialize(mx.init.Xavier())
+    trainer = _example_trainer(model)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    _reset_all_counts()
+    ppls = []
+    for epoch in range(EX_EPOCHS):
+        total_loss, total_n = 0.0, 0
+        hidden = model.begin_state(func=nd.zeros, batch_size=EX_BATCH)
+        torch.cuda.synchronize()
+        tic = time.time()
+        for i in range(0, train_data.shape[0] - 1, EX_BPTT):
+            x, y = _get_batch(train_data, i, EX_BPTT)
+            loss, hidden = _example_batch(model, trainer, loss_fn, hidden,
+                                          x, y)
+            total_loss += float(loss.asnumpy()) * y.size
+            total_n += y.size
+        wall = time.time() - tic
+        ppls.append(math.exp(total_loss / total_n))
+        log(f"[lstm-example] epoch {epoch}: train perplexity {ppls[-1]:.1f} "
+            f"over {total_n} tokens, {total_n / wall:.0f} tokens/s (host "
+            f"clock, the loss read back every batch) ({card})")
+    total_loss, total_n = 0.0, 0
+    hidden = model.begin_state(func=nd.zeros, batch_size=EX_BATCH)
+    with autograd.predict_mode():
+        for i in range(0, val_data.shape[0] - 1, EX_BPTT):
+            x, y = _get_batch(val_data, i, EX_BPTT)
+            out, hidden = model(x, hidden)
+            loss = loss_fn(out.reshape(-1, out.shape[-1]), y.reshape(-1))
+            total_loss += float(loss.sum().asnumpy())
+            total_n += y.size
+    val_ppl = math.exp(total_loss / total_n)
+    freq = np.bincount(corpus[:int(n * 0.9)], minlength=EX_VOCAB) \
+        / int(n * 0.9)
+    freq = freq[freq > 0]
+    log(f"[lstm-example] predict-mode pass over {total_n} validation "
+        f"tokens: perplexity {val_ppl:.1f} (vocabulary {EX_VOCAB}, the "
+        f"train split's unigram {math.exp(-(freq * np.log(freq)).sum()):.1f}"
+        f"; gate {EX_MAX_PPL:.0f})")
+    if any(_all_counts().values()):
+        raise AssertionError(f"[lstm-example] launched hand kernels "
+                             f"{_all_counts()}")
+    if not (np.all(np.isfinite(ppls + [val_ppl])) and ppls[-1] < ppls[0]
+            and ppls[-1] < EX_MAX_PPL and val_ppl < EX_MAX_PPL):
+        raise AssertionError(f"[lstm-example] perplexities {ppls}, "
+                             f"{val_ppl} do not fall below {EX_MAX_PPL}")
+    return ppls, val_ppl
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2111,6 +2626,9 @@ def main():
     rtc_recs, rtc_drive = phase_rtc(card)
     mlp_counts = phase_train_rtc(card)
     lenet_counts = phase_train_lenet(card)
+    phase_rnn_check(card)
+    phase_train_lstm(card)
+    phase_lstm_example(card)
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",

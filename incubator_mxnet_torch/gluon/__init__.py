@@ -1,7 +1,10 @@
-"""Gluon: Blocks, Parameters, layers, losses and the Trainer on
-`torch.nn.Module`."""
+"""Gluon: Blocks, Parameters, layers, recurrent layers and cells, losses,
+utilities and the Trainer on `torch.nn.Module`."""
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 from .block import Block, HybridBlock
 from . import nn
 from . import loss
 from .trainer import Trainer
+from . import utils
+from .utils import split_and_load
+from . import rnn

@@ -16,8 +16,9 @@ import torch
 from .base import MXNetError
 from .random import generator
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "Xavier",
-           "register", "create"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Orthogonal", "Xavier", "MSRAPrelu", "LSTMBias", "Bilinear",
+           "InitDesc", "register", "create"]
 
 _REGISTRY = {}
 
@@ -41,6 +42,17 @@ def create(initializer, **kwargs):
     raise MXNetError(f"cannot create initializer from {initializer!r}")
 
 
+class InitDesc(str):
+    """A parameter name that carries init attributes: `attrs["__init__"]`
+    names the initializer that fills the parameter whatever the name."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
+
+
 class Initializer:
     def __init__(self, **kwargs):
         self._kwargs = kwargs
@@ -48,6 +60,12 @@ class Initializer:
     @torch.no_grad()
     def __call__(self, name, arr):
         """Fill tensor `arr` in place according to the parameter name."""
+        if not isinstance(name, str):
+            name = str(name)
+        init_attr = getattr(name, "attrs", {}).get("__init__", None)
+        if init_attr:
+            create(init_attr)._init_weight(name, arr)
+            return
         lname = name.lower()
         if lname.endswith("weight"):
             self._init_weight(name, arr)
@@ -96,6 +114,16 @@ class One(Initializer):
 
 
 @register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr.fill_(self.value)
+
+
+@register
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
         super().__init__(scale=scale)
@@ -113,6 +141,31 @@ class Normal(Initializer):
 
     def _init_weight(self, _, arr):
         arr.normal_(0.0, self.sigma, generator=generator(arr.device))
+
+
+@register
+class Orthogonal(Initializer):
+    """A scaled orthonormal basis: the left or right singular vectors of
+    a (rows, prod(rest)) draw, uniform in [-1, 1] or standard normal."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        rows = arr.shape[0]
+        cols = math.prod(arr.shape[1:])
+        gen = generator(arr.device)
+        tmp = torch.empty((rows, cols), dtype=torch.float64,
+                          device=arr.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _s, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (rows, cols) else v
+        arr.copy_((self.scale * q).reshape(arr.shape))
 
 
 @register
@@ -149,3 +202,46 @@ class Xavier(Initializer):
             arr.normal_(0.0, scale, generator=gen)
         else:
             raise MXNetError("invalid rnd_type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Xavier gaussian with magnitude 2 / (1 + slope²) (He et al.)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with `forget_bias` on the forget gate's quarter (cuDNN's
+    gate order i, f, g, o), whatever the parameter's name."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        arr.zero_()
+        n = arr.shape[0] // 4
+        arr[n:2 * n] = self.forget_bias
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a (..., kh, kw) weight."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = torch.arange(math.prod(shape), dtype=torch.float64)
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - (x / f - c).abs()) * (1 - (y / f - c).abs())
+        arr.copy_(weight.to(torch.float32).reshape(shape))

@@ -4,9 +4,10 @@ A block built through `get_model(name, **kwargs)` remembers how it was
 built, so `deploy.export_serving` can record the constructor in the
 artifact and `deploy.load_serving` can rebuild the same block on the
 card."""
-from . import bert, lenet, mlp, resnet
+from . import bert, lenet, lstm_lm, mlp, resnet
 from .lenet import LeNet
 from .mlp import MLP
+from .lstm_lm import LSTMLanguageModel
 from .bert import (BERTModel, BERTEncoder, BERTClassifier, get_bert_model,
                    bert_12_768_12, bert_mini)
 from .resnet import (ResNetV1, BasicBlockV1, BottleneckV1, get_resnet,
@@ -17,6 +18,7 @@ from ..base import MXNetError
 _MODELS = {
     "bert_classifier": bert.bert_classifier,
     "lenet": LeNet,
+    "lstm_lm": LSTMLanguageModel,
     "mlp": MLP,
     **{ctor.__name__: ctor for ctor in (
         resnet18_v1, resnet34_v1, resnet50_v1, resnet101_v1, resnet152_v1,

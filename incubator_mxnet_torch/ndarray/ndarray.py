@@ -1,9 +1,11 @@
 """NDArray: MXNet's array over a `torch.Tensor`.
 
 Counterpart of `incubator_mxnet_tpu/ndarray/ndarray.py`, with the
-surface the Gluon blocks, BERT and the imperative training loop use:
-arithmetic, `reshape` with MXNet's special codes, `expand_dims`,
-`slice_axis`, `astype`, `asnumpy`, `shape`/`dtype`/`context`,
+surface the Gluon blocks, the models and the imperative training loops
+use: arithmetic, comparisons, `reshape` with MXNet's special codes,
+`expand_dims`, `squeeze`, `swapaxes`, `split`, `slice_axis`, the
+reductions `sum`/`mean`/`norm`, `clip`, `sigmoid`/`tanh`/`relu`,
+`astype`, `asnumpy`, `shape`/`dtype`/`context`,
 `attach_grad`/`grad`/`backward`/`detach`/`wait_to_read`, in-place
 assignment `x[key] = y`, and the creation functions
 `array`/`zeros`/`zeros_like`/`ones_like`.  Operations record a graph
@@ -215,6 +217,18 @@ class NDArray:
             return True
         return self._compare(torch.ne, o)
 
+    def __gt__(self, o):
+        return self._compare(torch.gt, o)
+
+    def __ge__(self, o):
+        return self._compare(torch.ge, o)
+
+    def __lt__(self, o):
+        return self._compare(torch.lt, o)
+
+    def __le__(self, o):
+        return self._compare(torch.le, o)
+
     __hash__ = None   # a mutable array, as in the JAX package
 
     def __bool__(self):
@@ -239,6 +253,42 @@ class NDArray:
         from ..ops.shape import slice_axis
         return self._op(lambda t: slice_axis(t, axis=axis, begin=begin,
                                              end=end))
+
+    def _apply(self, name, **attrs):
+        from ..ops.registry import apply_op
+        return apply_op(name, self, **attrs)
+
+    def squeeze(self, axis=None):
+        return self._apply("squeeze", axis=axis)
+
+    def swapaxes(self, dim1, dim2):
+        return self._apply("swapaxes", dim1=dim1, dim2=dim2)
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return self._apply("split", num_outputs=num_outputs, axis=axis,
+                           squeeze_axis=squeeze_axis)
+
+    # -- reductions and elementwise math ---------------------------------
+    def sum(self, axis=None, keepdims=False):
+        return self._apply("sum", axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._apply("mean", axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return self._apply("norm", ord=ord, axis=axis, keepdims=keepdims)
+
+    def clip(self, a_min=None, a_max=None):
+        return self._apply("clip", a_min=a_min, a_max=a_max)
+
+    def sigmoid(self):
+        return self._apply("sigmoid")
+
+    def tanh(self):
+        return self._apply("tanh")
+
+    def relu(self):
+        return self._apply("relu")
 
 
 def to_numpy(t):

@@ -1,6 +1,7 @@
 """Shape and indexing ops (counterpart of
 `incubator_mxnet_tpu/ops/shape.py`): reshape with MXNet's special codes,
-expand_dims, slice_axis, pick, Embedding, flatten."""
+expand_dims, squeeze, swapaxes, concat, stack, split, slice_axis, pick,
+Embedding, flatten."""
 from __future__ import annotations
 
 import torch
@@ -62,6 +63,56 @@ def reshape(data, *, shape=None, reverse=False):
 @register("expand_dims")
 def expand_dims(data, *, axis):
     return data.unsqueeze(axis)
+
+
+@register("swapaxes", aliases=("SwapAxis",))
+def swapaxes(data, *, dim1=0, dim2=0):
+    return data.transpose(dim1, dim2)
+
+
+def _squeeze(data, axes):
+    """`data` without `axes`, each of which must have size 1 (the JAX
+    op's `jnp.squeeze` rule; torch would keep a longer axis quietly)."""
+    axes = tuple(a % data.ndim for a in axes)
+    longer = [a for a in axes if data.shape[a] != 1]
+    if longer:
+        raise MXNetError(f"squeeze: axes {longer} of shape "
+                         f"{tuple(data.shape)} are not of size 1")
+    return data.squeeze(axes)
+
+
+@register("squeeze")
+def squeeze(data, *, axis=None):
+    """Drop every axis of size 1, or the axes `axis` (an int or a
+    tuple), each of which must have size 1."""
+    if axis is None:
+        return data.squeeze()
+    return _squeeze(data, (axis,) if isinstance(axis, int) else tuple(axis))
+
+
+@register("concat", aliases=("Concat",))
+def concat(*args, dim=1):
+    return torch.cat(args, dim=dim)
+
+
+@register("stack")
+def stack(*args, axis=0):
+    return torch.stack(args, dim=axis)
+
+
+@register("split", aliases=("SliceChannel",))
+def split(data, *, num_outputs, axis=1, squeeze_axis=False):
+    """`num_outputs` equal parts along `axis` (a tuple, one part too);
+    an axis they do not divide evenly raises, as `jnp.split` does.  With
+    `squeeze_axis` each part drops `axis`, which must then be of size 1."""
+    size = data.shape[axis]
+    if size % num_outputs:
+        raise MXNetError(f"split: axis {axis} of size {size} does not "
+                         f"divide into {num_outputs} equal parts")
+    parts = torch.split(data, size // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [_squeeze(p, (axis,)) for p in parts]
+    return tuple(parts)
 
 
 @register("slice_axis")
