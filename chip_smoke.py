@@ -158,12 +158,39 @@ Phases (each prints its own lines; any failure exits non-zero):
    words from seed 0, TNC, the hidden state carried and detached, 4
    epochs, then one predict-mode pass over the validation split: train
    and validation perplexity below 450.
-22. A JSON line describing each kernel, then the card line, then the
+22. `[zoo-check]`: one model per vision-zoo family at full width and
+   its own resolution (resnet50_v2, cifar_resnet20_v2 at 32, vgg16_bn,
+   alexnet, squeezenet1.1, mobilenet1.0, mobilenetv2_1.0, densenet121 at
+   224, inceptionv3 at 299), 1000 classes, seeded Xavier weights: the
+   predict-mode forward at batch 2 on the card in float32 (TF32 off)
+   against the port on the CPU from the same weights (rtol and atol 1e-4
+   of the largest logit), and in bf16 against float32 on the card
+   (cosine >= 0.99); each model's error as a share of its tolerance.
+23. `[infer-zoo]`: each of those models' predict-mode forward at batch 64
+   in bf16: ms a batch, images/s, the profiled device time, launches and
+   idle share, the top kernels and launching ops, peak memory; output
+   (64, 1000) and finite, running stats unchanged, no hand kernel.
+24. `[train-zoo]`: MobileNetV2 1.0 on `bench_resnet50`'s recipe (Xavier,
+   bf16, SoftmaxCrossEntropyLoss on float32 logits, SGD lr 0.1, momentum
+   0.9, wd 1e-4): first 2 `ParallelTrainer` steps at 4 x 224² from one
+   set of weights on the card, on the CPU and on the CPU without oneDNN
+   in float32 (TF32 off): step 1's loss rtol 1e-4, then step 2's loss,
+   the update and the running stats within 3 times the CPU's own spread
+   (training is chaotic after one update; `MNV2_SPREAD_FACTOR`); then
+   256 x 3 x 224 x 224 random images and labels from numpy
+   seed 0 through 3 steps and `run_steps(10)` (CUDA events), a profiled
+   step (device time, launches, idle share, top kernels and launching
+   ops, the shares of `cudnn_convolution`, `convolution_backward`, the
+   depthwise kernels and `nchwToNhwc`/`nhwcToNchw`) and 2 iterations of the
+   imperative loop; peak memory; losses finite, every running stat
+   moved, no hand kernel.
+25. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
 of the repository.
 """
+import contextlib
 import http.client
 import json
 import math
@@ -1183,9 +1210,11 @@ def _post(port, arrays):
     return _http(port, "POST", "/predict", body)
 
 
-def log_profile(fn, what, tag="[profile]", top=12):
+def log_profile(fn, what, tag="[profile]", top=12, shares=()):
     """Device time of fn(), attributed to each kernel and to the host op
-    that launched it (torch.profiler self device time)."""
+    that launched it (torch.profiler self device time); for each name in
+    `shares`, the share of the kernels and of the launching ops whose
+    name holds it."""
     from torch.profiler import profile, ProfilerActivity
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1206,6 +1235,12 @@ def log_profile(fn, what, tag="[profile]", top=12):
             log(f"{tag} {e.self_device_time_total / 1e3:8.3f} ms "
                 f"{100 * e.self_device_time_total / total:5.1f}% "
                 f"x{e.count:<4d} {e.key[:70]}")
+    for name in shares:
+        part = [sum(e.self_device_time_total for e in rows if name in e.key)
+                for rows in (kernels, ops)]
+        log(f"{tag} *{name}*: kernels {part[0] / 1e3:.3f} ms "
+            f"({100 * part[0] / total:.1f}%), launching ops "
+            f"{part[1] / 1e3:.3f} ms ({100 * part[1] / total:.1f}%)")
     return total / 1e3, sum(e.count for e in kernels)
 
 
@@ -1543,29 +1578,39 @@ def phase_bottleneck(card):
     return records, counts
 
 
-def _resnet50_bench():
-    """`bench_resnet50`'s set-up: the model, loss, trainer and batch."""
+def _image_bench(name, batch, size, dtype="bfloat16", ctx=None):
+    """`bench_resnet50`'s set-up for zoo model `name` on `ctx` (the card
+    by default): Xavier weights from seed 0 cast to `dtype`,
+    SoftmaxCrossEntropyLoss on float32 logits, SGD (lr 0.1, momentum
+    0.9, wd 1e-4) through ParallelTrainer, and `batch` random images of
+    `size`² and labels from numpy seed 0."""
     import incubator_mxnet_torch as mx
     from incubator_mxnet_torch import gluon, nd, parallel
     from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    ctx = ctx or mx.gpu(0)
     mx.random.seed(0)
     np.random.seed(0)
-    net = get_model("resnet50_v1b", classes=RESNET_CLASSES)
-    net.initialize(mx.init.Xavier())
-    net.cast("bfloat16")
+    net = get_model(name, classes=RESNET_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.cast(dtype)
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
 
     def loss(out, y):
         return loss_fn(out.astype("float32"), y)
     tr = parallel.ParallelTrainer(net, loss, optimizer="sgd",
                                   optimizer_params=SGD,
-                                  mesh=parallel.default_mesh(1))
-    x = nd.array(np.random.uniform(size=(RESNET_BATCH, 3, RESNET_SIZE,
-                                         RESNET_SIZE)).astype(np.float32)) \
-        .astype("bfloat16")
-    y = nd.array(np.random.randint(0, RESNET_CLASSES, RESNET_BATCH)
-                 .astype(np.float32))
+                                  mesh=parallel.default_mesh(ctx=ctx))
+    with ctx:
+        x = nd.array(np.random.uniform(size=(batch, 3, size, size))
+                     .astype(np.float32)).astype(dtype)
+        y = nd.array(np.random.randint(0, RESNET_CLASSES, batch)
+                     .astype(np.float32))
     return net, loss, tr, x, y
+
+
+def _resnet50_bench():
+    """`bench_resnet50`'s set-up: the model, loss, trainer and batch."""
+    return _image_bench("resnet50_v1b", RESNET_BATCH, RESNET_SIZE)
 
 
 def _all_counts():
@@ -2577,6 +2622,269 @@ def phase_lstm_example(card):
     return ppls, val_ppl
 
 
+# ---------------------------------------------------------------------
+# the vision zoo: one model per family at full width, no hand kernel
+# ---------------------------------------------------------------------
+# (zoo name, input size): each family at its own resolution, 1000 classes
+ZOO = (("resnet50_v2", 224), ("cifar_resnet20_v2", 32), ("vgg16_bn", 224),
+       ("alexnet", 224), ("squeezenet1.1", 224), ("mobilenet1.0", 224),
+       ("mobilenetv2_1.0", 224), ("densenet121", 224), ("inceptionv3", 299))
+ZOO_CHECK_BATCH = 2
+ZOO_INFER_BATCH = 64
+# [zoo-check]: float32 predict-mode logits on the card (TF32 off) against
+# the port on the CPU, which the tests hold against the JAX package:
+# rtol and atol 1e-4 of the largest value (cuDNN's and the CPU's sums in
+# another order through up to 94 convolutions).  bf16 against float32 on
+# the card by cosine, as [resnet-check] does in predict mode.
+ZOO_LOGIT_TOL = 1e-4
+ZOO_MIN_COS = 0.99
+# [train-zoo]: bench_resnet50's recipe on MobileNetV2 1.0.  Parity of 2
+# ParallelTrainer steps at 4 x 224² in float32 (TF32 off), card against
+# CPU: step 1's loss (one train-mode forward) to rtol 1e-4.  After one
+# update this net's training is chaotic in float32: its 52 train-mode
+# BatchNorms over 4 images, each followed by a ReLU that flips on inputs
+# within rounding of 0, spread any last-bit difference, and the CPU's
+# own two convolution implementations (oneDNN and torch's native ones)
+# end 3.4e-2 apart in step 2's loss and 0.31 apart in the update on an
+# H100 host.  So step 2's loss, the update and the running stats (each as
+# one relative error over all tensors) are held to 3 times the CPU's
+# own spread, measured in the same run, never below 1e-4.
+MNV2 = "mobilenetv2_1.0"
+MNV2_BATCH, MNV2_CHECK_BATCH, MNV2_CHECK_STEPS = 256, 4, 2
+MNV2_LOSS_RTOL = 1e-4
+MNV2_SPREAD_FACTOR, MNV2_SPREAD_FLOOR = 3.0, 1e-4
+
+
+def _zoo_net(name, ctx):
+    """Zoo model `name` (1000 classes) with Xavier weights from seed 0 on
+    `ctx`, its deferred shapes not yet fixed."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    mx.random.seed(0)
+    net = get_model(name, classes=RESNET_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _zoo_input(batch, size, dtype=torch.float32, seed=1):
+    x = np.random.RandomState(seed).uniform(size=(batch, 3, size, size))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+def phase_zoo_check(card):
+    """Each family at full width: the predict-mode forward at batch 2 on
+    the card in float32 (TF32 off) against the port on the CPU from the
+    same weights, and bf16 against float32 on the card by cosine."""
+    import incubator_mxnet_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
+    for name, size in ZOO:
+        t0 = time.time()
+        x = _zoo_input(ZOO_CHECK_BATCH, size)
+        net = _zoo_net(name, mx.gpu(0))
+        with torch.no_grad():
+            got = net(x.cuda()).float().cpu()
+        weights = {k: p.data()._data.cpu() for k, p in
+                   net._collect_params_with_prefix().items()}
+        cpu_net = _zoo_net(name, mx.cpu())
+        cpu_net.load_dict(weights, ctx=mx.cpu())
+        net.cast("bfloat16")
+        with torch.no_grad():
+            ref = cpu_net(x)
+            b16 = net(x.cuda().bfloat16()).float().cpu()
+        ratio = _tol_ratio(got, ref, ZOO_LOGIT_TOL, ZOO_LOGIT_TOL)
+        cos = _cos(b16, got)
+        worst = max(worst, ratio)
+        log(f"[zoo-check] {name} {ZOO_CHECK_BATCH}x3x{size}x{size}: "
+            f"{len(weights)} parameters, logits {tuple(got.shape)}, largest "
+            f"{ref.abs().max().item():.4g}; float32 card vs CPU "
+            f"{ratio:.3f} of the tolerance (rtol and atol {ZOO_LOGIT_TOL} "
+            f"of the largest); bf16 vs float32 cosine {cos:.5f} (gate "
+            f"{ZOO_MIN_COS}) [{time.time() - t0:.1f} s] ({card})")
+        if tuple(got.shape) != tuple(ref.shape) or not (
+                ratio <= 1 and cos >= ZOO_MIN_COS
+                and torch.isfinite(b16).all()):
+            raise AssertionError(f"[zoo-check] {name}: the card disagrees")
+        del net, cpu_net
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_infer_zoo(card):
+    """Each family's predict-mode forward at batch 64 in bf16: time,
+    device time, idle share and peak memory."""
+    import incubator_mxnet_torch as mx
+    rows = {}
+    for name, size in ZOO:
+        net = _zoo_net(name, mx.gpu(0))
+        net.cast("bfloat16")
+        x = _zoo_input(ZOO_INFER_BATCH, size, torch.bfloat16).cuda()
+        with torch.inference_mode():
+            net(x)                          # fixes the deferred shapes
+        before = _bn_states(net)
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out = net(x)
+            fwd_ms = time_ms(lambda: net(x), iters=5, warmup=1)
+            dev_ms, launches = log_profile(
+                lambda: net(x), f"one {ZOO_INFER_BATCH}x3x{size}x{size} "
+                f"{name} forward", tag="[infer-zoo]", top=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        after = _bn_states(net)
+        if out.shape != (ZOO_INFER_BATCH, RESNET_CLASSES) or \
+                not torch.isfinite(out.float()).all():
+            raise AssertionError(f"[infer-zoo] {name}: bad output "
+                                 f"{tuple(out.shape)}")
+        if any(not torch.equal(before[k], after[k]) for k in before):
+            raise AssertionError(f"[infer-zoo] {name}: predict mode moved "
+                                 f"running stats")
+        if any(_all_counts().values()):
+            raise AssertionError(f"[infer-zoo] {name}: launched hand "
+                                 f"kernels {_all_counts()}")
+        rows[name] = fwd_ms
+        log(f"[infer-zoo] {name} predict-mode forward {ZOO_INFER_BATCH}x3x"
+            f"{size}x{size} bf16: {fwd_ms:.2f} ms (CUDA events), "
+            f"{ZOO_INFER_BATCH / fwd_ms * 1e3:.1f} images/s; {dev_ms:.2f} "
+            f"ms of device time in {launches} launches (profiler), idle "
+            f"{1 - dev_ms / fwd_ms:.3f}; peak memory {peak:.2f} GiB; "
+            f"{len(before)} running stats unchanged ({card})")
+        del net, x, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mnv2_run(ctx, start, flags=None):
+    """MNV2_CHECK_STEPS float32 ParallelTrainer steps of MobileNetV2 1.0
+    at MNV2_CHECK_BATCH x 224² on `ctx` from the weights `start` (None:
+    its own Xavier weights, fixed by a first forward); returns the
+    starting weights, the losses and the weights after."""
+    from incubator_mxnet_torch.convert import params_from_jax
+    with flags or contextlib.nullcontext():
+        net, _loss, tr, x, y = _image_bench(MNV2, MNV2_CHECK_BATCH, 224,
+                                            "float32", ctx)
+        if start is None:
+            with torch.no_grad():
+                net(x._data)                # fixes the deferred shapes
+            start = _weights(net)
+        else:
+            params_from_jax(net, start, ctx=ctx)
+        losses = [tr.step(x, y).asscalar()
+                  for _ in range(MNV2_CHECK_STEPS)]
+    return start, losses, _weights(net)
+
+
+def _mnv2_errors(run, ref, start):
+    """(step 1's loss, step 2's loss, the update, the running stats), each
+    as a relative error of `run` against `ref` over all tensors."""
+    def rel(pairs):
+        pairs = list(pairs)
+        return math.sqrt(sum(np.sum((a - b) ** 2) for a, b in pairs)
+                         / sum(np.sum(b ** 2) for _, b in pairs))
+    (rl, rw), (fl, fw) = run, ref
+    stats = [k for k in start if "running" in k]
+    return (abs(rl[0] - fl[0]) / abs(fl[0]), abs(rl[1] - fl[1]) / abs(fl[1]),
+            rel((rw[k] - start[k], fw[k] - start[k]) for k in start
+                if k not in stats),
+            rel((rw[k], fw[k]) for k in stats))
+
+
+def _mnv2_parity():
+    """MobileNetV2 1.0 at full width from one set of weights through
+    MNV2_CHECK_STEPS steps on the card, on the CPU, and on the CPU with
+    oneDNN off (the yardstick); the losses and the card's and the
+    yardstick's errors against the CPU."""
+    import incubator_mxnet_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    start, gl, gw = _mnv2_run(mx.gpu(0), None)
+    _, cl, cw = _mnv2_run(mx.cpu(), start)
+    _, nl, nw = _mnv2_run(mx.cpu(), start,
+                          torch.backends.mkldnn.flags(enabled=False))
+    return (gl, cl, nl, _mnv2_errors((gl, gw), (cl, cw), start),
+            _mnv2_errors((nl, nw), (cl, cw), start))
+
+
+def phase_train_zoo(card):
+    """MobileNetV2 1.0 at full width on bench_resnet50's recipe: parity
+    with the CPU at batch 4, then batch 256 through ParallelTrainer and
+    the imperative loop."""
+    from incubator_mxnet_torch import autograd, gluon
+    gl, cl, nl, card_err, spread = _mnv2_parity()
+    names = ("step 1 loss", "step 2 loss", "update", "running stats")
+    bounds = [MNV2_LOSS_RTOL] + [max(MNV2_SPREAD_FACTOR * s,
+                                     MNV2_SPREAD_FLOOR) for s in spread[1:]]
+    log(f"[train-zoo] parity at full width, {MNV2} float32 (TF32 off), "
+        f"batch {MNV2_CHECK_BATCH}x3x224x224, {MNV2_CHECK_STEPS} SGD steps "
+        f"from one set of weights: losses cuda "
+        + ", ".join(f"{v:.6f}" for v in gl) + ", cpu "
+        + ", ".join(f"{v:.6f}" for v in cl) + ", cpu without oneDNN "
+        + ", ".join(f"{v:.6f}" for v in nl))
+    log("[train-zoo] relative errors against the CPU: "
+        + "; ".join(f"{n} card {c:.3e}, cpu without oneDNN {s:.3e}, bound "
+                    f"{b:.3e}" for n, c, s, b in zip(names, card_err, spread,
+                                                     bounds))
+        + f" ({card})")
+    if not all(c <= b for c, b in zip(card_err, bounds)):
+        raise AssertionError("[train-zoo] the card disagrees with the CPU")
+    t0 = time.time()
+    net, loss, tr, x, y = _image_bench(MNV2, MNV2_BATCH, 224)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    losses = [tr.step(x, y).asscalar() for _ in range(3)]
+    log(f"[train-zoo] {MNV2} bf16 {MNV2_BATCH}x3x224x224, SGD {SGD}: "
+        f"built and 3 steps in {time.time() - t0:.1f} s; losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    k = 10
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses.append(tr.run_steps(k, x, y).asscalar())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / k
+    log(f"[train-zoo] run_steps({k}): loss {losses[-1]:.4f}, step "
+        f"{step_ms:.2f} ms, {MNV2_BATCH / step_ms * 1e3:.1f} images/s (CUDA "
+        f"events over the {k} steps; num_update {tr.num_update}) ({card})")
+    dev_ms, launches = log_profile(
+        lambda: losses.append(tr.step(x, y).asscalar()),
+        f"one {MNV2_BATCH}x3x224x224 training step", tag="[train-zoo]",
+        top=15, shares=("cudnn_convolution", "convolution_backward",
+                        "conv_depthwise2d", "nchwToNhwc", "nhwcToNchw"))
+    log(f"[train-zoo] profiled step: {dev_ms:.2f} ms of device time in "
+        f"{launches} launches; against the {step_ms:.2f} ms step of "
+        f"run_steps({k}) the device is idle {1 - dev_ms / step_ms:.3f} of "
+        f"the step")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", SGD)
+    for _ in range(2):
+        with autograd.record():
+            lval = loss(net(x), y)
+        lval.backward()
+        trainer.step(MNV2_BATCH)
+        losses.append(float(lval.asnumpy().mean()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train-zoo] imperative record/backward/gluon.Trainer.step x2: "
+        f"mean losses {losses[-2]:.4f}, {losses[-1]:.4f}; peak memory "
+        f"{peak:.2f} GiB")
+    if any(_all_counts().values()):
+        raise AssertionError(f"[train-zoo] launched hand kernels "
+                             f"{_all_counts()}: the zoo has none")
+    stats = _bn_states(net)
+    moved = sum(not torch.equal(v, torch.zeros_like(v) if "mean" in k
+                                else torch.ones_like(v))
+                for k, v in stats.items())
+    if not (np.all(np.isfinite(losses)) and moved == len(stats)):
+        raise AssertionError(f"[train-zoo] losses {losses} not finite, or "
+                             f"{len(stats) - moved} of {len(stats)} running "
+                             f"stats never moved")
+    log(f"[train-zoo] losses over {len(losses)} steps: "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; all {len(stats)} running stats moved")
+    return step_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2629,6 +2937,9 @@ def main():
     phase_rnn_check(card)
     phase_train_lstm(card)
     phase_lstm_example(card)
+    phase_zoo_check(card)
+    phase_infer_zoo(card)
+    phase_train_zoo(card)
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",

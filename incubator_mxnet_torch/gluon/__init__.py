@@ -1,5 +1,5 @@
-"""Gluon: Blocks, Parameters, layers, recurrent layers and cells, losses,
-utilities and the Trainer on `torch.nn.Module`."""
+"""Gluon: Blocks, Parameters, layers, recurrent layers and cells, the
+contrib layers, losses, utilities and the Trainer on `torch.nn.Module`."""
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 from .block import Block, HybridBlock
 from . import nn
@@ -8,3 +8,4 @@ from .trainer import Trainer
 from . import utils
 from .utils import split_and_load
 from . import rnn
+from . import contrib

@@ -1,6 +1,5 @@
 """Basic neural-network layers (counterpart of
-`incubator_mxnet_tpu/gluon/nn/basic_layers.py`): the layers BERT and
-ResNet use."""
+`incubator_mxnet_tpu/gluon/nn/basic_layers.py`), in full."""
 from __future__ import annotations
 
 import torch
@@ -8,8 +7,10 @@ import torch
 from ... import autograd
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "LayerNorm", "Embedding", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "InstanceNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "GELU", "Swish", "ReflectionPad2D"]
 
 
 class Sequential(Block):
@@ -179,6 +180,32 @@ class LayerNorm(HybridBlock):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
 
 
+class InstanceNorm(HybridBlock):
+    """The `InstanceNorm` op with this layer's `epsilon`.  As in the JAX
+    layer, gamma and beta always apply and take gradients; `axis`,
+    `center` and `scale` are taken and ignored."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
 class Embedding(HybridBlock):
     """Row lookup; the sparse-gradient form arrives with training."""
 
@@ -204,6 +231,35 @@ class Flatten(HybridBlock):
         return F.flatten(x)
 
 
+class Lambda(Block):
+    """`function(*args)`; a string names a function of the `nd`
+    namespace."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """`function(F, *args)`; a string names a function of `F`."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name = function if isinstance(function, str) else None
+        self._func = function
+
+    def hybrid_forward(self, F, *args):
+        if self._func_name is not None:
+            return getattr(F, self._func_name)(*args)
+        return self._func(F, *args)
+
+
 class Activation(HybridBlock):
     def __init__(self, activation, **kwargs):
         self._act_type = activation
@@ -214,3 +270,68 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """x or alpha·x, `alpha` a Parameter of shape (in_channels,) over
+    the channel axis (one value for every channel by default)."""
+
+    def __init__(self, alpha_initializer="zeros", in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(in_channels,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha=None):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of H and W of NCHW data; an int pads all four
+    sides, else `padding` is the `pad` op's (before, after) per axis."""
+
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

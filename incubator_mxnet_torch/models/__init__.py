@@ -3,8 +3,11 @@
 A block built through `get_model(name, **kwargs)` remembers how it was
 built, so `deploy.export_serving` can record the constructor in the
 artifact and `deploy.load_serving` can rebuild the same block on the
-card."""
-from . import bert, lenet, lstm_lm, mlp, resnet
+card.  The registry holds the vision zoo's 43 names
+(`gluon.model_zoo.vision._models`) beside BERT, LeNet, the LSTM LM and
+the MLP."""
+from . import (bert, lenet, lstm_lm, mlp, resnet, vgg, mobilenet, alexnet,
+               densenet, squeezenet, inception)
 from .lenet import LeNet
 from .mlp import MLP
 from .lstm_lm import LSTMLanguageModel
@@ -14,15 +17,14 @@ from .resnet import (ResNetV1, BasicBlockV1, BottleneckV1, get_resnet,
                      resnet18_v1, resnet34_v1, resnet50_v1, resnet101_v1,
                      resnet152_v1, resnet50_v1b, resnet101_v1b, resnet152_v1b)
 from ..base import MXNetError
+from ..gluon.model_zoo.vision import _models as _zoo
 
 _MODELS = {
     "bert_classifier": bert.bert_classifier,
     "lenet": LeNet,
     "lstm_lm": LSTMLanguageModel,
     "mlp": MLP,
-    **{ctor.__name__: ctor for ctor in (
-        resnet18_v1, resnet34_v1, resnet50_v1, resnet101_v1, resnet152_v1,
-        resnet50_v1b, resnet101_v1b, resnet152_v1b)},
+    **_zoo,
 }
 
 

@@ -1,13 +1,14 @@
 """Elementwise and reduction ops (counterpart of part of
 `incubator_mxnet_tpu/ops/math.py` and `ops/reduce.py`): the unary table
-with its integer-preserving part, relu, clip, where, broadcast_mul, and
-the mean, sum and norm reductions."""
+with its integer-preserving part, relu, LeakyReLU, clip, where,
+broadcast_mul, and the mean, sum and norm reductions."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from .registry import register
+from ..base import MXNetError
 
 
 _INTS = (torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64)
@@ -150,6 +151,33 @@ for _name, _fn in _UNARY_INT.items():
 @register("relu")
 def relu(data):
     return torch.relu(data)
+
+
+# SELU's constants, as the JAX op has them
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """leaky: x or slope·x; prelu: x or gamma·x, a 1-d gamma over the
+    channel axis 1; elu: x or slope·expm1(x); selu: scale·(x or
+    alpha·expm1(x)); gelu: the exact (erf) form.  `lower_bound` and
+    `upper_bound` (rrelu's) are taken and ignored, as in the JAX op."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data >= 0, data, _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    raise MXNetError(f"unknown LeakyReLU act_type {act_type!r}")
 
 
 @register("clip")

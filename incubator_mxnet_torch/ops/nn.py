@@ -1,7 +1,8 @@
 """Neural-network ops (counterpart of `incubator_mxnet_tpu/ops/nn.py` and
 the `Activation` op of its `ops/math.py`).  Plain torch: the JAX package
-leaves these to XLA (convolution to `lax.conv_general_dilated`, pooling
-to `lax.reduce_window`), the port to PyTorch's own operators.
+leaves these to XLA (convolution and deconvolution to
+`lax.conv_general_dilated`, pooling to `lax.reduce_window`), the port
+to PyTorch's own operators.
 `BatchNorm` keeps the JAX op's arithmetic step by step rather than
 `F.batch_norm`'s, whose running variance is the unbiased one.
 
@@ -60,6 +61,51 @@ def convolution(data, weight, bias=None, *, kernel=(), stride=(), dilate=(),
     return out
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution")
+def deconvolution(data, weight, bias=None, *, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, no_bias=True,
+                  target_shape=(), layout=None, workspace=512,
+                  cudnn_tune=None, cudnn_off=False):
+    """Transposed convolution with the JAX op's arithmetic: the weight
+    is (in, out, *kernel) and is NOT flipped on its spatial axes (the
+    JAX op convolves the stride-dilated data with it as it is, where
+    upstream MXNet and torch flip it), so this is `conv_transpose` of
+    the flipped weight.  Each spatial axis grows to
+    (n − 1)·stride − 2·pad + (k − 1)·dilate + 1 + adj; `adj` is solved
+    from `target_shape` when it is not given.  The full transposed
+    convolution is cut by `pad` below and by pad − adj above (zeros
+    where adj passes pad), so any adj works.  The bias is added after,
+    in the output's dtype.  `num_group` > 1 raises: the JAX op rejects
+    the layer's (in, out // groups, *kernel) weight."""
+    nd = len(kernel)
+    if nd not in _CONV_T:
+        raise MXNetError("Deconvolution supports 1/2/3 spatial dims")
+    if num_group != 1:
+        raise MXNetError(f"Deconvolution: num_group {num_group} is not "
+                         "supported (only 1)")
+    stride = _tuplize(stride or 1, nd)
+    pad = _tuplize(pad or 0, nd)
+    dilate = _tuplize(dilate or 1, nd)
+    adj = _tuplize(adj, nd) if adj else None
+    if adj is None and target_shape:
+        adj = tuple(
+            t - ((data.shape[2 + i] - 1) * stride[i] - 2 * pad[i]
+                 + (kernel[i] - 1) * dilate[i] + 1)
+            for i, t in enumerate(target_shape))
+    adj = adj or (0,) * nd
+    full = _CONV_T[nd](data, weight.flip(tuple(range(2, 2 + nd))), None,
+                       stride=stride, dilation=dilate)
+    cut = [x for p, a in reversed(list(zip(pad, adj))) for x in (-p, a - p)]
+    out = F.pad(full, cut) if any(cut) else full
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
 _POOL = {"max": {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d},
          "avg": {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}}
 
@@ -111,13 +157,22 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
         x = F.pad(data, flat, value=float("-inf")) if any(flat) else data
         return _POOL["max"][nd](x, kernel, stride)
     x = F.pad(data, flat) if any(flat) else data
-    avg = _POOL["avg"][nd](x, kernel, stride)
+    avg = _avg_pool(x, kernel, stride)
     if pool_type == "sum":
         return avg * math.prod(kernel)
     if count_include_pad or not any(flat):
         return avg
     inside = F.pad(torch.ones_like(data), flat)
-    return avg / _POOL["avg"][nd](inside, kernel, stride)
+    return avg / _avg_pool(inside, kernel, stride)
+
+
+def _avg_pool(x, kernel, stride):
+    """torch's `avg_pool3d` has no bfloat16 kernel on the CPU, so 3-D
+    bfloat16 windows are averaged in float32 and rounded once, as the
+    CUDA kernel does with its float32 accumulator."""
+    if x.dtype == torch.bfloat16 and len(kernel) == 3:
+        return F.avg_pool3d(x.float(), kernel, stride).to(x.dtype)
+    return _POOL["avg"][len(kernel)](x, kernel, stride)
 
 
 def _int_pooling(data, pool_type, kernel, stride, flat, count_include_pad):
@@ -184,6 +239,19 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5, output_mean_var=False):
     var = x32.var(dim=axis, keepdim=True, unbiased=False)
     out = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
     return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """Each sample and channel normalized over its spatial axes, in the
+    data's dtype: (x − mean)·rsqrt(var + eps)·gamma + beta, the variance
+    the biased one (the JAX op)."""
+    axes = tuple(range(2, data.ndim))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
 
 
 @register("Dropout")

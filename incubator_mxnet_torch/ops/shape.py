@@ -1,7 +1,7 @@
 """Shape and indexing ops (counterpart of
 `incubator_mxnet_tpu/ops/shape.py`): reshape with MXNet's special codes,
-expand_dims, squeeze, swapaxes, concat, stack, split, slice_axis, pick,
-Embedding, flatten."""
+expand_dims, squeeze, swapaxes, transpose, concat, stack, split,
+slice_axis, pick, Embedding, flatten, pad."""
 from __future__ import annotations
 
 import torch
@@ -63,6 +63,14 @@ def reshape(data, *, shape=None, reverse=False):
 @register("expand_dims")
 def expand_dims(data, *, axis):
     return data.unsqueeze(axis)
+
+
+@register("transpose")
+def transpose(data, *, axes=None):
+    """The axes reversed, or permuted by `axes` (`jnp.transpose`)."""
+    if axes is None:
+        return data.permute(*reversed(range(data.ndim)))
+    return data.permute(*axes)
 
 
 @register("swapaxes", aliases=("SwapAxis",))
@@ -166,3 +174,39 @@ def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
 @register("flatten", aliases=("Flatten",))
 def flatten(data):
     return data.reshape(data.shape[0], -1)
+
+
+def _pad_index(n, before, after, mode, device):
+    """Source indices along an axis of size n padded by (before, after):
+    "edge" repeats the end cells, "reflect" mirrors about them without
+    repeating them, as often as the width needs (numpy's rules)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+@register("pad", aliases=("Pad",))
+def pad(data, *, mode="constant", pad_width=(), constant_value=0.0):
+    """`pad_width` gives (before, after) for every axis from axis 0, the
+    leading N and C too (MXNet's order; `F.pad` counts from the last
+    axis back).  "constant" fills with `constant_value`; "edge" and
+    "reflect" gather source cells along each padded axis, so they pad
+    any axis, as `jnp.pad` does.  Any other mode raises."""
+    if len(pad_width) < 2 * data.ndim:
+        raise MXNetError(f"pad: pad_width {tuple(pad_width)} needs "
+                         f"(before, after) for each of {data.ndim} axes")
+    pw = [(pad_width[2 * i], pad_width[2 * i + 1]) for i in range(data.ndim)]
+    if mode == "constant":
+        flat = [x for lo_hi in reversed(pw) for x in lo_hi]
+        return torch.nn.functional.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise MXNetError(f"pad mode {mode} unsupported")
+    out = data
+    for axis, (before, after) in enumerate(pw):
+        if before or after:
+            out = out.index_select(axis, _pad_index(
+                data.shape[axis], before, after, mode, data.device))
+    return out

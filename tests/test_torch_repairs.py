@@ -6,8 +6,9 @@ a JAX fused-update states file loaded into the port's Trainer,
 sharing memory with the source; then `nd.array`'s shapes and dtypes,
 `pick` out of range, `mean` of integer data, reductions over
 `axis=()`, `backward()` from a head no gradient-taking input reaches,
-`Parameter`'s `lr_mult`/`wd_mult`/`stype`/`grad_stype`, and NDArray's
-`==`, `!=`, `bool()` and in-place operators.
+`Parameter`'s `lr_mult`/`wd_mult`/`stype`/`grad_stype`, NDArray's
+`==`, `!=`, `bool()` and in-place operators, and 3-D average pooling of
+bfloat16 data on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances, with their reasons:
@@ -531,3 +532,25 @@ def test_inplace_operators_update_the_array(op):
         out.append(p.data().asnumpy())
     np.testing.assert_array_equal(out[1], out[0])
     assert not np.array_equal(out[1], w0)
+
+
+# ---------------------------------- 14. 3-D avg pooling of bf16 data
+@pytest.mark.parametrize("attrs", [
+    dict(kernel=(2, 2, 2), stride=(2, 2, 2), pool_type="avg"),
+    dict(kernel=(2, 3, 2), stride=(1, 2, 2), pad=(1, 1, 0), pool_type="avg",
+         count_include_pad=False, pooling_convention="full"),
+    dict(kernel=(3, 3, 3), stride=(2, 2, 2), pad=(1, 1, 1), pool_type="sum"),
+], ids=["avg", "avg_exclude_pad_full", "sum"])
+def test_avg_pooling_3d_bf16_matches_jax(attrs):
+    """torch has no bfloat16 `avg_pool3d` on the CPU, where the JAX op
+    pools bf16 windows; the port averages them in float32 and rounds
+    once.  Tolerance: one bf16 step (rtol and atol 2^-8 of the largest
+    value), each side rounding the mean once."""
+    x = np.random.RandomState(14).uniform(-2, 2, (2, 3, 5, 6, 4)) \
+        .astype(np.float32)
+    ref = np.asarray(jnn.pooling(jnp.asarray(x).astype(jnp.bfloat16),
+                                 **attrs).astype(jnp.float32))
+    got = tnn.pooling(torch.from_numpy(x).bfloat16(), **attrs)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2 ** -8,
+                               atol=2 ** -8 * np.abs(ref).max())

@@ -397,10 +397,11 @@ def test_resnet_constructors_match_jax_names(name, blocks):
 def test_model_zoo_get_model_and_unported_variants():
     from incubator_mxnet_torch.gluon.model_zoo.vision import get_model as zoo
     assert isinstance(zoo("resnet50_v1b", classes=10), resnet.ResNetV1)
-    with pytest.raises(mx.MXNetError, match="only v1"):
-        resnet.get_resnet(2, 50)
+    assert isinstance(zoo("resnet50_v2", classes=10), resnet.ResNetV2)
+    with pytest.raises(mx.MXNetError, match="invalid resnet version"):
+        resnet.get_resnet(3, 50)
     with pytest.raises(mx.MXNetError, match="unknown model"):
-        get_model("resnet50_v2")
+        get_model("resnet50_v3")
 
 
 NARROW = dict(block=jresnet.BottleneckV1, layers=[1, 1, 1, 1],
