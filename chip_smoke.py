@@ -184,7 +184,46 @@ Phases (each prints its own lines; any failure exits non-zero):
    depthwise kernels and `nchwToNhwc`/`nhwcToNchw`) and 2 iterations of the
    imperative loop; peak memory; losses finite, every running stat
    moved, no hand kernel.
-25. A JSON line describing each kernel, then the card line, then the
+25. `[optim-check]`: every optimizer (SGD, NAG, Adam, AdaGrad, RMSProp
+   plain and centered, AdaDelta, Ftrl, Signum, LAMB with and without
+   bias correction, DCASGD at momentum 0 and 0.9), 3 updates of a bf16
+   3072 x 768 weight by seeded float32 gradients on the card and on the
+   CPU from the same values: weights within 1 bf16 ulp, float32 states
+   within 1e-5 of their largest (DCASGD's bf16 ones within 1 ulp), and
+   each update's time on the card; then the three lazy row updates
+   (`sgd_update_rsp`, `sgd_mom_update_rsp`, `adam_update_rsp`) on a bf16
+   30522 x 768 table with 7680 seeded ids: rows outside the ids bitwise
+   unchanged, weights and states, touched rows within 1 ulp of the CPU.
+26. `[loss-check]`: every Gluon loss block in float32 on the card
+   against the CPU (CTC at T = 100, N = 32, C = 30, L = 20, with and
+   without lengths): values and input gradients within 1e-5 of their
+   largest; MXNet's sigmoid `autograd.Function` in a recorded graph on
+   the card against torch autograd of the same expression.
+27. `[train-lamb]`: the `[train]` model and batch through 3 imperative
+   iterations of `gluon.Trainer(..., "lamb", lr 1e-3, wd 0.01)`: losses
+   finite; for the word embedding, layer 0's qkv weight and the
+   classifier weight, each update within 1 bf16 ulp of a float64
+   recompute of LAMB's two phases from the step's saved weight,
+   gradient and states, the trust ratio within 1e-3 relative, and the
+   port's phases run again on the saved values giving the same bits;
+   12 `flash_short_fwd_train` launches an iteration and no other hand
+   kernel; iteration times (CUDA events) and a profiled iteration.
+28. `[train-sparse]`: `bench_bert` with `sparse_embed=True` (Adam 2e-5):
+   `ParallelTrainer` step 1 against a dense twin holding the same
+   weights (the lazy update must run; touched rows within 1 bf16 ulp
+   of the twin's, every other parameter bitwise equal), steps 2-3 and
+   `run_steps(5)` (rows the batch lacks keep their weights and both
+   Adam moments bitwise), both trainers' step times over `run_steps(5)`
+   side by side, a profiled step, then 2 iterations of
+   `gluon.Trainer(..., "adam")` whose word-embedding gradient must be a
+   `RowSparseNDArray` of the batch's sorted unique ids; 12 launches a
+   step.
+29. `[checkpoint]`: that trainer's `param_bytes()` and
+   `optimizer_state_bytes()` against the sums over its tensors, then
+   `save_checkpoint` to a temporary directory, `load_checkpoint` into a
+   model built from another seed, and one more step on each: losses and
+   every weight bitwise equal; save and load times.
+30. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -2885,6 +2924,641 @@ def phase_train_zoo(card):
     return step_ms
 
 
+# -- the rest of training: optimizers, losses, LAMB, sparse rows, checkpoints
+OPTIM_SHAPE = (3072, 768)
+OPTIM_STEPS = 3
+OPTIM_CONFIGS = (
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"learning_rate": 1e-3, "wd": 1e-4}),
+    ("adagrad", {"learning_rate": 0.1}),
+    ("rmsprop", {"learning_rate": 1e-3, "clip_weights": 2.0}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True}),
+    ("adadelta", {"rho": 0.9, "wd": 1e-4}),
+    ("ftrl", {"learning_rate": 0.1, "lamda1": 0.01}),
+    ("signum", {"learning_rate": 1e-3, "wd": 1e-4}),
+    ("lamb", {"learning_rate": 1e-3, "wd": 0.01}),
+    ("lamb", {"learning_rate": 1e-3, "wd": 0.01, "bias_correction": False}),
+    ("dcasgd", {"learning_rate": 0.1}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+)
+# bench_bert's table and batch: 30522 x 768 rows, 60 x 128 ids
+SPARSE_ROWS, SPARSE_IDS = 30522, TRAIN_BATCH * T
+STATE_RTOL = 1e-5           # of the state's largest value, card vs CPU
+LOSS_CHECK_RTOL = 1e-5      # of the largest value, card vs CPU
+CTC_T, CTC_N, CTC_C, CTC_L = 100, 32, 30, 20
+LAMB_PARAMS = {"learning_rate": 1e-3, "wd": 0.01}
+LAMB_ITERATIONS = 3
+TRUST_RTOL = 1e-3
+SPARSE_ADAM = {"learning_rate": 2e-5}
+
+
+def _bf16_ulps(got, ref):
+    """The largest distance of `got` from `ref` in bf16 steps at ref."""
+    got, ref = got.double(), ref.double()
+    mag = ref.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got - ref).abs() / ulp).max().item()
+
+
+def _update_ulps(new, ref, old):
+    """The largest distance of a bf16 update `new` from its float64
+    recompute `ref`, in units of one bf16 ulp at ref, or of float32's
+    rounding of `old` (2^-23 |old|, twice) where the update cancels `old`
+    to below what that rounding resolves."""
+    ref, old = ref.double(), old.double()
+    mag = ref.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    unit = torch.maximum(torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                         2.0 ** -22 * old.abs())
+    return ((new.double() - ref).abs() / unit).max().item()
+
+
+def _state_list(s):
+    if s is None:
+        return []
+    if isinstance(s, tuple):
+        return [x for v in s for x in _state_list(v)]
+    return [s]
+
+
+def _card():
+    """The card's torch device (gpu(0)'s)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch.context import as_device
+    return as_device(mx.gpu(0))
+
+
+def _copy_state(st, dev):
+    from incubator_mxnet_torch import nd
+    if st is None:
+        return None
+    if isinstance(st, tuple):
+        return tuple(_copy_state(x, dev) for x in st)
+    return nd.NDArray(st.data.to(dev, copy=True))
+
+
+def _optim_steps(name, params, w0, grads, dev):
+    """OPTIM_STEPS updates on the card; before each, the card's weight
+    and states are copied to the CPU and the same update runs there from
+    them.  Returns the card's final weight, the largest weight distance
+    in bf16 ulps and the largest state errors, each with its bound."""
+    from incubator_mxnet_torch import nd, optimizer
+    o, o_host = optimizer.create(name, **params), \
+        optimizer.create(name, **params)
+    w = nd.NDArray(w0.to(dev, copy=True))
+    st = o.create_state(0, w)
+    ulps, errs = 0.0, []
+    for g in grads:
+        wh, sh = nd.NDArray(w.data.to("cpu", copy=True)), \
+            _copy_state(st, "cpu")
+        o_host._index_update_count = dict(o._index_update_count)
+        o_host.num_update = o.num_update
+        o.update(0, w, nd.NDArray(g.to(dev)), st)
+        o_host.update(0, wh, nd.NDArray(g), sh)
+        ulps = max(ulps, _bf16_ulps(w.data.cpu(), wh.data))
+        step = _state_err([x.data for x in _state_list(st)],
+                          [x.data for x in _state_list(sh)])
+        errs = [max(a, b) for a, b in zip(errs, step)] if errs else step
+    return w.data, ulps, errs
+
+
+def _state_err(card_states, host_states):
+    """The largest card-vs-CPU difference of the states: in bf16 ulps for
+    bf16 states (DCASGD's), else as a share of the state's largest value,
+    each beside its bound, as (error, bound) pairs."""
+    out = []
+    for a, b in zip(card_states, host_states):
+        a = a.cpu()
+        if b.dtype == torch.bfloat16:
+            out.append((_bf16_ulps(a, b), 1.0))
+        else:
+            out.append((((a.double() - b.double()).abs().max()
+                         / b.double().abs().max().clamp_min(1e-30)).item(),
+                        STATE_RTOL))
+    return out
+
+
+def phase_optim_check(card):
+    """Every optimizer on the card against the CPU, then the three lazy
+    row updates on bench_bert's table."""
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.ndarray import sparse
+    gen = torch.Generator().manual_seed(0)
+    w0 = (torch.randn(OPTIM_SHAPE, generator=gen) * 0.02).to(torch.bfloat16)
+    grads = [torch.randn(OPTIM_SHAPE, generator=gen) * 0.01
+             for _ in range(OPTIM_STEPS)]
+    cuda, cpu = _card(), torch.device("cpu")
+    for name, params in OPTIM_CONFIGS:
+        wc, ulps, errs = _optim_steps(name, params, w0, grads, cuda)
+        moved = (wc.cpu() != w0).float().mean().item()
+        from incubator_mxnet_torch import optimizer
+        o = optimizer.create(name, **params)
+        w = nd.NDArray(w0.to(cuda, copy=True))
+        st = o.create_state(0, w)
+        g = nd.NDArray(grads[0].to(cuda))
+        ms = time_ms(lambda: o.update(0, w, g, st), iters=10, warmup=1)
+        log(f"[optim-check] {name} {params}: {OPTIM_STEPS} updates of bf16 "
+            f"{OPTIM_SHAPE[0]}x{OPTIM_SHAPE[1]}, each also run on the CPU "
+            f"from the card's values: weight {ulps:.0f} bf16 ulp (bound 1), "
+            f"states "
+            + (", ".join(f"{e:.2e} (bound {b:g})" for e, b in errs) or "none")
+            + f" (bf16 states in ulps, float32 ones as a share of their "
+            f"largest); {100 * moved:.1f}% of weights moved; {ms:.3f} ms an "
+            f"update on the card ({card})")
+        if not (ulps <= 1 and all(e <= b for e, b in errs)):
+            raise AssertionError(f"[optim-check] {name} {params}: the card "
+                                 f"disagrees with the CPU")
+    log(f"[optim-check] (the float32 arithmetic of the two devices may "
+        f"round a value across a bf16 boundary, so each update is held "
+        f"from the same inputs, where one rounding allows 1 ulp)")
+    # the lazy row updates on a bf16 30522 x 768 table, 7680 seeded ids
+    ids = torch.randint(0, SPARSE_ROWS, (SPARSE_IDS,), generator=gen)
+    uniq = torch.unique(ids)
+    table = (torch.randn(SPARSE_ROWS, 768, generator=gen) * 0.02) \
+        .to(torch.bfloat16)
+    vals = torch.randn(uniq.numel(), 768, generator=gen) * 0.01
+    others = torch.ones(SPARSE_ROWS, dtype=torch.bool)
+    others[uniq] = False
+    shape = (SPARSE_ROWS, 768)
+
+    def update(kind, w, states, g):
+        if kind == "sgd":
+            sparse.sgd_update_rsp(w, g, 0.1, 1e-4, 1.0 / 60, -1.0)
+        elif kind == "sgd_mom":
+            sparse.sgd_mom_update_rsp(w, states[0], g, 0.1, 0.9, 1e-4,
+                                      1.0 / 60, -1.0)
+        else:
+            sparse.adam_update_rsp(w, states[0], states[1], g, 2e-5, 0.9,
+                                   0.999, 1e-8, 0.0, 1.0 / 60, -1.0)
+    for kind in ("sgd", "sgd_mom", "adam"):
+        w = nd.NDArray(table.to(cuda, copy=True))
+        states = [nd.NDArray(torch.full(shape, 0.25, device=cuda))
+                  for _ in range({"sgd": 0, "sgd_mom": 1, "adam": 2}[kind])]
+        g = sparse.RowSparseNDArray(vals.to(cuda), (uniq.to(cuda),), shape)
+        g_host = sparse.RowSparseNDArray(vals, (uniq,), shape)
+        ulps, state_err = 0.0, 0.0
+        for _ in range(OPTIM_STEPS):
+            wh = nd.NDArray(w.data.to("cpu", copy=True))
+            sh = [nd.NDArray(x.data.to("cpu", copy=True)) for x in states]
+            update(kind, w, states, g)
+            update(kind, wh, sh, g_host)
+            ulps = max(ulps, _bf16_ulps(w.data.cpu()[~others],
+                                        wh.data[~others]))
+            state_err = max([state_err] + [e for e, _ in _state_err(
+                [x.data for x in states], [x.data for x in sh])])
+        wc, sc = w.data.cpu(), [x.data.cpu() for x in states]
+        ms = time_ms(lambda: update(kind, w, states, g), iters=10, warmup=1)
+        frozen = torch.equal(wc[others].view(torch.int16),
+                             table[others].view(torch.int16)) and all(
+            bool((s[others] == 0.25).all()) for s in sc)
+        log(f"[optim-check] lazy {kind}_update_rsp: {uniq.numel()} unique of "
+            f"{SPARSE_IDS} ids in a bf16 {SPARSE_ROWS}x768 table, "
+            f"{OPTIM_STEPS} updates: rows outside the ids bitwise unchanged "
+            f"(weights and states): {frozen}; touched rows, each update also "
+            f"run on the CPU from the card's values: {ulps:.0f} bf16 ulp "
+            f"(bound 1), states {state_err:.2e} (bound {STATE_RTOL:g}); "
+            f"{ms:.3f} ms an "
+            f"update on the card ({card})")
+        if not (frozen and ulps <= 1 and state_err <= STATE_RTOL):
+            raise AssertionError(f"[optim-check] lazy {kind} failed")
+
+
+def _loss_cases(rng):
+    """(name, block, inputs, how many take a gradient) of every loss."""
+    from incubator_mxnet_torch.gluon import loss as L
+    n, d = 64, 32
+    r = lambda *s: rng.randn(*s).astype(np.float32)          # noqa: E731
+    pm = np.where(rng.rand(n, d) > 0.5, 1.0, -1.0).astype(np.float32)
+    prob = rng.dirichlet(np.ones(d), n).astype(np.float32)
+    ctc_pred = r(CTC_N, CTC_T, CTC_C)
+    ctc_label = rng.randint(0, CTC_C - 1, (CTC_N, CTC_L)).astype(np.float32)
+    cut = rng.randint(1, CTC_L + 1, CTC_N)
+    for i, c in enumerate(cut):
+        ctc_label[i, c:] = -1
+    plen = rng.randint(CTC_T // 2, CTC_T + 1, CTC_N).astype(np.float32)
+    sw = rng.uniform(0.5, 2, (n, 1)).astype(np.float32)
+    return [
+        ("L2Loss", L.L2Loss(), [r(n, d), r(n, d), sw], 1),
+        ("L1Loss", L.L1Loss(), [r(n, d), r(n, d)], 1),
+        ("SoftmaxCrossEntropyLoss", L.SoftmaxCrossEntropyLoss(),
+         [r(n, d), rng.randint(0, d, n).astype(np.float32)], 1),
+        ("SigmoidBCELoss", L.SigmoidBCELoss(weight=0.5),
+         [r(n, d), rng.rand(n, d).astype(np.float32), sw], 1),
+        ("KLDivLoss", L.KLDivLoss(from_logits=False), [r(n, d), prob], 1),
+        ("HuberLoss", L.HuberLoss(rho=0.7), [r(n, d), r(n, d)], 1),
+        ("HingeLoss", L.HingeLoss(), [r(n, d), pm], 1),
+        ("SquaredHingeLoss", L.SquaredHingeLoss(), [r(n, d), pm], 1),
+        ("LogisticLoss", L.LogisticLoss(), [r(n, d), pm], 1),
+        ("CosineEmbeddingLoss", L.CosineEmbeddingLoss(margin=0.2),
+         [r(n, d), r(n, d), pm[:, 0].copy()], 2),
+        ("TripletLoss", L.TripletLoss(), [r(n, d), r(n, d), r(n, d)], 3),
+        ("CTCLoss", L.CTCLoss(), [ctc_pred, ctc_label], 1),
+        ("CTCLoss with lengths", L.CTCLoss(),
+         [ctc_pred, ctc_label, plen, cut.astype(np.float32)], 1),
+        ("PoissonNLLLoss", L.PoissonNLLLoss(compute_full=True),
+         [r(n, d), rng.poisson(2.0, (n, d)).astype(np.float32)], 1),
+        ("SDMLLoss", L.SDMLLoss(), [r(n, d), r(n, d)], 2),
+    ]
+
+
+def _loss_run(block, inputs, n_grad, ctx):
+    from incubator_mxnet_torch import autograd, nd
+    xs = [nd.array(a, ctx=ctx) for a in inputs]
+    for x in xs[:n_grad]:
+        x.attach_grad()
+    with autograd.record():
+        out = block(*xs)
+    out.backward()
+    return [out.data] + [x.grad.data for x in xs[:n_grad]]
+
+
+def phase_loss_check(card):
+    """Every loss block, float32, card against CPU; a user
+    autograd.Function against torch autograd on the card."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, nd
+    worst = 0.0
+    for name, block, inputs, n_grad in _loss_cases(np.random.RandomState(0)):
+        card_out = _loss_run(block, inputs, n_grad, mx.gpu(0))
+        torch.cuda.synchronize()
+        host_out = _loss_run(block, inputs, n_grad, mx.cpu())
+        errs = [((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)).item() for a, b in zip(card_out, host_out)]
+        finite = all(bool(torch.isfinite(a).all()) for a in card_out)
+        worst = max(worst, max(errs))
+        log(f"[loss-check] {name}: value {errs[0]:.2e}, input gradients "
+            + ", ".join(f"{e:.2e}" for e in errs[1:])
+            + f" of their largest (bound {LOSS_CHECK_RTOL:g}); output "
+            f"{tuple(card_out[0].shape)}")
+        if not (finite and max(errs) <= LOSS_CHECK_RTOL):
+            raise AssertionError(f"[loss-check] {name}: the card disagrees "
+                                 f"with the CPU")
+
+    class Sigmoid(autograd.Function):
+        def forward(self, x):
+            y = 1 / (1 + nd.exp(-x))
+            self.save_for_backward(y)
+            return y
+
+        def backward(self, dy):
+            (y,) = self.saved_tensors
+            return dy * y * (1 - y)
+    a = np.random.RandomState(1).randn(256, 1024).astype(np.float32)
+    x = nd.array(a, ctx=mx.gpu(0))
+    x.attach_grad()
+    with autograd.record():
+        out = (Sigmoid()(x) * nd.array(a, ctx=mx.gpu(0))).sum()
+    out.backward()
+    ref_x = torch.from_numpy(a).to(_card()).requires_grad_()
+    (torch.sigmoid(ref_x) * torch.from_numpy(a).to(_card())).sum().backward()
+    err = ((x.grad.data - ref_x.grad).abs().max()
+           / ref_x.grad.abs().max()).item()
+    log(f"[loss-check] autograd.Function (sigmoid) in a recorded graph on "
+        f"the card: gradient against torch autograd {err:.2e} of its "
+        f"largest (bound {LOSS_CHECK_RTOL:g}); every loss within "
+        f"{worst:.2e} ({card})")
+    if err > LOSS_CHECK_RTOL:
+        raise AssertionError("[loss-check] autograd.Function's gradient "
+                             "disagrees with torch autograd")
+
+
+def _bench_bert(seed=0, sparse_embed=False):
+    """bench_bert's classifier (bf16, seeded Normal(0.02), dropout 0) and
+    its seeded 60 x 128 batch on cuda:0."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.models import get_model
+    rng = np.random.RandomState(0)
+    batch = [nd.array(a, ctx=mx.gpu(0)) for a in (
+        rng.randint(0, 30522, (TRAIN_BATCH, T)).astype(np.float32),
+        np.zeros((TRAIN_BATCH, T), np.float32),
+        rng.randint(0, 2, TRAIN_BATCH).astype(np.float32))]
+    mx.seed(seed)
+    net = get_model("bert_classifier", model_name="bert_12_768_12",
+                    num_classes=2, dropout=0.0, vocab_size=30522,
+                    max_length=T, sparse_embed=sparse_embed)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    from incubator_mxnet_torch import autograd
+    with autograd.pause(), torch.no_grad():
+        net(*batch[:2])                    # the classifier's deferred shape
+    return net, batch
+
+
+def _bert_loss():
+    from incubator_mxnet_torch import gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    return lambda out, label: loss_fn(out.astype("float32"), label)
+
+
+def _checked_launches(run, steps, what, per_step=("flash_short_fwd_train",)):
+    """run() with every hand kernel's count read around it: each kernel
+    of `per_step` 12 times a step, no other."""
+    before = _all_counts()
+    out = run()
+    torch.cuda.synchronize()
+    after = _all_counts()
+    got = {n: after[n] - before.get(n, 0) for n in after}
+    want = {n: LAYERS * steps if n in per_step else 0 for n in after}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    return out
+
+
+def _lamb_reference(w, g, m, v, t, rescale, o):
+    """Phases 1 and 2 in float64 from a step's saved weight, gradient and
+    states; ‖w‖ rounded to the weight's dtype, as the rule defines it."""
+    w64, g64 = w.double(), g.double() * rescale
+    m2 = o.beta1 * m.double() + (1 - o.beta1) * g64
+    v2 = o.beta2 * v.double() + (1 - o.beta2) * g64 ** 2
+    m_hat, v_hat = m2 / (1 - o.beta1 ** t), v2 / (1 - o.beta2 ** t)
+    step = m_hat / (v_hat.sqrt() + o.epsilon) + o.wd * w64
+    r1 = w64.norm().to(w.dtype).double()
+    ratio = r1 / step.norm()
+    return w64 - o.lr * ratio * step, ratio.item()
+
+
+def phase_train_lamb(card):
+    """BERT-base on LAMB through gluon.Trainer's per-key path."""
+    from incubator_mxnet_torch import autograd, gluon
+    from incubator_mxnet_torch.ops import optim as k
+    from incubator_mxnet_torch.ops.math import norm
+    t0 = time.time()
+    net, batch = _bench_bert()
+    loss_of = _bert_loss()
+    trainer = gluon.Trainer(net.collect_params(), "lamb", dict(LAMB_PARAMS))
+    o = trainer.optimizer
+    watched = {"word_embed": net.bert.word_embed.weight,
+               "layer0 qkv": net.bert.encoder.layers[0].attention.qkv.weight,
+               "classifier": net.classifier[1].weight}
+    index = {id(p): i for i, p in enumerate(trainer._params)}
+    _reset_all_counts()
+    losses, step_ms = [], []
+    for it in range(LAMB_ITERATIONS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def iteration():
+            start.record()
+            with autograd.record():
+                l = loss_of(net(*batch[:2]), batch[2])
+            l.backward()
+            saved = {}
+            trainer._ensure_states()
+            for name, p in watched.items():
+                m, v = trainer._states[index[id(p)]]
+                saved[name] = [p.data().data.clone(), p.grad().data.clone(),
+                               m.data.clone(), v.data.clone()]
+            trainer.step(TRAIN_BATCH)
+            end.record()
+            return l, saved
+        l, saved = _checked_launches(iteration, 1, f"[train-lamb] "
+                                     f"iteration {it + 1}")
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(l.asnumpy().mean()))
+        t = it + 1
+        for name, (w, g, m, v) in saved.items():
+            new = watched[name].data().data
+            ref, ratio64 = _lamb_reference(w, g, m, v, t, 1.0 / TRAIN_BATCH,
+                                           o)
+            step, _, _ = k.lamb_update_phase1(
+                w, g, m, v, beta1=o.beta1, beta2=o.beta2, epsilon=o.epsilon,
+                t=t, bias_correction=True, wd=o.wd,
+                rescale_grad=1.0 / TRAIN_BATCH)
+            r1, r2 = norm(w), norm(step)
+            ratio = (r1.float() / r2).item()
+            again = k.lamb_update_phase2(w, step, r1, r2, lr=o.lr)
+            ulps = _update_ulps(new, ref, w)
+            trust_err = abs(ratio - ratio64) / ratio64
+            same = torch.equal(again.view(torch.int16),
+                               new.view(torch.int16))
+            log(f"[train-lamb] iteration {t} {name} {tuple(w.shape)}: trust "
+                f"ratio {ratio:.6g} vs float64 {ratio64:.6g} ({trust_err:.1e},"
+                f" bound {TRUST_RTOL:g}); update vs float64 recompute "
+                f"{ulps:.2f} bf16 ulp (bound 1; where the update cancels "
+                f"the weight, float32's rounding of it); phases 1 and 2 "
+                f"again from "
+                f"the saved values give the same bits: {same}")
+            if not (trust_err <= TRUST_RTOL and ulps <= 1 and same):
+                raise AssertionError(f"[train-lamb] {name}: the LAMB update "
+                                     f"disagrees with its float64 recompute")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train-lamb] losses {losses} not finite")
+    log(f"[train-lamb] BERT-base bf16 {TRAIN_BATCH}x{T}, gluon.Trainer lamb "
+        f"{LAMB_PARAMS}, built in {time.time() - t0:.1f} s: losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; iteration ms "
+        + ", ".join(f"{v:.2f}" for v in step_ms) + f" (CUDA events, "
+        f"record/backward/step); {LAYERS} flash_short_fwd_train launches an "
+        f"iteration, no other hand kernel ({card})")
+
+    def one():
+        with autograd.record():
+            l = loss_of(net(*batch[:2]), batch[2])
+        l.backward()
+        trainer.step(TRAIN_BATCH)
+    dev_ms, launches = log_profile(
+        lambda: _checked_launches(one, 1, "[train-lamb] profiled iteration"),
+        "one LAMB iteration", tag="[train-lamb]", top=8)
+    log(f"[train-lamb] profiled iteration: {dev_ms:.2f} ms of device time, "
+        f"{launches} launches; idle share over the last timed iteration "
+        f"{max(0.0, 1 - dev_ms / step_ms[-1]):.2f} ({card})")
+    counts = _all_counts()
+    del net, trainer
+    torch.cuda.empty_cache()
+    return counts["flash_short_fwd_train"], step_ms[-1]
+
+
+def _copy_weights(src, dst):
+    for k, p in dst._collect_params_with_prefix().items():
+        p.set_data(src._collect_params_with_prefix()[k].data())
+
+
+def _bits_equal(a, b):
+    a, b = a.detach(), b.detach()
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def phase_train_sparse(card):
+    """bench_bert with the sparse word embedding: ParallelTrainer's lazy
+    row update against a dense twin, then gluon.Trainer's row-sparse
+    gradient.  Returns the lazy trainer, its batch, the launches and the
+    step times."""
+    from incubator_mxnet_torch import autograd, gluon, parallel
+    from incubator_mxnet_torch.ndarray.sparse import RowSparseNDArray
+    t0 = time.time()
+    net, batch = _bench_bert(sparse_embed=True)
+    twin, _ = _bench_bert(sparse_embed=False)
+    _copy_weights(net, twin)
+    loss_of = _bert_loss()
+
+    def trainer(block):
+        return parallel.ParallelTrainer(block, loss_of, optimizer="adam",
+                                        optimizer_params=dict(SPARSE_ADAM),
+                                        mesh=parallel.default_mesh(1))
+    tr, tr_twin = trainer(net), trainer(twin)
+    emb = net.bert.word_embed.weight
+    table0 = emb.data().data.clone()
+    ids = torch.unique(batch[0].data.long())
+    absent = torch.ones(table0.shape[0], dtype=torch.bool,
+                        device=table0.device)
+    absent[ids] = False
+    _reset_all_counts()
+    l1 = _checked_launches(lambda: tr.step(*batch).asscalar(), 1,
+                           "[train-sparse] step 1")
+    lt = _checked_launches(lambda: tr_twin.step(*batch).asscalar(), 1,
+                           "[train-sparse] dense twin step 1")
+    lazy = list(tr.lazy_params)
+    log(f"[train-sparse] BERT-base bf16 {TRAIN_BATCH}x{T} sparse_embed=True, "
+        f"ParallelTrainer adam {SPARSE_ADAM}, built in {time.time() - t0:.1f}"
+        f" s; update of the word embedding: "
+        f"{'lazy' if emb.name in lazy else 'dense'} ({ids.numel()} unique of "
+        f"{batch[0].size} ids, {table0.shape[0]} rows); step-1 loss "
+        f"{l1:.6f}, dense twin {lt:.6f}")
+    if lazy != [emb.name]:
+        raise AssertionError(f"[train-sparse] lazy tables {lazy}, expected "
+                             f"[{emb.name}]")
+    new, twin_new = emb.data().data, twin.bert.word_embed.weight.data().data
+    ulps = _bf16_ulps(new[ids].float(), twin_new[ids].float())
+    mine = dict(net._collect_params_with_prefix())
+    others = [k for k, p in twin._collect_params_with_prefix().items()
+              if p is not twin.bert.word_embed.weight
+              and not _bits_equal(mine[k].data().data, p.data().data)]
+    log(f"[train-sparse] after step 1: touched rows vs the dense twin "
+        f"{ulps:.0f} bf16 ulp (bound 1); untouched rows equal too: "
+        f"{_bits_equal(new[absent], twin_new[absent])}; other parameters "
+        f"not bitwise equal to the twin's: {others or 'none'}")
+    if ulps > 1 or others:
+        raise AssertionError("[train-sparse] the lazy step disagrees with "
+                             "the dense twin")
+    losses = [l1] + [_checked_launches(lambda: tr.step(*batch).asscalar(), 1,
+                                       f"[train-sparse] step {i}")
+                     for i in (2, 3)]
+    # run_steps(5) of each in the order lazy, twin, twin, lazy (the host
+    # sets these walls and drifts), then each one's device time a step
+    times = {"lazy": [], "dense twin": []}
+    for name in ("lazy", "dense twin", "dense twin", "lazy"):
+        t = tr if name == "lazy" else tr_twin
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        last = _checked_launches(lambda: t.run_steps(5, *batch).asscalar(),
+                                 5, f"[train-sparse] {name} run_steps(5)")
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end) / 5)
+        if name == "lazy" and len(times[name]) == 1:
+            losses.append(last)
+    dev = {name: _checked_launches(
+        lambda: device_ms(lambda: t.step(*batch), iters=4), 5,
+        f"[train-sparse] {name} device time")
+        for name, t in (("lazy", tr), ("dense twin", tr_twin))}
+    j = tr._wrt.index(tr.params.index(emb))
+    m, v = tr._states[j]
+    frozen = _bits_equal(emb.data().data[absent], table0[absent]) and \
+        bool((m[absent] == 0).all()) and bool((v[absent] == 0).all())
+    log(f"[train-sparse] after 3 steps and run_steps(5): losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; rows the batch lacks "
+        f"kept weights and both Adam moments bitwise after "
+        f"{tr.num_update} steps: {frozen}")
+    if not (frozen and all(np.isfinite(losses))):
+        raise AssertionError("[train-sparse] absent rows moved or a loss "
+                             "is not finite")
+    walls = {n: sum(v) / len(v) for n, v in times.items()}
+    log(f"[train-sparse] step over run_steps(5), CUDA events, in the order "
+        f"lazy, twin, twin, lazy: lazy "
+        + ", ".join(f"{x:.2f}" for x in times["lazy"]) + " ms, dense twin "
+        + ", ".join(f"{x:.2f}" for x in times["dense twin"])
+        + f" ms; device time a step (profiler, 4 steps): lazy "
+        f"{dev['lazy']:.3f} ms, dense twin {dev['dense twin']:.3f} ms "
+        f"({dev['lazy'] - dev['dense twin']:+.3f} ms, "
+        f"{100 * (dev['lazy'] / dev['dense twin'] - 1):+.2f}%) ({card})")
+    dev_ms, launches = log_profile(
+        lambda: _checked_launches(lambda: tr.step(*batch), 1,
+                                  "[train-sparse] profiled step"),
+        "one lazy step", tag="[train-sparse]", top=8)
+    idle = max(0.0, 1 - dev_ms / walls["lazy"])
+    log(f"[train-sparse] profiled step: {dev_ms:.2f} ms of device time, "
+        f"{launches} launches; idle share against the mean lazy wall "
+        f"{idle:.2f} ({card})")
+    del tr_twin, twin
+    torch.cuda.empty_cache()
+
+    # the imperative loop: a row-sparse gradient of the batch's ids
+    imp = gluon.Trainer(net.collect_params(), "adam", dict(SPARSE_ADAM))
+    for i in range(2):
+        def iteration():
+            with autograd.record():
+                l = loss_of(net(*batch[:2]), batch[2])
+            l.backward()
+            g = emb.grad()
+            imp.step(TRAIN_BATCH)
+            return float(l.asnumpy().mean()), g
+        lval, g = _checked_launches(iteration, 1, f"[train-sparse] imperative "
+                                    f"iteration {i + 1}")
+        sparse_ok = isinstance(g, RowSparseNDArray) and torch.equal(
+            g.indices.data, ids)
+        log(f"[train-sparse] imperative gluon.Trainer adam iteration {i + 1}: "
+            f"mean loss {lval:.4f}; word embedding gradient "
+            f"{type(g).__name__} of {g.indices.size} rows, the batch's "
+            f"sorted unique ids: {sparse_ok}")
+        if not (sparse_ok and np.isfinite(lval)):
+            raise AssertionError("[train-sparse] the imperative gradient is "
+                                 "not the batch's row-sparse one")
+    return tr, batch, _all_counts()["flash_short_fwd_train"], walls
+
+
+def phase_checkpoint(card, tr, batch):
+    """[train-sparse]'s trainer saved, restored into a model built from
+    another seed, and one more step on each: the same bits."""
+    from incubator_mxnet_torch import parallel
+    _reset_all_counts()
+    net2, _ = _bench_bert(seed=1, sparse_embed=True)
+    tr2 = parallel.ParallelTrainer(net2, _bert_loss(), optimizer="adam",
+                                   optimizer_params=dict(SPARSE_ADAM),
+                                   mesh=parallel.default_mesh(1))
+    pb, sb = tr.param_bytes(), tr.optimizer_state_bytes()
+    n_params = sum(p.data().size for p in tr.params)
+    want_p = sum(p.data().data.numel() * p.data().data.element_size()
+                 for p in tr.params)
+    want_s = sum(x.numel() * x.element_size() for s in tr._states for x in s)
+    log(f"[checkpoint] param_bytes {pb}, optimizer_state_bytes {sb} for "
+        f"{n_params} parameters (sums over the tensors: {want_p}, {want_s})")
+    if pb != (want_p, want_p) or sb != (want_s, want_s) or \
+            want_p != 2 * n_params or want_s != 8 * n_params:
+        raise AssertionError("[checkpoint] byte reports disagree with the "
+                             "tensors")
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        tr.save_checkpoint(directory)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(directory, f))
+                   for f in os.listdir(directory))
+        t0 = time.perf_counter()
+        tr2.load_checkpoint(directory)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    la = _checked_launches(lambda: tr.step(*batch).asscalar(), 1,
+                           "[checkpoint] step of the saved trainer")
+    lb = _checked_launches(lambda: tr2.step(*batch).asscalar(), 1,
+                           "[checkpoint] step of the restored trainer")
+    same = la == lb and tr.num_update == tr2.num_update and all(
+        _bits_equal(a.data().data, b.data().data)
+        for a, b in zip(tr.params, tr2.params))
+    log(f"[checkpoint] saved {size / 1e6:.1f} MB in {save_s:.2f} s, restored "
+        f"into a model from another seed in {load_s:.2f} s; one more step on "
+        f"each: losses {la:.6f} and {lb:.6f}, num_update {tr.num_update}; "
+        f"losses and every weight bitwise equal: {same} ({card})")
+    if not same:
+        raise AssertionError("[checkpoint] the restored trainer's step "
+                             "differs")
+    return _all_counts()["flash_short_fwd_train"]
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2940,6 +3614,17 @@ def main():
     phase_zoo_check(card)
     phase_infer_zoo(card)
     phase_train_zoo(card)
+    phase_optim_check(card)
+    phase_loss_check(card)
+    lamb_launches, _ = phase_train_lamb(card)
+    sparse_tr, sparse_batch, sparse_launches, _ = phase_train_sparse(card)
+    ckpt_launches = phase_checkpoint(card, sparse_tr, sparse_batch)
+    del sparse_tr, sparse_batch
+    torch.cuda.empty_cache()
+    train_launches = train["flash_short_fwd_train"]
+    log(f"[done] flash_short_fwd_train: {train_launches} launches [train], "
+        f"{lamb_launches} [train-lamb], {sparse_launches} [train-sparse], "
+        f"{ckpt_launches} [checkpoint]")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
@@ -2947,7 +3632,8 @@ def main():
     kernels = [{"name": "flash_short_fwd", **short,
                 "launches": serve["flash_short_fwd"], **rec},
                {"name": "flash_short_fwd_train", **short,
-                "launches": train["flash_short_fwd_train"], **train_rec}]
+                "launches": train_launches + lamb_launches + sparse_launches
+                + ckpt_launches, **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),
                             ("flash_bwd_dkv", "flash_bwd.cu", 176)):

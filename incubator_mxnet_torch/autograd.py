@@ -2,8 +2,8 @@
 
 Counterpart of `incubator_mxnet_tpu/autograd.py` (`record`, `pause`,
 `train_mode`, `predict_mode`, `is_recording`, `is_training`,
-`set_recording`, `set_training`, `backward`, `grad`).  Two flags, kept
-per thread as in MXNet:
+`set_recording`, `set_training`, `backward`, `grad`, `mark_variables`,
+`Function`).  Two flags, kept per thread as in MXNet:
 
 - recording: NDArray ops and blocks called on NDArrays keep a graph only
   inside `record()` (`grad_scope()` turns torch's grad mode on or off to
@@ -16,7 +16,11 @@ per thread as in MXNet:
 `backward` honours each leaf's `grad_req`: "write" overwrites the
 gradient of every leaf the sweep reaches (the buffer is zeroed before
 the sweep, then torch accumulates into it), "add" accumulates across
-backward calls.
+backward calls.  A "write" leaf whose gradient is row-sparse (a
+`grad_stype="row_sparse"` Parameter) has its buffer dropped instead, so
+a sparse cotangent from `Embedding(sparse_grad=True)` becomes its whole
+gradient, as the JAX package's first write replaces the buffer; a
+dense cotangent in the same sweep, or a later "add", makes it dense.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "grad", "grad_scope"]
+           "grad", "grad_scope", "mark_variables", "Function"]
 
 
 class _State(threading.local):
@@ -160,9 +164,15 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     heads, grads = map(list, zip(*pairs))
     with torch.no_grad():
         for leaf in _reachable_leaves(heads):
-            if getattr(leaf, "_grad_req", "write") == "write" and \
-                    leaf.grad is not None:
-                leaf.grad.zero_()
+            req = getattr(leaf, "_grad_req", "write")
+            sparse = getattr(leaf, "_grad_stype", "default") == "row_sparse"
+            if req == "write" and leaf.grad is not None:
+                if sparse:
+                    leaf.grad = None
+                else:
+                    leaf.grad.zero_()
+            elif req == "add" and sparse and leaf.grad is None:
+                leaf.grad = torch.zeros_like(leaf)    # accumulate densely
     with torch.enable_grad():
         torch.autograd.backward(heads, grads, retain_graph=retain_graph)
 
@@ -190,3 +200,91 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                          "the heads (no gradient path)")
     out = [NDArray(g) for g in out]
     return out[0] if single else out
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray of `variables` a leaf whose gradient buffer is
+    the matching NDArray of `gradients` (the same storage: a backward
+    writes into it), with its `grad_req` ("null": no gradient)."""
+    from .ndarray import NDArray
+    if isinstance(variables, NDArray):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, g, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"invalid grad_req {req!r}")
+        t = var._data.detach()
+        t.requires_grad_(req != "null")
+        if req != "null":
+            if tuple(g.shape) != tuple(t.shape):
+                raise MXNetError(f"mark_variables: gradient of shape "
+                                 f"{tuple(g.shape)} for a variable of "
+                                 f"shape {tuple(t.shape)}")
+            t.grad = g._data
+        t._grad_req = req
+        var._data = t
+
+
+class _FunctionNode(torch.autograd.Function):
+    """Runs a user `Function`'s forward and backward as one node of
+    torch's graph."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        from .ndarray import NDArray
+        ctx.fn, ctx.n_in = fn, len(inputs)
+        with pause():
+            outputs = fn.forward(*[NDArray(x) if isinstance(
+                x, torch.Tensor) else x for x in inputs])
+        fn._returned_tuple = isinstance(outputs, (tuple, list))
+        outs = outputs if fn._returned_tuple else (outputs,)
+        return tuple(o._data if isinstance(o, NDArray) else o for o in outs)
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        from .ndarray import NDArray
+        with pause():
+            in_grads = ctx.fn.backward(*[NDArray(g) for g in out_grads])
+        if not isinstance(in_grads, (tuple, list)):
+            in_grads = [in_grads]
+        if len(in_grads) != ctx.n_in:
+            raise MXNetError(
+                f"{type(ctx.fn).__name__}.backward returned "
+                f"{len(in_grads)} grads for {ctx.n_in} inputs")
+        return (None,) + tuple(g._data if isinstance(g, NDArray) else g
+                               for g in in_grads)
+
+
+class Function:
+    """A user-defined differentiable function: subclass it with
+    `forward(self, *inputs)` and `backward(self, *output_grads)`, both
+    on NDArrays, and call an instance once per use.  Inside `record()`
+    it is one node of the graph, on `torch.autograd.Function`: its
+    backward receives a gradient for every output (zeros for an unused
+    one) and returns one for every input.  `save_for_backward(*arrays)`
+    keeps arrays for the backward as `saved_tensors`.  Neither forward
+    nor backward is itself recorded."""
+
+    def __init__(self):
+        self.saved_tensors = ()
+
+    def save_for_backward(self, *args):
+        self.saved_tensors = args
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        with torch.enable_grad():
+            outs = _FunctionNode.apply(self, *[
+                x._data if isinstance(x, NDArray) else x for x in inputs])
+        outs = tuple(NDArray(o) for o in outs)
+        return outs if self._returned_tuple else outs[0]

@@ -12,7 +12,8 @@ import os
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "get_env", "torch_dtype", "dtype_name"]
+__all__ = ["MXNetError", "get_env", "torch_dtype", "dtype_name",
+           "numpy_dtype"]
 
 
 class MXNetError(RuntimeError):
@@ -67,3 +68,28 @@ def torch_dtype(dtype):
 def dtype_name(dtype):
     """The framework's name of a dtype ("bfloat16", "float32", ...)."""
     return str(torch_dtype(dtype)).replace("torch.", "")
+
+
+def _bfloat16():
+    try:
+        import ml_dtypes
+    except ImportError:
+        return torch.bfloat16
+    return _np.dtype(ml_dtypes.bfloat16)
+
+
+_NUMPY_DTYPES = {}
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype, as the JAX package's
+    `NDArray.dtype` gives it, so it compares equal to `numpy.float32`
+    and to "float32".  bfloat16 is `ml_dtypes`' where that imports;
+    without it, numpy has no bfloat16 and `torch.bfloat16` itself is
+    returned (`torch_dtype` and `dtype_name` take either)."""
+    out = _NUMPY_DTYPES.get(dtype)
+    if out is None:
+        name = str(dtype).replace("torch.", "")
+        out = _NUMPY_DTYPES[dtype] = _bfloat16() if name == "bfloat16" \
+            else _np.dtype(name)
+    return out

@@ -19,10 +19,11 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["params_from_jax", "optimizer_states_from_jax"]
+__all__ = ["params_from_jax", "optimizer_states_from_jax", "host_tensor"]
 
 
-def _tensor(arr):
+def host_tensor(arr):
+    """A CPU tensor of a host array (an `ml_dtypes` bfloat16 one too)."""
     arr = _np.array(arr)                    # a writable host copy
     if arr.dtype.name == "bfloat16":        # ml_dtypes: carry the bits
         return torch.from_numpy(arr.view(_np.int16)).view(torch.bfloat16)
@@ -43,7 +44,7 @@ def params_from_jax(block, arrays, ctx=None):
                 s != 0 and s != n for s, n in zip(p.shape, shape))):
             raise MXNetError(f"params_from_jax: {name} has shape {shape}, "
                              f"the block expects {p.shape}")
-    block.load_dict({k: _tensor(v) for k, v in arrays.items()}, ctx=ctx,
+    block.load_dict({k: host_tensor(v) for k, v in arrays.items()}, ctx=ctx,
                     source="params_from_jax")
 
 
@@ -63,9 +64,10 @@ def optimizer_states_from_jax(trainer, states, num_update):
       entry per trained parameter in `collect_params` order (an array for
       SGD, (mean, var) for Adam), and its `num_update`.
     - `gluon.Trainer`: the JAX Trainer's per-key `_states` (a list of
-      None, an array or a tuple per parameter), or its fused state
-      (SGD: a list of arrays; Adam: the tuple (means, variances) of two
-      lists), and its optimizer's `num_update`.
+      None, an array or a tuple per parameter, for any of the ten
+      optimizers: DCASGD's is (momentum or None, previous weight)), or
+      its fused state (SGD: a list of arrays; Adam: the tuple (means,
+      variances) of two lists), and its optimizer's `num_update`.
     """
     from .gluon.trainer import Trainer
     from .parallel.trainer import ParallelTrainer
@@ -76,7 +78,8 @@ def optimizer_states_from_jax(trainer, states, num_update):
         if isinstance(states, tuple) and len(states) == 2 and all(
                 isinstance(s, list) for s in states):
             states = list(zip(*states))          # fused Adam (m, v) lists
-        if getattr(trainer.optimizer, "momentum", None) == 0.0:
+        if type(trainer.optimizer).__name__ == "SGD" and \
+                trainer.optimizer.momentum == 0.0:
             states = [None] * len(states)        # fused SGD keeps zeros
         trainer.set_states(list(states), num_update)
     else:

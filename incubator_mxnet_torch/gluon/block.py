@@ -16,6 +16,7 @@ work.  It is not `torch.compile`.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 
@@ -27,7 +28,7 @@ from ..ndarray import NDArray
 from .. import ndarray as F
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "record_rows"]
 
 _naming = threading.local()
 
@@ -232,3 +233,23 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError
+
+
+@contextlib.contextmanager
+def record_rows(params, rows_out):
+    """Within the scope, the row lookups of every `grad_stype ==
+    "row_sparse"` parameter of `params` (an `Embedding(sparse_grad=True)`
+    weight) record their ids in `rows_out` under the parameter's index
+    in `params`, as flat tensors (a table looked up twice gets both).
+    The read counters `_trace_reads` and `_rows_lookups` of every
+    parameter start from 0 and keep their counts after the scope, for
+    the caller to compare."""
+    for i, p in enumerate(params):
+        p._trace_reads = p._rows_lookups = 0
+        if p.grad_stype == "row_sparse":
+            p._rows_sink = (rows_out, i)
+    try:
+        yield rows_out
+    finally:
+        for p in params:
+            p._rows_sink = None

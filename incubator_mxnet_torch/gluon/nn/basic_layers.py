@@ -207,19 +207,36 @@ class InstanceNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Row lookup; the sparse-gradient form arrives with training."""
+    """Row lookup.  With `sparse_grad` the weight's gradient is
+    row-sparse (`grad_stype="row_sparse"`): a recorded backward gives
+    it only the looked-up rows.  While `ParallelTrainer` records rows
+    (the weight's `_rows_sink` is set) the lookup is the dense op and
+    its ids are recorded, for the trainer's lazy row update."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, **kwargs):
+                 weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight=None):
+        sink = self.weight._rows_sink
+        if sink is not None:
+            rows_out, idx = sink
+            rows = x.data.reshape(-1)
+            if idx in rows_out:      # a shared table looked up twice
+                rows = torch.cat([rows_out[idx], rows])
+            rows_out[idx] = rows
+            self.weight._rows_lookups += 1
+        elif self._sparse_grad:
+            from ...ndarray.sparse import sparse_embedding
+            return sparse_embedding(x, weight)
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
 

@@ -11,7 +11,16 @@ Every Block that holds the Parameter as an attribute also registers that
 Its gradient is the `nn.Parameter`'s `.grad`, a zero buffer until the
 first backward.  `grad_req` "write" makes each `autograd.backward`
 overwrite it, "add" accumulates across backward calls, "null" keeps no
-gradient (`requires_grad` off).
+gradient (`requires_grad` off).  With `grad_stype="row_sparse"` a
+"write" backward through `Embedding(sparse_grad=True)` leaves a sparse
+gradient, which `grad()` gives as a `RowSparseNDArray`; the data itself
+is always dense, whatever `stype` says, as in the JAX package.
+
+`data()` counts its reads in `_trace_reads`, and a rows-recording
+`Embedding` its lookups in `_rows_lookups`, while `ParallelTrainer`
+records the rows a step looks up (`_rows_sink`): more reads than
+lookups means another op read the table too (a tied decoder), and the
+trainer takes the dense update.
 """
 from __future__ import annotations
 
@@ -39,13 +48,7 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         """`lr_mult` and `wd_mult` scale the learning rate and weight
-        decay that `gluon.Trainer` applies to this parameter.  Only the
-        "default" (dense) storage is ported: row-sparse `stype` or
-        `grad_stype` raises."""
-        for arg, st in (("stype", stype), ("grad_stype", grad_stype)):
-            if st != "default":
-                raise MXNetError(f"{name}: {arg} {st!r} is not ported "
-                                 f"yet; only 'default' storage is")
+        decay that `gluon.Trainer` applies to this parameter."""
         self.name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype_name(dtype)
@@ -61,6 +64,9 @@ class Parameter:
         self._data = None           # nn.Parameter once initialized
         self._deferred_init = None  # (init, device, default_init)
         self._owners = []           # (weakref to Block, attribute name)
+        self._rows_sink = None      # (rows dict, index) while a step
+        self._trace_reads = 0       # records the rows it looks up
+        self._rows_lookups = 0
 
     @property
     def shape(self):
@@ -105,6 +111,7 @@ class Parameter:
             t.detach(), requires_grad=self.grad_req != "null"
             and t.is_floating_point())
         self._data._grad_req = self.grad_req
+        self._data._grad_stype = self.grad_stype
         for ref, attr in self._owners:
             block = ref()
             if block is not None:
@@ -153,25 +160,34 @@ class Parameter:
     # ------------------------------------------------------------------
     def data(self, ctx=None):
         self._check_initialized()
+        self._trace_reads += 1
         return NDArray(self._data)
 
     def grad(self, ctx=None):
         """The gradient as an NDArray over the `.grad` buffer (zeros
-        before the first backward)."""
+        before the first backward), or a `RowSparseNDArray` of a sparse
+        one."""
         self._check_initialized()
         if not self._data.requires_grad:
             raise MXNetError(
                 f"cannot get gradient of {self.name}: grad_req is 'null'")
-        if self._data.grad is None:
-            self._data.grad = torch.zeros_like(self._data)
-        return NDArray(self._data.grad)
+        g = self._data.grad
+        if g is None:
+            g = self._data.grad = torch.zeros_like(self._data)
+        if g.is_sparse:
+            from ..ndarray.sparse import from_torch_sparse
+            return from_torch_sparse(g)
+        return NDArray(g)
 
     def list_grad(self):
         return [self.grad()]
 
     def zero_grad(self):
         if self._data is not None and self._data.grad is not None:
-            self._data.grad.zero_()
+            if self._data.grad.is_sparse:
+                self._data.grad = None
+            else:
+                self._data.grad.zero_()
 
     def set_data(self, data, ctx=None):
         """Replace the values.  An initialized parameter keeps its device

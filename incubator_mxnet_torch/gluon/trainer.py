@@ -10,7 +10,9 @@ SGD and Adam without a learning-rate schedule take the fused update:
 one multi-tensor pass (`torch._foreach_*`, `ops/optim.py`) over every
 parameter, which gives the same bits as the per-key `Updater` path the
 other cases take (`MXNET_FUSED_TRAINER=0` forces the per-key path).
-Weights are updated in place.
+A row-sparse gradient anywhere (`Embedding(sparse_grad=True)`) sends
+the step down the per-key path, where SGD and Adam update only its
+rows.  Weights are updated in place.
 
 The kvstore is "device", "local" or None: one device, nothing to
 reduce.  The distributed and NCCL kvstores, gradient compression and
@@ -24,7 +26,9 @@ import torch
 
 from ..base import MXNetError, get_env
 from .. import optimizer as opt
-from ..ndarray import array
+from ..convert import host_tensor
+from ..ndarray import NDArray
+from ..optimizer.optimizer import _state_to_numpy
 from ..ops.optim import sgd_multi, adam_multi
 from .parameter import ParameterDict
 
@@ -93,7 +97,9 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         kind = type(self._optimizer).__name__.lower()
         self._ensure_states()
-        if (self._allow_fused and kind in ("sgd", "adam")
+        any_sparse = any(p._data.grad is not None and p._data.grad.is_sparse
+                         for p in self._params)
+        if (self._allow_fused and not any_sparse and kind in ("sgd", "adam")
                 and self._optimizer.lr_scheduler is None):
             self._fused_update(kind)
             return
@@ -136,9 +142,7 @@ class Trainer:
         payload = {
             "num_update": o.num_update,
             "index_update_count": dict(o._index_update_count),
-            "states": [None if s is None else
-                       tuple(x.asnumpy() for x in s) if isinstance(s, tuple)
-                       else s.asnumpy() for s in self._states]}
+            "states": [_state_to_numpy(s) for s in self._states]}
         with open(fname, "wb") as f:
             pickle.dump(payload, f)
 
@@ -159,8 +163,9 @@ class Trainer:
 
     def set_states(self, states, num_update, index_update_count=None):
         """Install per-parameter optimizer states (numpy: None, an array,
-        or a tuple of arrays, in parameter order) and the step count,
-        each state on its parameter's device."""
+        or a tuple of arrays and None, in parameter order) and the step
+        count, each state on its parameter's device, in float32 (DCASGD's
+        in the parameter's dtype)."""
         if len(states) != len(self._params):
             raise MXNetError(f"{len(states)} optimizer states for "
                              f"{len(self._params)} parameters")
@@ -169,15 +174,16 @@ class Trainer:
         o._index_update_count = dict(index_update_count) \
             if index_update_count is not None else \
             {i: int(num_update) for i in range(len(self._params))}
-        out = []
-        for p, s in zip(self._params, states):
-            ctx = p.data().context
-            if s is None:
-                out.append(None)
-            elif isinstance(s, tuple):
-                out.append(tuple(array(x, ctx=ctx, dtype="float32")
-                                 for x in s))
-            else:
-                out.append(array(s, ctx=ctx, dtype="float32"))
+        own_dtype = isinstance(o, opt.DCASGD)
+
+        def put(x, p):
+            if x is None:
+                return None
+            if isinstance(x, tuple):
+                return tuple(put(v, p) for v in x)
+            return NDArray(host_tensor(x).to(
+                device=p._data.device,
+                dtype=p._data.dtype if own_dtype else torch.float32))
+        out = [put(s, p) for p, s in zip(self._params, states)]
         self._states = out
         self._states_created = [True] * len(out)

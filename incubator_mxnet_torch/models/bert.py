@@ -110,14 +110,20 @@ class BERTModel(HybridBlock):
 
     def __init__(self, vocab_size, units=768, hidden_size=3072, num_layers=12,
                  num_heads=12, max_length=512, token_types=2, dropout=0.1,
-                 use_pooler=True, use_decoder=False, **kwargs):
+                 use_pooler=True, use_decoder=False, sparse_embed=False,
+                 **kwargs):
         super().__init__(**kwargs)
         self._use_pooler = use_pooler
         self._use_decoder = use_decoder
         self._units = units
         with self.name_scope():
+            # sparse_embed gives the word embedding a row-sparse gradient:
+            # ParallelTrainer then updates only the rows a step looks up
+            # (their weights and moments; the others stay as they are),
+            # and gluon.Trainer gets a RowSparseNDArray gradient
             self.word_embed = nn.Embedding(vocab_size, units,
-                                           prefix="word_embedding_")
+                                           prefix="word_embedding_",
+                                           sparse_grad=sparse_embed)
             self.token_type_embed = nn.Embedding(token_types, units,
                                                  prefix="type_embedding_")
             self.position_embed = self.params.get(
@@ -187,14 +193,15 @@ _BERT_CONFIGS = {
 
 def get_bert_model(model_name="bert_12_768_12", vocab_size=30522,
                    max_length=512, dropout=0.1, use_pooler=True,
-                   use_decoder=False, **kwargs):
+                   use_decoder=False, sparse_embed=False, **kwargs):
     if model_name not in _BERT_CONFIGS:
         raise MXNetError(f"unknown bert config {model_name!r}; "
                          f"have {sorted(_BERT_CONFIGS)}")
     L, U, H, A = _BERT_CONFIGS[model_name]
     return BERTModel(vocab_size, units=U, hidden_size=H, num_layers=L,
                      num_heads=A, max_length=max_length, dropout=dropout,
-                     use_pooler=use_pooler, use_decoder=use_decoder, **kwargs)
+                     use_pooler=use_pooler, use_decoder=use_decoder,
+                     sparse_embed=sparse_embed, **kwargs)
 
 
 def bert_12_768_12(**kw):
@@ -210,10 +217,11 @@ def bert_mini(**kw):
 
 
 def bert_classifier(model_name="bert_12_768_12", num_classes=2, dropout=0.1,
-                    vocab_size=30522, max_length=512):
+                    vocab_size=30522, max_length=512, sparse_embed=False):
     """`BERTClassifier(get_bert_model(model_name, ...), num_classes)`: the
     fine-tune surface as one constructor, so a serving artifact can name
     it (`models.get_model("bert_classifier", ...)`)."""
     bert = get_bert_model(model_name, vocab_size=vocab_size,
-                          max_length=max_length, dropout=dropout)
+                          max_length=max_length, dropout=dropout,
+                          sparse_embed=sparse_embed)
     return BERTClassifier(bert, num_classes=num_classes, dropout=dropout)

@@ -5,6 +5,7 @@ import sys as _sys
 from .ndarray import (NDArray, array, zeros, zeros_like, ones_like,
                       save, load, load_tensors, to_numpy)
 from .. import ops as _ops
+from . import sparse
 from ..ops import registry as _registry
 
 _this = _sys.modules[__name__]

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from ..base import MXNetError, torch_dtype, dtype_name
+from ..base import MXNetError, torch_dtype, dtype_name, numpy_dtype
 from ..context import Context, as_device
 from ..autograd import grad_scope, is_recording
 
@@ -63,11 +63,24 @@ class NDArray:
 
     @property
     def dtype(self):
-        return self._data.dtype
+        """The numpy dtype, as in the JAX package (`base.numpy_dtype`);
+        the tensor's own is `.data.dtype`."""
+        return numpy_dtype(self._data.dtype)
 
     @property
     def context(self):
         return Context.from_device(self._data.device)
+
+    @property
+    def stype(self):
+        """Storage type: "default" (dense); `sparse.RowSparseNDArray`
+        is "row_sparse"."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage `stype` ("default" or "row_sparse")."""
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def asnumpy(self):
         return to_numpy(self._data)

@@ -156,17 +156,25 @@ def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
     return out if keepdims else out.squeeze(axis)
 
 
+def lookup_ids(data, rows):
+    """(ids as int64, mask of the valid ones) under `jnp.take`'s rules,
+    as the JAX `Embedding` op has them: ids are truncated to integers
+    (its int32 cast), an id in [-rows, -1] wraps to row rows + id, and
+    any other id outside [0, rows) is no row."""
+    ids = data.to(torch.int64)
+    ids = torch.where(ids < 0, ids + rows, ids)
+    return ids, (ids >= 0) & (ids < rows)
+
+
 @register("Embedding")
 def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
-    """Row lookup with `jnp.take`'s rules, as the JAX op has them: ids
-    are truncated to integers (its int32 cast), an id in [-rows, -1]
-    wraps to row rows + id, and any other id outside [0, rows) gives a
-    row of NaN, where an unchecked lookup would fault the device."""
-    ids = data.to(torch.int64)
+    """Row lookup under `lookup_ids`' rules: an id that is no row gives
+    a row of NaN, where an unchecked lookup would fault the device.
+    `sparse_grad` is taken and, as in the JAX op, changes nothing here
+    (the layer gives the row-sparse gradient)."""
     rows = weight.shape[0]
-    ids = torch.where(ids < 0, ids + rows, ids)
-    valid = (ids >= 0) & (ids < rows)
+    ids, valid = lookup_ids(data, rows)
     out = torch.nn.functional.embedding(ids.clamp(0, rows - 1), weight)
     return out.masked_fill(~valid.unsqueeze(-1), float("nan"))
 

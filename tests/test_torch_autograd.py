@@ -1,5 +1,6 @@
-"""The port's autograd, gradient buffers and train-mode Dropout, against
-the JAX package where the two can be compared.
+"""The port's autograd, gradient buffers, user `autograd.Function`s,
+`mark_variables` and train-mode Dropout, against the JAX package where
+the two can be compared.
 
 Gradients: the same numpy inputs through both packages' `record()` /
 `backward()` / `grad()`, float32, 1e-6 absolute (the same products and
@@ -192,6 +193,107 @@ def test_trainer_built_before_cast_updates_the_cast_weights():
         loss.backward()
         tr.step(2)
     w = net.classifier[1].weight
-    assert w.data().dtype == torch.bfloat16 and w.grad().dtype == \
-        torch.bfloat16
+    assert w.data().dtype == "bfloat16" and w.grad().dtype == "bfloat16"
     assert not np.array_equal(w.data().asnumpy(), before)
+
+
+# ------------------------------------- autograd.Function, mark_variables
+def _sigmoid_function(pkg):
+    """MXNet's documented example of a user `autograd.Function`."""
+    class Sigmoid(pkg.autograd.Function):
+        def forward(self, x):
+            y = 1 / (1 + pkg.nd.exp(-x))
+            self.save_for_backward(y)
+            return y
+
+        def backward(self, dy):
+            (y,) = self.saved_tensors
+            return dy * y * (1 - y)
+    return Sigmoid
+
+
+def _split_scale_function(pkg):
+    """Two inputs and two outputs, one output unused downstream."""
+    class SplitScale(pkg.autograd.Function):
+        def forward(self, a, b):
+            self.save_for_backward(a, b)
+            return a * b, a + b * 2
+
+        def backward(self, d_prod, d_sum):
+            a, b = self.saved_tensors
+            return d_prod * b + d_sum, d_prod * a + d_sum * 2
+    return SplitScale
+
+
+def _run_function(pkg, which, arrays, use_second):
+    ctx = pkg.cpu()
+    xs = [pkg.nd.array(a, ctx=ctx) for a in arrays]
+    for x in xs:
+        x.attach_grad()
+    with pkg.autograd.record():
+        out = which(pkg)()(*xs)
+        if isinstance(out, tuple):
+            head = out[0] * 3 + (out[1] if use_second else 0)
+        else:
+            head = out * out
+    head.backward()
+    vals = out if isinstance(out, tuple) else (out,)
+    return [v.asnumpy() for v in vals], [x.grad.asnumpy() for x in xs]
+
+
+@pytest.mark.parametrize("case", ["sigmoid", "two_outputs",
+                                  "one_output_unused"])
+def test_user_function_matches_jax(case):
+    """A user `Function` inside a recorded graph: its outputs and the
+    gradients its backward gives the inputs."""
+    which = _sigmoid_function if case == "sigmoid" else _split_scale_function
+    arrays = [_x(5)] if case == "sigmoid" else [_x(6), _x(7)]
+    use_second = case == "two_outputs"
+    ref = _run_function(mxj, which, arrays, use_second)
+    got = _run_function(mx, which, arrays, use_second)
+    for a, b in zip(got[0] + got[1], ref[0] + ref[1]):
+        np.testing.assert_allclose(a, b, **TOL)
+
+
+def test_user_function_outside_record_and_bad_backward():
+    sig = _sigmoid_function(mx)
+    with mx.cpu():
+        x = nd.array(_x(8))
+    y = sig()(x)
+    np.testing.assert_allclose(y.asnumpy(), 1 / (1 + np.exp(-_x(8))),
+                               rtol=1e-6)
+    assert y.data.grad_fn is None
+
+    class TooMany(autograd.Function):
+        def forward(self, x):
+            return x * 2
+
+        def backward(self, dy):
+            return dy, dy
+    x.attach_grad()
+    with autograd.record():
+        y = TooMany()(x)
+    with pytest.raises(mx.MXNetError, match="returned 2 grads for 1"):
+        y.backward()
+
+
+@pytest.mark.parametrize("req", ["write", "add"])
+def test_mark_variables_matches_jax(req):
+    """`mark_variables` makes the given arrays the gradient buffers: two
+    backward calls write or add into them, as in the JAX package."""
+    a = _x(9)
+    got = {}
+    for pkg in (mxj, mx):
+        ctx = pkg.cpu()
+        x = pkg.nd.array(a, ctx=ctx)
+        g = pkg.nd.array(np.zeros_like(a), ctx=ctx)
+        pkg.autograd.mark_variables([x], [g], grad_reqs=req)
+        for k in (1, 2):
+            with pkg.autograd.record():
+                y = x * x * k
+            y.backward()
+        got[pkg] = (g.asnumpy(), x.grad.asnumpy())
+    np.testing.assert_allclose(got[mx][0], got[mxj][0], **TOL)
+    np.testing.assert_allclose(got[mx][1], got[mxj][1], **TOL)
+    np.testing.assert_allclose(got[mx][0], a * (4 if req == "write" else 6),
+                               rtol=1e-6)

@@ -7,8 +7,9 @@ sharing memory with the source; then `nd.array`'s shapes and dtypes,
 `pick` out of range, `mean` of integer data, reductions over
 `axis=()`, `backward()` from a head no gradient-taking input reaches,
 `Parameter`'s `lr_mult`/`wd_mult`/`stype`/`grad_stype`, NDArray's
-`==`, `!=`, `bool()` and in-place operators, and 3-D average pooling of
-bfloat16 data on the CPU.
+`==`, `!=`, `bool()` and in-place operators, 3-D average pooling of
+bfloat16 data on the CPU, and `NDArray.dtype`, a numpy dtype as in the
+JAX package.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances, with their reasons:
@@ -89,8 +90,8 @@ def test_jax_file_loads_in_port(tmp_path):
         got = nd.load(path)
     assert list(got) == list(j)
     assert all(isinstance(v, nd.NDArray) for v in got.values())
-    assert got["b16"].dtype == torch.bfloat16
-    assert got["ids"].dtype == torch.int32
+    assert got["b16"].dtype == j["b16"].dtype == "bfloat16"
+    assert got["ids"].dtype == j["ids"].dtype == np.int32
     for k in j:
         np.testing.assert_array_equal(_numpy(got[k]), _numpy(j[k]), err_msg=k)
     mxj.nd.save(path, [j["w"]])
@@ -476,14 +477,21 @@ def test_parallel_trainer_keeps_jax_lr_mult_rule():
 
 @pytest.mark.parametrize("arg", ["stype", "grad_stype"])
 def test_parameter_row_sparse_storage_raises(arg):
-    """Both packages take `stype`/`grad_stype`; the port has only the
-    dense storage, so anything else raises instead of running dense."""
-    assert getattr(mxj.gluon.Parameter("w", shape=(2,), **{arg: "row_sparse"}),
-                   arg) == "row_sparse"
-    assert getattr(gluon.Parameter("w", shape=(2,), **{arg: "default"}),
-                   arg) == "default"
-    with pytest.raises(mx.MXNetError, match="not ported"):
-        gluon.Parameter("w", shape=(2,), **{arg: "row_sparse"})
+    """Both packages take `stype`/`grad_stype` "row_sparse" and keep the
+    data dense.  A row-sparse gradient then raises in an optimizer with
+    no lazy row update, in the port by name (the JAX package fails there
+    with an AttributeError)."""
+    for pkg in (mxj, mx):
+        p = pkg.gluon.Parameter("w", shape=(2,), **{arg: "row_sparse"})
+        assert getattr(p, arg) == "row_sparse"
+    emb = gluon.nn.Embedding(6, 2, sparse_grad=True)
+    emb.initialize(ctx=mx.cpu())
+    with autograd.record():
+        out = emb(nd.array([1, 4], ctx=mx.cpu()))
+    out.backward()
+    assert emb.weight.grad().stype == "row_sparse"
+    with pytest.raises(mx.MXNetError, match="RMSProp takes no row_sparse"):
+        gluon.Trainer(emb.collect_params(), "rmsprop").step(1)
 
 
 # ------------------------------ 13. ==, !=, bool() and in-place operators
@@ -554,3 +562,27 @@ def test_avg_pooling_3d_bf16_matches_jax(attrs):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=2 ** -8,
                                atol=2 ** -8 * np.abs(ref).max())
+
+
+# ------------------------------------------ 15. NDArray.dtype is numpy's
+@pytest.mark.parametrize("dtype", ["float16", "float32", "float64", "int8",
+                                   "int32", "int64", "uint8", "bool",
+                                   "bfloat16"])
+def test_nd_array_dtype_matches_jax(dtype):
+    """A numpy dtype that compares equal to the numpy type and to its
+    name, as the JAX package's; bfloat16 is `ml_dtypes`'.  The JAX
+    package runs without 64-bit types (float64 and int64 become float32
+    and int32 there), so those two are held to numpy alone."""
+    src = np.arange(6).reshape(2, 3) % 2
+    got = nd.array(src, ctx=mx.cpu(), dtype=dtype)
+    assert isinstance(got.dtype, np.dtype)
+    assert got.dtype == dtype and got.dtype.name == dtype
+    assert got.astype(got.dtype).dtype == got.dtype
+    if dtype in ("float64", "int64"):
+        assert got.dtype == getattr(np, dtype)
+        return
+    ref = mxj.nd.array(src, ctx=mxj.cpu(), dtype=dtype)
+    assert got.dtype == ref.dtype
+    if dtype != "bfloat16":
+        assert got.dtype == getattr(np, dtype) == ref.dtype
+        assert (got.dtype == np.float32) == (ref.dtype == np.float32)
