@@ -3559,6 +3559,387 @@ def phase_checkpoint(card, tr, batch):
 
 
 
+# ---------------------------------------------------------------------
+# [interleaved-attn]: BERT-base self-attention through GluonNLP's ops
+# ---------------------------------------------------------------------
+IA_UNITS = HEADS * D            # 768
+# bf16 tolerance of the interleaved route against the kernel route, as a
+# share of the reference's largest value: the interleaved route rounds
+# the scores and the probabilities to bf16 before the value product,
+# the kernel keeps them in float32 (2^-8 relative each, over 128 keys)
+IA_RTOL = 2e-2
+IA_MIN_COS = 0.999
+
+
+def _ia_inputs(dev):
+    """A seeded hidden state (T, N, 768), per layer a seeded fused
+    projection (2304, 768) and bias (Normal(0.02), bf16), valid lengths
+    in [1, T] with 1 and T among them, and a cotangent per layer."""
+    g = torch.Generator().manual_seed(0)
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(shape, generator=g) * std).to(torch.bfloat16) \
+            .to(dev)
+    h = normal(T, TRAIN_BATCH, IA_UNITS)
+    ws = [normal(3 * IA_UNITS, IA_UNITS, std=0.02) for _ in range(LAYERS)]
+    bs = [normal(3 * IA_UNITS, std=0.02) for _ in range(LAYERS)]
+    valid = torch.randint(1, T + 1, (TRAIN_BATCH,), generator=g)
+    valid[0], valid[1] = T, 1
+    cots = [normal(T, TRAIN_BATCH, IA_UNITS) for _ in range(LAYERS)]
+    return h, ws, bs, valid.to(torch.int32).to(dev), cots
+
+
+def _ia_run(route, inputs, train):
+    """The 12 layers' attention from one hidden state on `route`
+    ("interleaved": qk, softmax with lengths, valatt; "mha":
+    `multi_head_attention` on q, k, v cut from the same projection),
+    outputs (T, N, 768) each; with `train`, inside `record()` and a
+    backward of the cotangents: (outputs, [dh, dW_0.., db_0..])."""
+    from incubator_mxnet_torch import autograd, nd
+    from incubator_mxnet_torch.ndarray import NDArray
+    h, ws, bs, valid, cots = inputs
+    h, ws, bs = NDArray(h), [NDArray(w) for w in ws], [NDArray(b) for b in bs]
+    leaves = [h] + ws + bs
+    if train:
+        for x in leaves:
+            x.attach_grad()
+    rows = NDArray(valid.repeat_interleave(HEADS).unsqueeze(1).expand(
+        -1, T))
+    kv = NDArray(valid)
+    N, E = TRAIN_BATCH, IA_UNITS
+    outs = []
+    with autograd.record() if train else contextlib.nullcontext():
+        for w, b in zip(ws, bs):
+            qkv = nd.FullyConnected(h, w, b, num_hidden=3 * E, flatten=False)
+            if route == "interleaved":
+                att = nd.contrib.interleaved_matmul_selfatt_qk(qkv,
+                                                              heads=HEADS)
+                att = nd.softmax(att, rows, axis=-1, use_length=True)
+                o = nd.contrib.interleaved_matmul_selfatt_valatt(
+                    qkv, att, heads=HEADS)
+            else:
+                x = qkv.reshape((T, N, HEADS, 3, D))
+                q, k, v = (x[:, :, :, i].transpose((1, 0, 2, 3))
+                           .reshape((N, T, E)) for i in range(3))
+                o = nd.multi_head_attention(q, k, v, kv_length=kv,
+                                            num_heads=HEADS) \
+                    .transpose((1, 0, 2))
+            outs.append(o)
+    if not train:
+        return [o.data for o in outs], None
+    autograd.backward(outs, [NDArray(c) for c in cots])
+    return [o.data.detach() for o in outs], [x.grad.data for x in leaves]
+
+
+def _rel_cos(got, ref):
+    """(largest error as a share of ref's largest value, cosine)."""
+    got, ref = got.double(), ref.double()
+    rel = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+    return rel, _cos(got, ref)
+
+
+def phase_interleaved_attn(card):
+    """BERT-base self-attention at 60 x 128, bf16, through the four-op
+    interleaved route against `multi_head_attention` (rows 1 and 1b):
+    outputs and gradients, each route's times.  Returns the kernel
+    counts of the checked passes."""
+    inputs = _ia_inputs(_card())
+    _reset_all_counts()
+    ref_fwd, _ = _ia_run("mha", inputs, False)
+    fwd_counts = dict(_all_counts())
+    ref_out, ref_grads = _ia_run("mha", inputs, True)
+    counts = dict(_all_counts())
+    torch.cuda.synchronize()
+    got_fwd, _ = _ia_run("interleaved", inputs, False)
+    got_out, got_grads = _ia_run("interleaved", inputs, True)
+    after = _all_counts()
+    train_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+    names = [f"layer {i} output" for i in range(LAYERS)] + \
+        [f"layer {i} output (recorded)" for i in range(LAYERS)] + \
+        ["dh"] + [f"dW layer {i}" for i in range(LAYERS)] + \
+        [f"db layer {i}" for i in range(LAYERS)]
+    errs = [_rel_cos(g, r) for g, r in zip(got_fwd + got_out + got_grads,
+                                           ref_fwd + ref_out + ref_grads)]
+    worst_rel = max(e[0] for e in errs)
+    worst_cos = min(e[1] for e in errs)
+    bad = [f"{n}: {e[0]:.2e} cos {e[1]:.6f}" for n, e in zip(names, errs)
+           if e[0] > IA_RTOL or e[1] < IA_MIN_COS]
+    log(f"[interleaved-attn] bert_12_768_12 self-attention, bf16, "
+        f"(T, N, 3E) = ({T}, {TRAIN_BATCH}, {3 * IA_UNITS}), {LAYERS} "
+        f"layers, valid lengths {int(inputs[3].min())}..{int(inputs[3].max())}"
+        f": interleaved route against multi_head_attention, largest error "
+        f"{worst_rel:.2e} of the largest value (bound {IA_RTOL:g}), least "
+        f"cosine {worst_cos:.6f} (bound {IA_MIN_COS}) over {LAYERS} outputs,"
+        f" {LAYERS} recorded outputs, dh and each layer's dW, db")
+    log(f"[interleaved-attn] worst: " + "; ".join(
+        f"{n} {e[0]:.2e}" for n, e in sorted(zip(names, errs),
+                                               key=lambda t: -t[1][0])[:3]))
+    if bad:
+        raise AssertionError("[interleaved-attn] the routes disagree: "
+                             + "; ".join(bad))
+    want_fwd = {"flash_short_fwd": LAYERS}
+    want_train = {"flash_short_fwd_train": LAYERS}
+    for label, got, want in (("inference", fwd_counts, want_fwd),
+                             ("training", train_counts, want_train)):
+        extra = {k: v for k, v in got.items() if v != want.get(k, 0)}
+        log(f"[interleaved-attn] multi_head_attention {label} pass: "
+            f"launches {({k: v for k, v in got.items() if v})}")
+        if extra:
+            raise AssertionError(f"[interleaved-attn] {label} launches "
+                                 f"{extra}, expected {want}")
+    if any(after[k] != counts[k] for k in after):
+        raise AssertionError("[interleaved-attn] the interleaved route "
+                             "launched a hand kernel")
+    _reset_all_counts()
+    for route in ("mha", "interleaved"):
+        fwd_ms = time_ms(lambda: _ia_run(route, inputs, False), iters=5,
+                         warmup=1)
+        fwd_dev = device_ms(lambda: _ia_run(route, inputs, False), iters=3)
+        step_ms = time_ms(lambda: _ia_run(route, inputs, True), iters=3,
+                          warmup=1)
+        step_dev = device_ms(lambda: _ia_run(route, inputs, True), iters=2)
+        log(f"[interleaved-attn] {route:11s} route, 12 layers with their "
+            f"projections: forward {fwd_ms:.3f} ms (device {fwd_dev:.3f} "
+            f"ms), forward + backward {step_ms:.3f} ms (device "
+            f"{step_dev:.3f} ms) ({card})")
+        log_profile(lambda: _ia_run(route, inputs, True),
+                    f"{route} route, one forward + backward",
+                    tag="[interleaved-attn]", top=6)
+    _reset_all_counts()
+    del inputs
+    torch.cuda.empty_cache()
+    return fwd_counts["flash_short_fwd"], \
+        train_counts["flash_short_fwd_train"]
+
+
+# ---------------------------------------------------------------------
+# [ops-check]: the core op registry, card against CPU
+# ---------------------------------------------------------------------
+# float32 card against CPU, as a share of the reference's largest value:
+# CUDA's and the CPU's libm differ by a few ulps on the transcendental
+# ops and reductions sum in another order (TF32 off)
+OPS_RTOL = 1e-5
+RANDOM_DRAWS = 1_000_000
+RANDOM_SIGMAS = 5.0
+
+
+def _ops_run(name, arrays, attrs, dev, dtype=None, grad=False, seed=3):
+    """Forward of op `name` on `dev` (float32 inputs cast to `dtype`),
+    and with `grad` the gradients of its float inputs for seeded
+    cotangents (None where no output takes one)."""
+    from incubator_mxnet_torch import autograd
+    from incubator_mxnet_torch.ndarray import NDArray
+    from incubator_mxnet_torch.ops.registry import apply_op
+    xs = []
+    for a in arrays:
+        t = torch.from_numpy(a).to(dev)
+        if dtype is not None and t.dtype == torch.float32:
+            t = t.to(dtype)
+        xs.append(NDArray(t))
+    floats = [x for x in xs if x.data.is_floating_point()]
+    if grad:
+        for x in floats:
+            x.attach_grad()
+    with autograd.record(train_mode=False) if grad \
+            else contextlib.nullcontext():
+        out = apply_op(name, *xs, **attrs)
+    outs = list(out) if isinstance(out, tuple) else [out]
+    if not grad:
+        return [o.data for o in outs], None
+    heads = [o for o in outs if o.data.requires_grad]
+    if not heads:
+        return [o.data for o in outs], None
+    g = torch.Generator().manual_seed(seed)
+    cots = [NDArray(torch.randn(o.shape, generator=g).to(o.data.dtype)
+                    .to(dev)) for o in heads]
+    autograd.backward(heads, cots)
+    return [o.data.detach() for o in outs], [x.grad.data for x in floats]
+
+
+def _ops_err(got, ref):
+    got, ref = got.cpu(), ref.cpu()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return float("inf")
+    if not ref.is_floating_point():
+        return 0.0 if torch.equal(got, ref) else float("inf")
+    got, ref = got.double(), ref.double()
+    fin = torch.isfinite(ref)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return float("inf")
+    scale = ref[fin].abs().max().item() if fin.any() else 0.0
+    return (got[fin] - ref[fin]).abs().max().item() / max(scale, 1e-30) \
+        if fin.any() else 0.0
+
+
+def _ops_core(card, dev):
+    from incubator_mxnet_torch.tools import op_cases
+    names = op_cases.core_names()
+    worst, bad, n_grad = {}, [], 0
+    for name in names:
+        arrays, attrs = op_cases.build_case(name)
+        try:
+            host, host_g = _ops_run(name, arrays, attrs, "cpu", grad=True)
+            got, got_g = _ops_run(name, arrays, attrs, dev, grad=True)
+            low, _ = _ops_run(name, arrays, attrs, dev, torch.bfloat16)
+        except Exception as e:           # noqa: BLE001 - listed, then raised
+            bad.append(f"{name}: {type(e).__name__}: {e}")
+            continue
+        errs = [_ops_err(g, h) for g, h in zip(got, host)]
+        if host_g is not None:
+            n_grad += 1
+            errs += [_ops_err(g, h) for g, h in zip(got_g or [], host_g)]
+        worst[name] = max(errs)
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in low
+                     if o.is_floating_point())
+        if worst[name] > OPS_RTOL or not finite:
+            bad.append(f"{name}: error {worst[name]:.2e}, bf16 finite "
+                       f"{finite}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[ops-check] {len(names)} core op names (math, reduce, shape, nn, "
+        f"attention) on the card against the CPU in float32 (TF32 off), "
+        f"{n_grad} with gradients: largest error "
+        f"{max(worst.values(), default=0):.2e} of the largest value (bound "
+        f"{OPS_RTOL:g}), worst "
+        + ", ".join(f"{n} {e:.1e}" for n, e in top)
+        + f"; bf16 forwards finite ({card})")
+    return bad
+
+
+def _ops_random(dev):
+    """Each sampler's mean and variance at 10^6 draws within 5 standard
+    errors of the distribution's; the same seed twice gives the same
+    stream."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.context import Context
+    ctx = Context.from_device(dev)
+    n = RANDOM_DRAWS
+    p = np.array([0.1, 0.6, 0.3], np.float32)
+    cases = {
+        "uniform": (lambda: nd.random.uniform(-1.0, 3.0, shape=(n,),
+                                              ctx=ctx), 1.0, 16 / 12),
+        "normal": (lambda: nd.random.normal(0.5, 2.0, shape=(n,), ctx=ctx),
+                   0.5, 4.0),
+        "gamma": (lambda: nd.random.gamma(2.5, 1.5, shape=(n,), ctx=ctx),
+                  3.75, 2.5 * 1.5 ** 2),
+        "exponential": (lambda: nd.random.exponential(4.0, shape=(n,),
+                                                      ctx=ctx),
+                        0.25, 0.0625),
+        "poisson": (lambda: nd.random.poisson(3.0, shape=(n,), ctx=ctx),
+                    3.0, 3.0),
+        "randint": (lambda: nd.random.randint(2, 9, shape=(n,), ctx=ctx),
+                    5.0, 4.0),
+        "bernoulli": (lambda: nd.random.bernoulli(0.3, shape=(n,), ctx=ctx),
+                      0.3, 0.21),
+        "multinomial": (lambda: nd.random.multinomial(
+            nd.array(p, ctx=ctx), shape=(n,)), 1.2, 0.36),
+    }
+    bad, lines = [], []
+    for name, (draw, mean, var) in cases.items():
+        mx.random.seed(17)
+        x = draw().data.double()
+        mx.random.seed(17)
+        again = draw().data.double()
+        m = x.mean().item()
+        c = x - m
+        s2 = (c * c).mean().item()
+        se_m = math.sqrt(var / n)
+        se_v = math.sqrt(max((c ** 4).mean().item() - s2 * s2, 0.0) / n)
+        zm, zv = abs(m - mean) / se_m, abs(s2 - var) / se_v
+        same = torch.equal(x, again)
+        lines.append(f"{name} {zm:.1f}/{zv:.1f}")
+        if zm > RANDOM_SIGMAS or zv > RANDOM_SIGMAS or not same:
+            bad.append(f"random {name}: mean {m:.5f} ({zm:.1f} se), "
+                       f"variance {s2:.5f} ({zv:.1f} se), same stream "
+                       f"{same}")
+    mx.random.seed(5)
+    rows = nd.random.shuffle(nd.arange(1000, ctx=ctx)).data.cpu()
+    if not torch.equal(rows.sort().values, torch.arange(1000.0)) or \
+            torch.equal(rows, torch.arange(1000.0)):
+        bad.append("random shuffle: not a permutation, or the identity")
+    log(f"[ops-check] random ops at {n} draws on the card, |mean - "
+        f"expected| / se and |variance - expected| / se (bound "
+        f"{RANDOM_SIGMAS:g}): " + ", ".join(lines) + "; each seed's "
+        "stream repeats; shuffle is a permutation")
+    return bad
+
+
+def _ops_repairs(dev):
+    """The slice's six NDArray repairs, on the card."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, nd
+    from incubator_mxnet_torch.context import Context
+    ctx = Context.from_device(dev)
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    bad = []
+
+    def check(what, ok):
+        if not ok:
+            bad.append(f"repair: {what}")
+    a = nd.array(x, ctx=ctx)
+    b = a[0]
+    b[:] = 9
+    c = a.reshape((3, 2))
+    a += 1
+    check("a view's write leaves its base, a base's write its view",
+          np.array_equal(a.asnumpy(), x + 1)
+          and np.array_equal(b.asnumpy(), np.full(3, 9))
+          and np.array_equal(c.asnumpy(), x.reshape(3, 2)))
+    try:
+        with autograd.record():
+            a[0] = 1
+        check("setitem inside record() raises", False)
+    except mx.MXNetError:
+        pass
+    i = nd.array(np.arange(3), ctx=ctx)
+    check("nd.array of int64 is int32", i.dtype == np.int32)
+    s = nd.softmax(i)
+    e = np.exp(np.arange(3) - 2.0)
+    check("softmax of int32 is float32", s.dtype == np.float32 and np.allclose(
+        s.asnumpy(), e / e.sum(), rtol=1e-6))
+    m = nd.array(np.arange(12, dtype=np.float32).reshape(3, 4), ctx=ctx)
+    ref = np.arange(12, dtype=np.float32).reshape(3, 4)
+    rows, cols = np.array([2, 0]), np.array([1, 3])
+    got = m[::-1, ::-2].asnumpy()
+    pick = m[nd.array(rows, ctx=ctx), nd.array(cols, ctx=ctx)].asnumpy()
+    m[::-1, 1] = 7
+    ref2 = ref.copy()
+    ref2[::-1, 1] = 7
+    check("indexing: negative steps and index arrays, read and write",
+          np.array_equal(got, ref[::-1, ::-2])
+          and np.array_equal(pick, ref[rows, cols])
+          and np.array_equal(m.asnumpy(), ref2))
+    j = nd.array(np.arange(3, dtype=np.int32), ctx=ctx)
+    k = j + 0.5
+    j += 0.5
+    check("a scalar keeps the dtype", k.dtype == np.int32
+          and j.dtype == np.int32 and np.array_equal(k.asnumpy(), [0, 1, 2])
+          and (j * 2.5).dtype == np.int32)
+    log(f"[ops-check] the six NDArray repairs on the card: "
+        f"{6 - len(bad)} of 6 hold")
+    return bad
+
+
+def phase_ops_check(card):
+    """Every core op name on the card against the port on the CPU, the
+    random ops by distribution and seed, and the six repairs."""
+    dev = _card()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    try:
+        bad = _ops_core(card, dev) + _ops_random(dev) + _ops_repairs(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    log(f"[ops-check] done in {time.time() - t0:.1f} s")
+    if bad:
+        raise AssertionError("[ops-check] " + "; ".join(bad))
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3621,19 +4002,23 @@ def main():
     ckpt_launches = phase_checkpoint(card, sparse_tr, sparse_batch)
     del sparse_tr, sparse_batch
     torch.cuda.empty_cache()
+    ia_fwd, ia_train = phase_interleaved_attn(card)
+    phase_ops_check(card)
     train_launches = train["flash_short_fwd_train"]
+    log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
+        f"[serve], {ia_fwd} [interleaved-attn]")
     log(f"[done] flash_short_fwd_train: {train_launches} launches [train], "
         f"{lamb_launches} [train-lamb], {sparse_launches} [train-sparse], "
-        f"{ckpt_launches} [checkpoint]")
+        f"{ckpt_launches} [checkpoint], {ia_train} [interleaved-attn]")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
              "replaces": f"{fa_py}:290"}
     kernels = [{"name": "flash_short_fwd", **short,
-                "launches": serve["flash_short_fwd"], **rec},
+                "launches": serve["flash_short_fwd"] + ia_fwd, **rec},
                {"name": "flash_short_fwd_train", **short,
                 "launches": train_launches + lamb_launches + sparse_launches
-                + ckpt_launches, **train_rec}]
+                + ckpt_launches + ia_train, **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),
                             ("flash_bwd_dkv", "flash_bwd.cu", 176)):

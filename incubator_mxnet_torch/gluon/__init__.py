@@ -1,6 +1,7 @@
 """Gluon: Blocks, Parameters, layers, recurrent layers and cells, the
 contrib layers, losses, utilities and the Trainer on `torch.nn.Module`."""
-from .parameter import Parameter, ParameterDict, DeferredInitializationError
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError)
 from .block import Block, HybridBlock
 from . import nn
 from . import loss

@@ -172,7 +172,7 @@ class Block(torch.nn.Module):
             ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
 
-    def save_parameters(self, filename):
+    def save_parameters(self, filename, deduplicate=False):
         params = self._collect_params_with_prefix()
         F.save(filename, {k: v._data for k, v in params.items()
                           if v._data is not None})
@@ -195,9 +195,19 @@ class Block(torch.nn.Module):
                     f"extra parameters in {source}: {sorted(extra)}")
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
-                        ignore_extra=False):
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from a file of `save_parameters` (either
+        package's).  Each parameter keeps its own dtype, so a float32
+        file loads into a bfloat16 net as bfloat16; `cast_dtype` and
+        `dtype_source` are taken and change nothing, as in the JAX
+        package."""
         self.load_dict(F.load_tensors(filename), ctx, allow_missing,
                        ignore_extra, source=filename)
+
+    # the names of older MXNet versions
+    save_params = save_parameters
+    load_params = load_parameters
 
 
 class HybridBlock(Block):

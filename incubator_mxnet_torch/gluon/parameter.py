@@ -27,15 +27,17 @@ from __future__ import annotations
 import weakref
 from collections import OrderedDict
 
+import numpy as _np
 import torch
 
 from ..base import MXNetError, torch_dtype, dtype_name
-from ..ndarray.ndarray import _GRAD_REQS
-from ..context import as_device
+from ..ndarray.ndarray import _GRAD_REQS, _numpy_dtype_32
+from ..context import Context, as_device
 from .. import initializer as init_mod
 from ..ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -163,6 +165,29 @@ class Parameter:
         self._trace_reads += 1
         return NDArray(self._data)
 
+    def list_data(self):
+        return [self.data()]
+
+    def list_ctx(self):
+        """The one context of the data (or of its pending init)."""
+        if self._data is None and self._deferred_init is not None:
+            return [Context.from_device(self._deferred_init[1])]
+        self._check_initialized()
+        return [Context.from_device(self._data.device)]
+
+    def reset_ctx(self, ctx):
+        """Move the data, and its gradient buffer, to `ctx`; a pending
+        init will create it there."""
+        device = as_device(ctx)
+        if self._data is not None:
+            grad = self._data.grad
+            self._set_tensor(self._data.to(device))
+            if grad is not None and self._data.requires_grad:
+                self._data.grad = grad.to(device)
+        elif self._deferred_init is not None:
+            init, _, default = self._deferred_init
+            self._deferred_init = (init, device, default)
+
     def grad(self, ctx=None):
         """The gradient as an NDArray over the `.grad` buffer (zeros
         before the first backward), or a `RowSparseNDArray` of a sparse
@@ -221,6 +246,26 @@ class Parameter:
         return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"
 
 
+class Constant(Parameter):
+    """A parameter that holds `value` and takes no gradient.  Its dtype
+    is the value's, with numpy's float64 and int64 as float32 and int32
+    (as the JAX package stores them)."""
+
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value.asnumpy()
+        value = _np.asarray(value)
+        value = value.astype(_numpy_dtype_32(value.dtype))
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype)
+
+    def _finish_init(self, initializer, device, default_init):
+        self._set_tensor(torch.from_numpy(self.value.copy()).to(
+            device=device, dtype=torch_dtype(self.dtype)))
+        self._deferred_init = None
+
+
 class ParameterDict:
     def __init__(self, prefix="", shared=None):
         self._prefix = prefix
@@ -275,6 +320,17 @@ class ParameterDict:
             return self._params[name]
         return None
 
+    def get_constant(self, name, value=None):
+        """The `Constant` `prefix+name`, created from `value` if new."""
+        full = self._prefix + name
+        param = self._get_impl(full)
+        if param is None:
+            if value is None:
+                raise MXNetError(f"no constant named {full}")
+            param = Constant(full, value)
+            self._params[full] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -290,6 +346,53 @@ class ParameterDict:
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def setattr(self, name, value):
+        """Set attribute `name` (grad_req, lr_mult, ...) on every
+        parameter."""
+        for p in self.values():
+            setattr(p, name, value)
+
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def save(self, filename, strip_prefix=""):
+        """Write {name: data} to `filename` in the JAX package's `.npz`
+        layout (`nd.save`), `strip_prefix` cut from the names."""
+        from ..ndarray import save as nd_save
+        arg = {}
+        for p in self.values():
+            name = p.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg[name] = p.data()
+        nd_save(filename, arg)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set the parameters from a file of `save` (either package's),
+        `restore_prefix` put before its names.  An initialized parameter
+        keeps its device and dtype; an uninitialized one takes the
+        file's shape and dtype, on its pending init's device, else on
+        `ctx`."""
+        from ..ndarray import load_tensors
+        loaded = {restore_prefix + k: v
+                  for k, v in load_tensors(filename).items()}
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        for name, p in self.items():
+            if name in loaded:
+                if p._data is None:
+                    p.dtype = dtype_name(loaded[name].dtype)
+                p.set_data(loaded[name], ctx=ctx)
+            elif not allow_missing:
+                raise MXNetError(f"parameter {name} missing in file "
+                                 f"{filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self._params)
+            if extra:
+                raise MXNetError(f"extra parameters in file: {sorted(extra)}")
 
     def __repr__(self):
         body = "\n".join(f"  {v}" for v in self.values())

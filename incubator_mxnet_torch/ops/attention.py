@@ -1,6 +1,15 @@
 """Transformer attention ops (counterpart of
-`incubator_mxnet_tpu/ops/attention.py`: `multi_head_attention` and
-`gelu_fused`).
+`incubator_mxnet_tpu/ops/attention.py`: `multi_head_attention`,
+`gelu_fused` and GluonNLP's four interleaved attention products).
+
+The interleaved ops read the fused projection of MXNet's
+`transformer.cc`: (T, N, 3E) with each head's q, k and v side by side,
+(T, N, 2E) for encoder-decoder keys and values.  `_qk` gives the scaled
+scores (N·heads, Tq, Tk) and `_valatt` the attention-weighted values
+(Tq, N, E) from given probabilities, with `torch.matmul`, as the JAX
+ops use `jnp.matmul` outside any Pallas kernel: they return the score
+matrix, so the flash kernels do not apply.  The scale 1/sqrt(d) is
+computed in the data's dtype, as `1 / jnp.sqrt(jnp.asarray(d, dtype))`.
 
 `multi_head_attention` routes to the CUDA kernels behind the same gate
 as the JAX dispatcher, with "the query is a CUDA tensor" in place of
@@ -107,6 +116,71 @@ def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
                                         device=probs.device)).to(probs.dtype)
     out = torch.einsum("nhqk,nhkd->nhqd", probs, v)
     return out.transpose(1, 2).reshape(N, Tq, E)
+
+
+def _scale(d, dtype):
+    """1/sqrt(d) rounded as the JAX ops round it: sqrt and reciprocal
+    in `dtype`."""
+    return torch.tensor(float(d), dtype=dtype).sqrt().reciprocal().item()
+
+
+def _heads(t, T, N, heads, d):
+    """(T, N, heads, d) → (N·heads, T, d)."""
+    return t.permute(1, 2, 0, 3).reshape(N * heads, T, d)
+
+
+def _merge(out, heads):
+    """(N·heads, T, d) → (T, N, heads·d)."""
+    NH, T, d = out.shape
+    return out.reshape(NH // heads, heads, T, d).permute(2, 0, 1, 3) \
+        .reshape(T, NH // heads, heads * d)
+
+
+def _split_interleaved(qkv, heads):
+    """(T, N, 3E), each head's q, k, v side by side → q, k, v each
+    (N·heads, T, E/heads), and the head width."""
+    T, N, E3 = qkv.shape
+    d = E3 // 3 // heads
+    x = qkv.reshape(T, N, heads, 3, d)
+    return tuple(_heads(x[:, :, :, i], T, N, heads, d) for i in range(3)) \
+        + (d,)
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk",
+          aliases=("interleaved_matmul_selfatt_qk",))
+def interleaved_matmul_selfatt_qk(queries_keys_values, *, heads):
+    q, k, _v, d = _split_interleaved(queries_keys_values, heads)
+    return torch.matmul(q * _scale(d, q.dtype), k.transpose(-1, -2))
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt",
+          aliases=("interleaved_matmul_selfatt_valatt",))
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention, *,
+                                      heads):
+    _q, _k, v, _d = _split_interleaved(queries_keys_values, heads)
+    return _merge(torch.matmul(attention, v), heads)
+
+
+@register("_contrib_interleaved_matmul_encdec_qk",
+          aliases=("interleaved_matmul_encdec_qk",))
+def interleaved_matmul_encdec_qk(queries, keys_values, *, heads):
+    Tq, N, E = queries.shape
+    d = E // heads
+    q = _heads(queries.reshape(Tq, N, heads, d), Tq, N, heads, d)
+    Tk = keys_values.shape[0]
+    k = _heads(keys_values.reshape(Tk, N, heads, 2, d)[:, :, :, 0], Tk, N,
+               heads, d)
+    return torch.matmul(q * _scale(d, q.dtype), k.transpose(-1, -2))
+
+
+@register("_contrib_interleaved_matmul_encdec_valatt",
+          aliases=("interleaved_matmul_encdec_valatt",))
+def interleaved_matmul_encdec_valatt(keys_values, attention, *, heads):
+    Tk, N, E2 = keys_values.shape
+    d = E2 // 2 // heads
+    v = _heads(keys_values.reshape(Tk, N, heads, 2, d)[:, :, :, 1], Tk, N,
+               heads, d)
+    return _merge(torch.matmul(attention, v), heads)
 
 
 @register("gelu_fused")

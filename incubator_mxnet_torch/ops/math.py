@@ -1,78 +1,20 @@
-"""Elementwise and reduction ops (counterpart of part of
-`incubator_mxnet_tpu/ops/math.py` and `ops/reduce.py`): the unary table
-with its integer-preserving part, relu, LeakyReLU, clip, where,
-broadcast_mul, and the mean, sum and norm reductions."""
+"""Elementwise, broadcast and scalar ops (counterpart of
+`incubator_mxnet_tpu/ops/math.py`): the broadcast binary table and its
+aliases, the comparisons and logical ops (1s and 0s in the left
+operand's dtype), the scalar table (the scalar cast to the data's dtype
+first, as `jnp.asarray(scalar, data.dtype)` casts it, so int32 + 0.5
+stays int32) and its comparisons (the scalar as it is), the unary table
+with its integer-preserving part, relu, softrelu, LeakyReLU, clip,
+where, cast, and `_index`/`_fancy_index`, the registered forms behind
+`NDArray.__getitem__`."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from .registry import register
-from ..base import MXNetError
-
-
-_INTS = (torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64)
-
-
-def _axes(data, axis, exclude):
-    """The reduced dims: `axis` (all for None, none for ()), or every
-    other dim with `exclude`."""
-    if axis is None:
-        return tuple(range(data.ndim))
-    axes = {a % data.ndim for a in ((axis,) if isinstance(axis, int)
-                                    else axis)}
-    if exclude:
-        axes = set(range(data.ndim)) - axes
-    return tuple(sorted(axes))
-
-
-def _reduce(fn, data, axis, exclude):
-    """`fn` over the reduced dims; with none (`axis=()`) the data comes
-    back unchanged, as from `jnp.sum`/`jnp.mean` (torch reads an empty
-    dim list as every dim)."""
-    dims = _axes(data, axis, exclude)
-    return fn(data, dims) if dims else data.clone()
-
-
-@register("mean")
-def mean(data, *, axis=None, keepdims=False, exclude=False):
-    """The mean; integer and bool data give the float32 mean, as
-    `jnp.mean` does."""
-    if not data.is_floating_point():
-        data = data.to(torch.float32)
-    return _reduce(lambda t, d: t.mean(dim=d, keepdim=keepdims), data,
-                   axis, exclude)
-
-
-@register("sum")
-def sum_(data, *, axis=None, keepdims=False, exclude=False):
-    """The sum; integer data keep their dtype, as with `jnp.sum` (torch
-    would widen to int64)."""
-    keep = data.dtype if data.dtype in _INTS else None
-    return _reduce(lambda t, d: t.sum(dim=d, keepdim=keepdims, dtype=keep),
-                   data, axis, exclude)
-
-
-@register("norm")
-def norm(data, *, ord=2, axis=None, keepdims=False):
-    """The `ord`-norm over `axis` (all axes for None), returned in the
-    data's dtype; bfloat16 and float16 data accumulate in float32 and
-    the result is rounded back."""
-    dt = data.dtype
-    low = dt in (torch.bfloat16, torch.float16)
-    if low:
-        data = data.to(torch.float32)
-    dims = _axes(data, axis, False)
-
-    def total(t):
-        return t.sum(dim=dims, keepdim=keepdims) if dims else t
-    if ord == 1:
-        out = total(data.abs())
-    elif ord == 2:
-        out = total(data.square()).sqrt()
-    else:
-        out = total(data.abs() ** ord) ** (1.0 / ord)
-    return out.to(dt) if low else out
+from .reduce import norm  # noqa: F401  (reached as ops.math.norm too)
+from ..base import MXNetError, torch_dtype
 
 
 # ----------------------------------------------------------------- unary ----
@@ -194,6 +136,155 @@ def where(condition, x, y):
     return torch.where(condition.to(torch.bool), x, y)
 
 
-@register("broadcast_mul")
-def broadcast_mul(lhs, rhs):
-    return lhs * rhs
+@register("softrelu")
+def softrelu(data):
+    return F.softplus(data)
+
+
+@register("cast", aliases=("Cast",))
+def cast(data, *, dtype):
+    return data.to(torch_dtype(dtype))
+
+
+# ---------------------------------------------------------------- binary ----
+def _hypot(a, b):
+    """`jnp.hypot`: integer operands give float32."""
+    if not a.is_floating_point():
+        a = a.to(torch.float32)
+    if not b.is_floating_point():
+        b = b.to(torch.float32)
+    return torch.hypot(a, b)
+
+
+_BINARY = {
+    "broadcast_add": (torch.add, ("elemwise_add", "_plus", "add")),
+    "broadcast_sub": (torch.sub, ("elemwise_sub", "_minus", "subtract")),
+    "broadcast_mul": (torch.mul, ("elemwise_mul", "_mul", "multiply")),
+    "broadcast_div": (torch.div, ("elemwise_div", "_div", "divide")),
+    "broadcast_power": (torch.pow, ("_power", "power", "pow")),
+    # Python's sign rule, as `jnp.mod`
+    "broadcast_mod": (torch.remainder, ("_mod", "mod")),
+    "broadcast_maximum": (torch.maximum, ("maximum",)),
+    "broadcast_minimum": (torch.minimum, ("minimum",)),
+    "broadcast_hypot": (_hypot, ()),
+}
+
+
+def _make_binary(name, fn):
+    def impl(lhs, rhs):
+        return fn(lhs, rhs)
+    impl.__name__ = impl.__qualname__ = name
+    return impl
+
+
+for _name, (_fn, _aliases) in _BINARY.items():
+    register(_name, aliases=_aliases)(_make_binary(_name, _fn))
+
+_CMP = {
+    "broadcast_equal": torch.eq,
+    "broadcast_not_equal": torch.ne,
+    "broadcast_greater": torch.gt,
+    "broadcast_greater_equal": torch.ge,
+    "broadcast_lesser": torch.lt,
+    "broadcast_lesser_equal": torch.le,
+    "broadcast_logical_and": torch.logical_and,
+    "broadcast_logical_or": torch.logical_or,
+    "broadcast_logical_xor": torch.logical_xor,
+}
+
+
+def _make_cmp(name, fn):
+    def impl(lhs, rhs):
+        return fn(lhs.detach(), rhs.detach()).to(lhs.dtype)
+    impl.__name__ = impl.__qualname__ = name
+    return impl
+
+
+for _name, _fn in _CMP.items():
+    register(_name, aliases=(_name.replace("broadcast_", ""),))(
+        _make_cmp(_name, _fn))
+
+
+# ---------------------------------------------------------------- scalar ----
+def scalar_of(value, dtype):
+    """Python scalar `value` cast to tensor dtype `dtype` as
+    `jnp.asarray(value, dtype)` casts it: towards zero for integers,
+    rounded to the nearest value of a float type."""
+    if dtype == torch.bool:
+        return bool(value)
+    if not dtype.is_floating_point:
+        return int(value)
+    if dtype == torch.float64:
+        return float(value)
+    return torch.tensor(float(value), dtype=dtype).item()
+
+
+_SCALAR = {
+    "_scalar_add": (torch.add, lambda s, x: x + s, ("_plus_scalar",)),
+    "_scalar_sub": (torch.sub, lambda s, x: s - x, ("_minus_scalar",)),
+    "_scalar_mul": (torch.mul, lambda s, x: x * s, ("_mul_scalar",)),
+    "_scalar_div": (torch.div, lambda s, x: s / x, ("_div_scalar",)),
+    "_scalar_power": (torch.pow, torch.pow, ("_power_scalar",)),
+    "_scalar_mod": (torch.remainder, torch.remainder, ("_mod_scalar",)),
+    "_scalar_maximum": (torch.clamp_min, lambda s, x: torch.clamp_min(x, s),
+                        ("_maximum_scalar",)),
+    "_scalar_minimum": (torch.clamp_max, lambda s, x: torch.clamp_max(x, s),
+                        ("_minimum_scalar",)),
+}
+
+
+def _make_scalar(name, fn, rfn):
+    def impl(data, *, scalar, reverse=False):
+        s = scalar_of(scalar, data.dtype)
+        return rfn(s, data) if reverse else fn(data, s)
+    impl.__name__ = impl.__qualname__ = name
+    return impl
+
+
+for _name, (_fn, _rfn, _aliases) in _SCALAR.items():
+    register(_name, aliases=_aliases)(_make_scalar(_name, _fn, _rfn))
+
+# the comparisons take the scalar as it is (int32 == 1.5 is 0), and the
+# reversed form s OP x is x OP' s
+_SCALAR_CMP = {
+    "_scalar_equal": (torch.eq, torch.eq),
+    "_scalar_not_equal": (torch.ne, torch.ne),
+    "_scalar_greater": (torch.gt, torch.lt),
+    "_scalar_greater_equal": (torch.ge, torch.le),
+    "_scalar_lesser": (torch.lt, torch.gt),
+    "_scalar_lesser_equal": (torch.le, torch.ge),
+}
+
+
+def _make_scalar_cmp(name, fn, rfn):
+    def impl(data, *, scalar, reverse=False):
+        x = data.detach()
+        return (rfn(x, scalar) if reverse else fn(x, scalar)).to(data.dtype)
+    impl.__name__ = impl.__qualname__ = name
+    return impl
+
+
+for _name, (_fn, _rfn) in _SCALAR_CMP.items():
+    register(_name)(_make_scalar_cmp(_name, _fn, _rfn))
+
+
+# ---------------------------------------------------------------- index ----
+def _indexed(data, key_spec, arrays):
+    from ..ndarray.ndarray import rebuild_index, torch_index
+    arrays = [a if a.dtype == torch.bool else a.to(torch.int64)
+              for a in arrays]
+    flips, key = torch_index(rebuild_index(key_spec, arrays), data.shape)
+    return (data.flip(flips) if flips else data)[key]
+
+
+@register("_fancy_index")
+def _fancy_index(data, *arrays, key_spec):
+    """data[key]: `key_spec` is `NDArray.__getitem__`'s encoding of the
+    key, with ("__arr__", i) for the i-th index array of `arrays`."""
+    return _indexed(data, key_spec, arrays)
+
+
+@register("_index")
+def _index(data, *, key_spec):
+    """data[key] for a key with no index array."""
+    return _indexed(data, key_spec, ())

@@ -8,7 +8,11 @@ to PyTorch's own operators.
 
 `sparse_softmax_ce` is the JAX package's fused softmax cross-entropy
 with its custom VJP, here a `torch.autograd.Function`: not a registered
-op, the fast path of `gluon.loss.SoftmaxCrossEntropyLoss`."""
+op, the fast path of `gluon.loss.SoftmaxCrossEntropyLoss`.
+`SoftmaxOutput` keeps the JAX op's custom VJP in another: its backward
+is the classifier's loss gradient, not the softmax's Jacobian.
+`Convolution_v1`, `Pooling_v1` and `batch_norm` are the legacy names of
+`Convolution`, `Pooling` and `BatchNorm`."""
 from __future__ import annotations
 
 import math
@@ -16,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .registry import register, add_alias
 from .. import autograd
 from ..base import MXNetError
 from ..random import generator
@@ -272,9 +276,18 @@ def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False):
     return data * (draw < keep).to(data.dtype) / keep
 
 
+def _floating(data):
+    """Integer and bool data as float32 (the softmaxes' `jax.nn` rule)."""
+    return data if data.is_floating_point() else data.to(torch.float32)
+
+
 @register("softmax")
 def softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
             use_length=False):
+    """Softmax over `axis`; with `length` only the first length[i]
+    entries of each row count and the rest are 0.  Integer data gives
+    float32, as `jax.nn.softmax` does."""
+    data = _floating(data)
     x = data if temperature in (None, 1.0) else data / temperature
     if length is not None:
         idx = torch.arange(x.shape[axis], device=x.device)
@@ -290,6 +303,7 @@ def softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
 
 @register("log_softmax")
 def log_softmax(data, *, axis=-1, temperature=None, dtype=None):
+    data = _floating(data)
     x = data if temperature in (None, 1.0) else data / temperature
     out = torch.log_softmax(x, dim=axis)
     return out.to(_dtype(dtype)) if dtype else out
@@ -350,3 +364,112 @@ def activation(data, *, act_type="relu"):
         return _ACTIVATIONS[act_type](data)
     except KeyError:
         raise MXNetError(f"unknown act_type {act_type!r}") from None
+
+
+@register("GroupNorm")
+def group_norm(data, gamma, beta, *, num_groups=1, eps=1e-5):
+    """Channels in `num_groups` groups, each sample's group normalized
+    over its channels and spatial axes in the data's dtype (the biased
+    variance), then the per-channel gamma and beta."""
+    n, c = data.shape[:2]
+    rest = tuple(data.shape[2:])
+    x = data.reshape((n, num_groups, c // num_groups) + rest)
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, correction=0)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return x * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    """The summed −log softmax(data)[label] over the rows, a 0-d array."""
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.detach().to(torch.int64).unsqueeze(-1)
+    return -logp.gather(-1, lab).sum()
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward softmax over axis 1 (`multi_output`) or the last; backward
+    (p − onehot(label))·scale for the data, ignoring the incoming
+    gradient (the JAX op's `_so_bwd`), and zeros for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                multi_output, normalization, smooth_alpha):
+        axis = 1 if multi_output else -1
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, multi_output,
+                     normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, multi_output, normalization,
+         smooth_alpha) = ctx.attrs
+        axis = 1 if multi_output else out.ndim - 1
+        depth = out.shape[axis]
+        lab = label.to(torch.int32)
+        ar = torch.arange(depth, device=out.device).reshape(
+            (depth,) + (1,) * (out.ndim - 1 - axis))
+        onehot = (lab.unsqueeze(axis) == ar).to(out.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1 - smooth_alpha) + smooth_alpha / depth
+        grad = out - onehot
+        keep = lab != int(ignore_label)
+        if use_ignore:
+            grad = grad * keep.to(out.dtype).unsqueeze(axis)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / out.shape[0]
+        elif normalization == "valid" and use_ignore:
+            scale = scale / torch.clamp_min(keep.sum(), 1)
+        return (grad * scale, torch.zeros_like(label)) + (None,) * 6
+
+
+@register("SoftmaxOutput", aliases=("softmax_output", "Softmax"))
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   use_ignore=False, multi_output=False, preserve_shape=False,
+                   normalization="null", smooth_alpha=0.0, out_grad=False):
+    """Forward softmax; backward the fused classifier gradient p −
+    onehot(label) (label smoothing by `smooth_alpha`), rows whose label
+    is `ignore_label` dropped under `use_ignore`, times `grad_scale`,
+    over the batch size ("batch") or the count of kept labels ("valid"
+    with `use_ignore`).  `preserve_shape` and `out_grad` are taken and
+    not used, as in the JAX op."""
+    return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label,
+                                use_ignore, multi_output, normalization,
+                                smooth_alpha)
+
+
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """data / sqrt(sum(data²) + eps) over all axes but the batch
+    ("instance"), over axis 1 ("channel"), or over the spatial axes
+    (any other mode)."""
+    if mode == "instance":
+        axes = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.ndim))
+    return data / torch.sqrt(data.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@register("RMSNorm")
+def rms_norm(data, gamma, *, axis=-1, eps=1e-6):
+    """x·rsqrt(mean(x²) + eps) in float32, rounded to the data's dtype,
+    times gamma."""
+    x32 = data.to(torch.float32)
+    ms = x32.square().mean(dim=axis, keepdim=True)
+    shape = [1] * data.ndim
+    shape[axis] = data.shape[axis]
+    return (x32 * torch.rsqrt(ms + eps)).to(data.dtype) * gamma.reshape(shape)
+
+
+add_alias("Convolution_v1", "Convolution")
+add_alias("Pooling_v1", "Pooling")
+add_alias("batch_norm", "BatchNorm")

@@ -11,12 +11,11 @@ wraps what it returns.  The `nd` namespace, which is the `F` that
 """
 from __future__ import annotations
 
-import torch
-
 from ..base import MXNetError
 from ..autograd import grad_scope
 
-__all__ = ["register", "get_op", "list_ops", "apply_op", "make_nd_function"]
+__all__ = ["register", "add_alias", "get_op", "list_ops", "apply_op",
+           "write_out", "make_nd_function"]
 
 _REGISTRY = {}
 
@@ -29,6 +28,11 @@ def register(name, aliases=()):
             _REGISTRY[a] = impl
         return impl
     return deco
+
+
+def add_alias(alias, target):
+    """Register another name for op `target` (legacy names)."""
+    _REGISTRY[alias] = get_op(target)
 
 
 def get_op(name):
@@ -47,28 +51,38 @@ def _unwrap(a):
     return a._data if isinstance(a, NDArray) else a
 
 
-def _wrap(out):
-    from ..ndarray import NDArray
-    if isinstance(out, torch.Tensor):
-        return NDArray(out)
-    if isinstance(out, (tuple, list)):
-        return tuple(_wrap(o) for o in out)
-    return out
-
-
 def apply_op(name, *inputs, **attrs):
-    """Run a registered op on NDArrays (or tensors); returns NDArrays."""
+    """Run a registered op on NDArrays (or tensors); returns NDArrays.
+    An output that shares an input's storage is registered as a view
+    (`ndarray.ndarray`: a write to either side leaves the other)."""
+    from ..ndarray.ndarray import wrap
     impl = get_op(name)
+    tensors = [_unwrap(a) for a in inputs]
     with grad_scope():
-        out = impl(*[_unwrap(a) for a in inputs],
-                   **{k: _unwrap(v) for k, v in attrs.items()})
-    return _wrap(out)
+        out = impl(*tensors, **{k: _unwrap(v) for k, v in attrs.items()})
+    return wrap(out, tensors)
+
+
+def write_out(res, out):
+    """Write result `res` into `out` (an NDArray, or a list of them for
+    several outputs), as the JAX package's `out=` rebinds them; returns
+    `out`."""
+    if isinstance(res, tuple):
+        if not isinstance(out, (list, tuple)) or len(out) != len(res):
+            raise MXNetError(f"out= must be a list of {len(res)} arrays")
+        for o, r in zip(out, res):
+            o._assign(r._data)
+        return tuple(out)
+    out._assign(res._data)
+    return out
 
 
 def make_nd_function(name):
     def fn(*args, **kwargs):
         kwargs.pop("name", None)     # symbol-compat: a no-op in nd
-        return apply_op(name, *args, **kwargs)
+        out = kwargs.pop("out", None)
+        res = apply_op(name, *args, **kwargs)
+        return res if out is None else write_out(res, out)
     fn.__name__ = fn.__qualname__ = name
     fn.__doc__ = get_op(name).__doc__
     return fn

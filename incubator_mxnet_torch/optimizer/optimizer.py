@@ -382,7 +382,7 @@ class LAMB(Optimizer):
         return _f32_zeros(weight), _f32_zeros(weight)
 
     def update(self, index, weight, grad, state):
-        from ..ops.math import norm
+        from ..ops.reduce import norm
         self._update_count(index)
         t = self._index_update_count[index]
         kw = self._kernel_kwargs(index)

@@ -296,11 +296,15 @@ def test_set_data_copies_its_source(kind):
 @pytest.mark.parametrize("src", [
     2.5, np.float32(1), np.array(3.0), [1, 2, 3], 5, [True, False],
     (1.5, 2), np.int32(4), np.array(True), np.array([1, 2], np.int32),
-    np.array([[1.5, 2.5]]), [[1, 2], [3, 4]]],
+    np.array([[1.5, 2.5]]), [[1, 2], [3, 4]], np.arange(3),
+    np.array([[7, 8]], np.uint64), np.array([3, 250], np.uint8),
+    np.array([True, False]), np.array([0.5, 1.5], np.float16)],
     ids=lambda s: f"{type(s).__name__}:{np.asarray(s).tolist()}")
 def test_nd_array_shape_and_dtype_match_jax(src):
     """A 0-d source stays 0-d; Python data and numpy scalars become
-    float32; a numpy array keeps its dtype (float64 becomes float32)."""
+    float32; a numpy array keeps its dtype, its 64-bit types as JAX
+    stores them without x64 (float64, int64 and uint64 become float32,
+    int32 and uint32)."""
     ref = mxj.nd.array(src, ctx=mxj.cpu())
     got = nd.array(src, ctx=mx.cpu())
     assert got.shape == ref.shape
@@ -586,3 +590,320 @@ def test_nd_array_dtype_matches_jax(dtype):
     if dtype != "bfloat16":
         assert got.dtype == getattr(np, dtype) == ref.dtype
         assert (got.dtype == np.float32) == (ref.dtype == np.float32)
+
+
+# ------------------------- 16. views do not alias (writes stay local)
+_VIEW_BASE = np.arange(6, dtype=np.float32).reshape(2, 1, 3)
+_VIEWS = {
+    "getitem": lambda nd, a: a[0],
+    "slice": lambda nd, a: a[0:1],
+    "reshape": lambda nd, a: nd.reshape(a, shape=(3, 2)),
+    "flatten": lambda nd, a: nd.flatten(a),
+    "expand_dims": lambda nd, a: a.expand_dims(0),
+    "squeeze": lambda nd, a: a.squeeze(axis=1),
+    "transpose": lambda nd, a: nd.transpose(a),
+    "swapaxes": lambda nd, a: a.swapaxes(0, 2),
+    "slice_axis": lambda nd, a: nd.slice_axis(a, axis=2, begin=1, end=3),
+    "split": lambda nd, a: nd.split(a, num_outputs=3, axis=2)[1],
+    "detach": lambda nd, a: a.detach(),
+}
+
+
+def _write(arr, how):
+    if how == "setitem":
+        arr[:] = 9
+    else:
+        arr += 1
+
+
+@pytest.mark.parametrize("how", ["setitem", "iadd"])
+@pytest.mark.parametrize("side", ["view", "base"])
+@pytest.mark.parametrize("view", sorted(_VIEWS))
+def test_views_do_not_alias(view, side, how):
+    """Writing a view leaves its base alone and writing the base leaves
+    its views alone, as with the JAX package's immutable arrays; the
+    written array itself takes the write.  Exact: the same float32
+    values."""
+    got = {}
+    for pkg in (mxj, mx):
+        a = pkg.nd.array(_VIEW_BASE, ctx=pkg.cpu())
+        b = _VIEWS[view](pkg.nd, a)
+        _write(b if side == "view" else a, how)
+        got[pkg.__name__] = (a.asnumpy(), b.asnumpy())
+    (ja, jb), (ta, tb) = got[mxj.__name__], got[mx.__name__]
+    np.testing.assert_array_equal(ta, ja)
+    np.testing.assert_array_equal(tb, jb)
+    untouched = ta if side == "view" else tb
+    np.testing.assert_array_equal(
+        untouched, _VIEW_BASE if side == "view" else
+        _VIEWS[view](mxj.nd, mxj.nd.array(_VIEW_BASE, ctx=mxj.cpu()))
+        .asnumpy())
+
+
+def test_a_view_written_twice_and_its_own_views():
+    """A view of a view: writing the middle one leaves both ends alone;
+    writing the base afterwards leaves the last view as it was."""
+    with mx.cpu():
+        a = nd.array(_VIEW_BASE)
+        b = a.reshape((6,))
+        c = b[2:4]
+        b[:] = 5
+        np.testing.assert_array_equal(a.asnumpy(), _VIEW_BASE)
+        np.testing.assert_array_equal(c.asnumpy(), [2, 3])
+        a += 1
+        np.testing.assert_array_equal(c.asnumpy(), [2, 3])
+        np.testing.assert_array_equal(b.asnumpy(), np.full(6, 5))
+        np.testing.assert_array_equal(a.asnumpy(), _VIEW_BASE + 1)
+
+
+# ------------------------------- 17. assignment inside record() raises
+def test_setitem_inside_record_raises():
+    """`x[k] = v` inside `autograd.record()` raises MXNetError with the
+    JAX package's message, in both packages, and writes nothing."""
+    x = np.ones((2, 3), np.float32)
+    for pkg, ag in ((mxj, jag), (mx, autograd)):
+        a = pkg.nd.array(x, ctx=pkg.cpu())
+        a.attach_grad()
+        with ag.record():
+            with pytest.raises(pkg.MXNetError,
+                               match="in-place assignment on an array is "
+                                     "not allowed inside autograd.record"):
+                a[0] = 5
+        np.testing.assert_array_equal(a.asnumpy(), x)
+
+
+# ------------------------------ 18. softmax of integer data is float32
+@pytest.mark.parametrize("op,kw", [
+    ("softmax", {}), ("softmax", {"temperature": 2.0}),
+    ("softmax", {"dtype": "float16"}), ("softmax", {"axis": 0}),
+    ("softmax", {"use_length": True, "length": True}),
+    ("softmax", {"use_length": True, "length": True, "temperature": 0.5}),
+    ("log_softmax", {}), ("log_softmax", {"temperature": 3.0}),
+    ("log_softmax", {"dtype": "float16"})],
+    ids=lambda v: v if isinstance(v, str) else "-".join(v) or "plain")
+def test_softmax_of_int_data_is_float32(op, kw):
+    """int32 data gives float32 (or the asked dtype), as `jax.nn`'s
+    softmaxes give.  Tolerance rtol 1e-6 (float32; float16 outputs
+    1 ulp, 2^-10)."""
+    x = np.random.RandomState(16).randint(-3, 4, (3, 5)).astype(np.int32)
+    lengths = np.array([1, 5, 3], np.int32)
+    outs = []
+    for pkg in (mxj, mx):
+        args = [pkg.nd.array(x, ctx=pkg.cpu())]
+        kwargs = dict(kw)
+        if kwargs.pop("length", False):
+            args.append(pkg.nd.array(lengths, ctx=pkg.cpu()))
+        outs.append(getattr(pkg.nd, op)(*args, **kwargs))
+    ref, got = outs
+    assert got.dtype == ref.dtype == np.dtype(kw.get("dtype", "float32"))
+    rtol = 2 ** -10 if "dtype" in kw else 1e-6
+    np.testing.assert_allclose(got.asnumpy(), ref.asnumpy(), rtol=rtol,
+                               atol=1e-7)
+
+
+# ------------------------------------- 19. NumPy's indexing forms
+_IDX_BASE = np.arange(60, dtype=np.float32).reshape(4, 5, 3)
+_KEYS = {
+    "reverse": lambda nd: slice(None, None, -1),
+    "neg_step_2": lambda nd: (slice(None), slice(None, None, -2)),
+    "neg_step_bounds": lambda nd: (slice(3, 0, -1), 1),
+    "neg_step_empty": lambda nd: (slice(0, 3, -1),),
+    "step_3": lambda nd: (slice(None), slice(4, None, -3), slice(None, None, 2)),
+    "none": lambda nd: (None, 0),
+    "none_middle": lambda nd: (1, None, slice(1, 3)),
+    "ellipsis": lambda nd: (Ellipsis, 1),
+    "ellipsis_none": lambda nd: (0, Ellipsis, None),
+    "list": lambda nd: [0, 2],
+    "negative_int": lambda nd: (-1, -2),
+    "two_ndarrays": lambda nd: (nd.array(np.array([0, 3]), ctx=nd.cpu_ctx),
+                                nd.array(np.array([1, 4]), ctx=nd.cpu_ctx)),
+    "two_numpy": lambda nd: (np.array([2, 1]), np.array([[0], [4]])),
+    "slice_and_array": lambda nd: (slice(1, None), np.array([0, 2, 4])),
+    "array_and_reverse": lambda nd: (np.array([3, 0]), slice(None, None, -1)),
+    "ellipsis_array": lambda nd: (Ellipsis, [2, 0]),
+}
+
+
+class _NS:
+    """A package's `nd` with the CPU context beside it."""
+
+    def __init__(self, pkg):
+        self.array, self.cpu_ctx = pkg.nd.array, pkg.cpu()
+
+
+@pytest.mark.parametrize("key", sorted(_KEYS))
+def test_getitem_setitem_forms_match_jax(key):
+    """Reads and writes with negative and non-unit steps, None, Ellipsis,
+    lists and tuples of NDArray or numpy index arrays, against the JAX
+    package.  Exact: the same float32 values gathered and written."""
+    reads, writes = [], []
+    for pkg in (mxj, mx):
+        ns = _NS(pkg)
+        a = pkg.nd.array(_IDX_BASE, ctx=pkg.cpu())
+        r = a[_KEYS[key](ns)]
+        reads.append(r.asnumpy())
+        a[_KEYS[key](ns)] = np.arange(r.size, dtype=np.float32).reshape(
+            r.shape) + 100
+        writes.append(a.asnumpy())
+    assert reads[1].shape == reads[0].shape
+    np.testing.assert_array_equal(reads[1], reads[0])
+    np.testing.assert_array_equal(writes[1], writes[0])
+
+
+def test_float_index_arrays_raise():
+    """A float index array raises TypeError in both packages, read or
+    write (a float32 NDArray, the default dtype of `nd.array([0, 1])`)."""
+    for pkg in (mxj, mx):
+        a = pkg.nd.array(_IDX_BASE, ctx=pkg.cpu())
+        idx = pkg.nd.array([0, 1], ctx=pkg.cpu())
+        with pytest.raises(TypeError):
+            a[idx]
+        with pytest.raises(TypeError):
+            a[np.array([0.0, 1.0])] = 1
+
+
+# ------------------------------------ 20. a scalar keeps the dtype
+_SCALAR_OPS = {
+    "add": lambda x, s: x + s, "radd": lambda x, s: s + x,
+    "sub": lambda x, s: x - s, "rsub": lambda x, s: s - x,
+    "mul": lambda x, s: x * s, "rmul": lambda x, s: s * x,
+    "div": lambda x, s: x / s, "rdiv": lambda x, s: s / x,
+    "pow": lambda x, s: x ** s, "rpow": lambda x, s: s ** x,
+    "mod": lambda x, s: x % s, "rmod": lambda x, s: s % x,
+}
+
+
+def _iadd(x, s):
+    x += s
+    return x
+
+
+_SCALAR_OPS["iadd"] = _iadd
+_ULP = {"int32": 0, "float32": 1e-6, "float16": 2 ** -10,
+        "bfloat16": 2 ** -7}
+
+
+_SCALARS = {"int": 3, "float": 2.5, "bool": True, "np_float32": np.float32(1.5)}
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float16", "bfloat16", "float32"])
+@pytest.mark.parametrize("op,scalar", [
+    (op, sc) for op in sorted(_SCALAR_OPS) for sc in _SCALARS
+    # a numpy scalar on the left is numpy's to handle, in both packages
+    if not (op.startswith("r") and sc == "np_float32")])
+def test_scalar_operand_keeps_dtype(op, scalar, dtype):
+    """A Python or numpy scalar is cast to the array's dtype first (the
+    JAX `_scalar_*` ops): int32 + 2.5 is int32 and int32 / 3 float32, in
+    both packages, reversed forms and `+=` too.  Tolerance: exact for an
+    int32 result, else 1 ulp of the result's dtype (rtol 1e-6 float32,
+    2^-10 float16, 2^-7 bfloat16)."""
+    scalar = _SCALARS[scalar]
+    x = np.array([[1, 2, 3], [4, 5, 7]], np.float32)
+    outs = []
+    for pkg in (mxj, mx):
+        a = pkg.nd.array(x, ctx=pkg.cpu(), dtype=dtype)
+        outs.append(_SCALAR_OPS[op](a, scalar))
+    ref, got = outs
+    assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+    np.testing.assert_allclose(_numpy(got), _numpy(ref),
+                               rtol=_ULP[got.dtype.name], atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32", "bfloat16"])
+def test_numpy_array_operand_matches_jax(dtype):
+    """A numpy array operand becomes an NDArray of its dtype, float64 as
+    float32, before the broadcast op: int32 + float64 array is float32.
+    Tolerance as above."""
+    x = np.array([[1, 2, 3], [4, 5, 7]], np.float32)
+    y = np.array([0.5, 1.25, 2.0])
+    outs = []
+    for pkg in (mxj, mx):
+        a = pkg.nd.array(x, ctx=pkg.cpu(), dtype=dtype)
+        outs.append([a + y, a * y, a - y.astype(np.int64)])
+    for ref, got in zip(*outs):
+        assert got.dtype == ref.dtype
+        np.testing.assert_allclose(_numpy(got), _numpy(ref),
+                                   rtol=_ULP[got.dtype.name], atol=0)
+
+
+# --------------------------------------------- 21. repr and asscalar
+def test_repr_is_numpy_str():
+    """`repr`/`str` print numpy's `str` form of the values, as the JAX
+    package does."""
+    for pkg in (mxj, mx):
+        z = pkg.nd.zeros((2, 2), ctx=pkg.cpu())
+        assert "[[0. 0.]\n [0. 0.]]" in repr(z)
+        assert "[[0. 0.]\n [0. 0.]]" in str(z)
+        assert "array(" not in repr(z)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32", "uint8"])
+def test_asscalar_keeps_numpy_type(dtype):
+    """`asscalar()` gives a numpy scalar of the dtype (np.int32 for
+    int32), as the JAX package's, not a Python number."""
+    for pkg in (mxj, mx):
+        v = pkg.nd.array(np.array([7], dtype), ctx=pkg.cpu()).asscalar()
+        assert type(v) is np.dtype(dtype).type and v == 7
+
+
+def test_views_stay_apart_under_threads():
+    """Views made and bases written from 8 threads at once, with the
+    interpreter switching threads often: every view keeps its values
+    (the registry of views is shared by the threads)."""
+    import sys
+    import threading
+    errors = []
+
+    def work(seed):
+        rng = np.random.RandomState(seed)
+        try:
+            for _ in range(100):
+                x = rng.rand(4, 3).astype(np.float32)
+                with mx.cpu():
+                    a = nd.array(x)
+                views = [a[0], a.reshape((3, 4)), a.T]
+                a += 1
+                views[1][:] = 0
+                if not (np.array_equal(views[0].asnumpy(), x[0])
+                        and np.array_equal(views[2].asnumpy(), x.T)
+                        and np.array_equal(a.asnumpy(), x + 1)):
+                    errors.append(seed)
+        except Exception as e:   # noqa: BLE001 - reported by the assert
+            errors.append(repr(e))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+
+
+def test_inplace_inside_record_is_recorded():
+    """`y += x` inside `record()` rebinds y to the recorded sum, so the
+    gradient flows through it: z = sum((2x + x)^2) gives 18x.  The JAX
+    package rebinds y's data but keeps its tape node, so its gradient
+    drops the `+= x` (12x here): a reference fact the port does not
+    copy (ROADMAP.md).  Exact: float32 products of small integers."""
+    x0 = np.arange(3, dtype=np.float32)
+    x = nd.array(x0, ctx=mx.cpu())
+    x.attach_grad()
+    with autograd.record():
+        y = x * 2
+        y += x
+        z = (y * y).sum()
+    z.backward()
+    np.testing.assert_array_equal(x.grad.asnumpy(), 18 * x0)
+    jx = mxj.nd.array(x0, ctx=mxj.cpu())
+    jx.attach_grad()
+    with jag.record():
+        jy = jx * 2
+        jy += jx
+        jz = (jy * jy).sum()
+    jz.backward()
+    np.testing.assert_array_equal(jx.grad.asnumpy(), 12 * x0)
