@@ -223,7 +223,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    `save_checkpoint` to a temporary directory, `load_checkpoint` into a
    model built from another seed, and one more step on each: losses and
    every weight bitwise equal; save and load times.
-30. A JSON line describing each kernel, then the card line, then the
+30. `[interleaved-attn]`: BERT-base self-attention at 60 x 128 bf16
+   through the interleaved ops against `multi_head_attention` (the
+   kernel route): the worst error of 12 layers' outputs and gradients,
+   12 launches of rows 1 and 1b, each route's device and wall times.
+31. `[ops-check]`: every registered op name but the quantized ones
+   (`tools/op_cases.py`: the core names and those of `extended.py`,
+   `contrib.py` and `linalg.py`) on the card against the CPU in float32
+   with TF32 off, gradients where the op has them, within 1e-5 of the
+   largest value, the sweeps' and matchings' kept sets equal, gelqf and
+   syevd by their invariants (A = L·Q, Q·Qᵀ = I; Uᵀ·diag(Λ)·U = A) and
+   rows equal up to sign, the bf16 forward finite; the samplers'
+   moments at 10^6 draws; the NDArray repairs on the card; and
+   `nd.sparse.dot` of a Criteo-sized CSR batch (8,192 x 2^20, 39
+   entries a row) and a 2^20 x 64 weight, plain and `transpose_a`.
+32. `[detect-check]`: SSD300's 8,732 anchors (`MultiBoxPrior` on six
+   maps), `MultiBoxTarget` at batch 32 with 16 padded label rows,
+   `MultiBoxDetection` on (32, 21, 8732), `box_nms` on (32, 8732, 6)
+   and `ROIAlign` at Faster R-CNN R-50-C4's head (2 x 1024 x 38 x 50,
+   512 RoIs an image, 14 x 14, ratio 2), the card against the CPU
+   (8 images, 64 RoIs): targets, masks and kept sets equal but where
+   an IoU or score lies within 1e-5 of its threshold (counted),
+   continuous outputs within 1e-5 of their largest value; each op's
+   device ms and peak memory; no hand kernel.
+33. `[train-ssd]`: `example/ssd/train_ssd.py`'s TinySSD loop through
+   the port at the example's defaults (batch 32, 150 batches, Adam
+   2e-3): mean IoU on 64 images over the example's bar 0.3, recall@0.5,
+   a step's wall and device time; no hand kernel.
+34. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -3771,16 +3798,40 @@ def _ops_err(got, ref):
         if fin.any() else 0.0
 
 
-def _ops_core(card, dev):
+# the outputs of the sweeps and matchings that must be equal card against
+# CPU: the kept rows, the matches, the targets' masks and classes
+EXACT_PARTS = {
+    "_contrib_MultiBoxDetection": lambda o: [o[0][..., 0]],
+    "box_nms": lambda o: [o[0][..., 1] < 0],
+    "_contrib_bipartite_matching": lambda o: list(o),
+    "_contrib_MultiBoxTarget": lambda o: [o[1], o[2]],
+    "_contrib_boolean_mask": lambda o: list(o),
+}
+# factorizations, fixed up to the signs of Q's or U's rows: checked by
+# their invariants, their gradients with the cotangents turned to the
+# card's signs
+DECOMPOSITIONS = ("linalg_gelqf", "linalg_syevd")
+
+
+def _ops_names(card, dev, names, what):
+    """Every op of `names` on the card against the CPU: forward and
+    gradients in float32 (the sweeps' kept sets exactly), the
+    factorizations by their invariants, and the bfloat16 forward
+    finite (where the sweep runs the op in bfloat16)."""
     from incubator_mxnet_torch.tools import op_cases
-    names = op_cases.core_names()
     worst, bad, n_grad = {}, [], 0
     for name in names:
+        canon = op_cases.canonical_name(name)
         arrays, attrs = op_cases.build_case(name)
         try:
+            if canon in DECOMPOSITIONS:
+                worst[name] = _ops_decomposition(name, arrays, dev)
+                n_grad += 1
+                continue
             host, host_g = _ops_run(name, arrays, attrs, "cpu", grad=True)
             got, got_g = _ops_run(name, arrays, attrs, dev, grad=True)
-            low, _ = _ops_run(name, arrays, attrs, dev, torch.bfloat16)
+            low = [] if canon in op_cases.BF16_SKIP else \
+                _ops_run(name, arrays, attrs, dev, torch.bfloat16)[0]
         except Exception as e:           # noqa: BLE001 - listed, then raised
             bad.append(f"{name}: {type(e).__name__}: {e}")
             continue
@@ -3788,6 +3839,10 @@ def _ops_core(card, dev):
         if host_g is not None:
             n_grad += 1
             errs += [_ops_err(g, h) for g, h in zip(got_g or [], host_g)]
+        if canon in EXACT_PARTS:
+            same = all(torch.equal(g.cpu(), h) for g, h in zip(
+                EXACT_PARTS[canon](got), EXACT_PARTS[canon](host)))
+            errs.append(0.0 if same else float("inf"))
         worst[name] = max(errs)
         finite = all(bool(torch.isfinite(o.float()).all()) for o in low
                      if o.is_floating_point())
@@ -3795,13 +3850,133 @@ def _ops_core(card, dev):
             bad.append(f"{name}: error {worst[name]:.2e}, bf16 finite "
                        f"{finite}")
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[ops-check] {len(names)} core op names (math, reduce, shape, nn, "
-        f"attention) on the card against the CPU in float32 (TF32 off), "
-        f"{n_grad} with gradients: largest error "
-        f"{max(worst.values(), default=0):.2e} of the largest value (bound "
-        f"{OPS_RTOL:g}), worst "
+    log(f"[ops-check] {len(names)} {what} op names on the card against "
+        f"the CPU in float32 (TF32 off), {n_grad} with gradients: largest "
+        f"error {max(worst.values(), default=0):.2e} of the largest value "
+        f"(bound {OPS_RTOL:g}), worst "
         + ", ".join(f"{n} {e:.1e}" for n, e in top)
         + f"; bf16 forwards finite ({card})")
+    return bad
+
+
+def _ops_decomposition(name, arrays, dev):
+    """gelqf's A = L·Q and Q·Qᵀ = I, or syevd's Uᵀ·diag(Λ)·U = A and
+    U·Uᵀ = I, on the card; |⟨row_card, row_cpu⟩| = 1 for Q's or U's
+    rows and L or Λ against the CPU; then the gradient of A for seeded
+    cotangents turned by the rows' signs, against the CPU's.  The
+    largest error as a share of its scale."""
+    from incubator_mxnet_torch import autograd
+    from incubator_mxnet_torch.ndarray import NDArray
+    from incubator_mxnet_torch.ops.registry import apply_op
+    a = torch.from_numpy(arrays[0])
+    runs = {}
+    for where in ("cpu", dev):
+        x = NDArray(a.to(where))
+        x.attach_grad()
+        with autograd.record():
+            out = apply_op(name, x)
+        runs[where] = (x, out)
+    (hx, (h0, h1)), (cx, (c0, c1)) = runs["cpu"], runs[dev]
+    gel = "gelqf" in name
+    rows = (h1 if gel else h0).data, (c1 if gel else c0).data.cpu()
+    sign = torch.sign((rows[0] * rows[1]).sum(-1))                # (..., m)
+    eye = torch.eye(rows[1].shape[-2], dtype=torch.float64)
+    q = rows[1].double()
+    scale = a.abs().max().item()
+    if gel:
+        L = c0.data.cpu().double()
+        errs = [(L @ q - a.double()).abs().max().item() / scale,
+                (L * sign[..., None, :] - h0.data.double()).abs().max()
+                .item() / scale]
+    else:
+        lam = c1.data.cpu().double()
+        rec = q.transpose(-1, -2) @ (lam[..., :, None] * q)
+        errs = [(rec - a.double()).abs().max().item() / scale,
+                (lam - h1.data.double()).abs().max().item() / scale]
+    errs += [(q @ q.transpose(-1, -2) - eye).abs().max().item(),
+             ((rows[0] * rows[1]).sum(-1).abs() - 1).abs().max().item()]
+    g = torch.Generator().manual_seed(3)
+    cts = [torch.randn(o.shape, generator=g) for o in (h0, h1)]
+    autograd.backward([h0, h1], [NDArray(c) for c in cts])
+    turned = ([cts[0] * sign[..., None, :], cts[1] * sign[..., :, None]]
+              if gel else [cts[0] * sign[..., :, None], cts[1]])
+    autograd.backward([c0, c1], [NDArray(c.to(dev)) for c in turned])
+    errs.append(_ops_err(cx.grad.data, hx.grad.data))
+    return max(errs)
+
+
+# the Criteo display-ads CSR input: 13 numeric and 26 categorical fields
+# a row, hashed into 2^20 features, times a 64-wide float32 weight
+CSR_ROWS, CSR_FEATURES, CSR_NNZ_ROW, CSR_WIDTH = 8192, 1 << 20, 39, 64
+
+
+def _ops_csr(card, dev):
+    """`nd.sparse.dot` of a Criteo-sized CSR batch and a dense weight,
+    with and without `transpose_a`, card against CPU, and its times."""
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.context import Context
+    rng = np.random.RandomState(11)
+    cols = np.sort(rng.randint(0, CSR_FEATURES, (CSR_ROWS, CSR_NNZ_ROW)),
+                   axis=1).reshape(-1)
+    vals = np.ones((CSR_ROWS, CSR_NNZ_ROW), np.float32)
+    vals[:, :13] = rng.lognormal(0.0, 1.0, (CSR_ROWS, 13))
+    indptr = np.arange(0, CSR_ROWS * CSR_NNZ_ROW + 1, CSR_NNZ_ROW)
+    w = rng.randn(CSR_FEATURES, CSR_WIDTH).astype(np.float32) * 0.01
+    g = rng.randn(CSR_ROWS, CSR_WIDTH).astype(np.float32)
+    shape = (CSR_ROWS, CSR_FEATURES)
+    bad, lines = [], []
+    for transpose_a, rhs in ((False, w), (True, g)):
+        res = {}
+        for where in ("cpu", dev):
+            ctx = Context.from_device(torch.device(where))
+            x = nd.sparse.csr_matrix((vals.reshape(-1), cols, indptr),
+                                     shape=shape, ctx=ctx)
+            r = nd.array(rhs, ctx=ctx)
+            res[where] = (nd.sparse.dot(x, r, transpose_a=transpose_a),
+                          x, r)
+        err = _ops_err(res[dev][0].data, res["cpu"][0].data)
+        x, r = res[dev][1], res[dev][2]
+        ms = time_ms(lambda: nd.sparse.dot(x, r, transpose_a=transpose_a))
+        lines.append(f"transpose_a={transpose_a}: error {err:.1e}, "
+                     f"{ms:.3f} ms")
+        if err > OPS_RTOL:
+            bad.append(f"csr dot transpose_a={transpose_a}: error {err:.2e}")
+    log(f"[ops-check] CSR dot at {CSR_ROWS} x {CSR_FEATURES} with "
+        f"{CSR_NNZ_ROW} entries a row, times a {CSR_WIDTH}-wide float32 "
+        f"weight, card against CPU: " + "; ".join(lines) + f" ({card})")
+    return bad
+
+
+def _ops_repairs16(dev):
+    """The device-side cases of the nine port repairs, on the card: a
+    scalar second operand, out-of-range reads and writes, saturating
+    casts, integer % 0 and Embedding of integer weights."""
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.context import Context
+    ctx = Context.from_device(dev)
+    bad = []
+    x0 = np.array([[1, 5, 2], [7, 3, 9]], np.int32)
+    x = nd.array(x0, ctx=ctx, dtype="int32")
+    checks = {
+        "maximum(x, 4)": np.array_equal(nd.maximum(x, 4).asnumpy(),
+                                        np.maximum(x0, 4)),
+        "x[5] reads the last row": np.array_equal(x[5].asnumpy(), x0[1]),
+        "uint8 cast saturates": nd.array(
+            np.array([300.0, -1.0, np.nan], np.float32), ctx=ctx)
+        .astype("uint8").asnumpy().tolist() == [255, 0, 0],
+        "int32 % 0 is 0": not (x % 0).asnumpy().any(),
+        "int Embedding fills": nd.Embedding(
+            nd.array(np.array([1, 9]), ctx=ctx, dtype="int32"), x,
+            input_dim=2, output_dim=3).asnumpy()[1].tolist()
+        == [np.iinfo(np.int32).min] * 3,
+    }
+    y = nd.array(x0, ctx=ctx, dtype="int32")
+    y[[0, 7]] = 0
+    checks["x[[0, 7]] = 0 drops row 7"] = np.array_equal(
+        y.asnumpy(), np.stack([np.zeros(3, np.int32), x0[1]]))
+    bad = [f"repair: {k}" for k, ok in checks.items() if not ok]
+    log(f"[ops-check] the port repairs' device-side cases on the card: "
+        f"{len(checks) - len(bad)} of {len(checks)} hold")
     return bad
 
 
@@ -3921,8 +4096,9 @@ def _ops_repairs(dev):
 
 
 def phase_ops_check(card):
-    """Every core op name on the card against the port on the CPU, the
-    random ops by distribution and seed, and the six repairs."""
+    """Every op name (core and the rest) on the card against the port on
+    the CPU, the random ops by distribution and seed, the repairs, and
+    the CSR dot at Criteo's size."""
     dev = _card()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -3930,7 +4106,13 @@ def phase_ops_check(card):
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
     try:
-        bad = _ops_core(card, dev) + _ops_random(dev) + _ops_repairs(dev)
+        from incubator_mxnet_torch.tools import op_cases
+        bad = (_ops_names(card, dev, op_cases.core_names(),
+                          "core (math, reduce, shape, nn, attention)")
+               + _ops_names(card, dev, op_cases.rest_names(),
+                            "extended, contrib and linalg")
+               + _ops_random(dev) + _ops_repairs(dev) + _ops_repairs16(dev)
+               + _ops_csr(card, dev))
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -3938,6 +4120,371 @@ def phase_ops_check(card):
     if bad:
         raise AssertionError("[ops-check] " + "; ".join(bad))
 
+
+
+# ---------------------------------------------------------------------
+# [detect-check]: the detection ops at SSD300's and Faster R-CNN's sizes
+# ---------------------------------------------------------------------
+# SSD300 (Liu et al., ECCV 2016) on VGG16-reduced, as upstream MXNet's
+# example/ssd configures it at 300: (feature map side, the two sizes,
+# the ratios); 8,732 anchors
+SSD300_MAPS = ((38, (0.1, 0.141), (1.0, 2.0, 0.5)),
+               (19, (0.2, 0.272), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+               (10, (0.37, 0.447), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+               (5, (0.54, 0.619), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+               (3, (0.71, 0.79), (1.0, 2.0, 0.5)),
+               (1, (0.88, 0.961), (1.0, 2.0, 0.5)))
+SSD_ANCHORS = 8732
+SSD_BATCH, SSD_LABELS, VOC_CLASSES = 32, 16, 21
+# images held against the CPU (each image's sweep is its own)
+SSD_CHECK_IMAGES = 8
+# Faster R-CNN R-50-C4: res4 features of 600 x 800 images at stride 16,
+# 512 RoIs an image, 14 x 14 bins, 2 x 2 samples
+RCNN_FEAT = (2, 1024, 38, 50)
+RCNN_ROIS, RCNN_POOL, RCNN_SCALE, RCNN_SAMPLES = 512, 14, 1.0 / 16, 2
+RCNN_CHECK_ROIS = 64
+NEAR = 1e-5                # a disagreement counts only this near a threshold
+
+
+def _ssd300_anchors(ctx):
+    from incubator_mxnet_torch import nd
+    parts = [nd.contrib.MultiBoxPrior(nd.zeros((1, 1, side, side), ctx=ctx),
+                                      sizes=sizes, ratios=ratios)
+             for side, sizes, ratios in SSD300_MAPS]
+    return nd.concat(*parts, dim=1)
+
+
+def _ssd_inputs(rng):
+    """Labels (B, 16, 5) with 1-16 objects an image, padded with class
+    -1; class scores (B, 21, A) and box offsets (B, A * 4)."""
+    label = np.full((SSD_BATCH, SSD_LABELS, 5), -1.0, np.float32)
+    for i in range(SSD_BATCH):
+        n = rng.randint(1, SSD_LABELS + 1)
+        xy = rng.uniform(0.0, 0.8, (n, 2))
+        wh = rng.uniform(0.05, 0.6, (n, 2))
+        label[i, :n, 0] = rng.randint(0, VOC_CLASSES - 1, n)
+        label[i, :n, 1:] = np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1)
+    logits = rng.randn(SSD_BATCH, VOC_CLASSES, SSD_ANCHORS) \
+        .astype(np.float32) * 2
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rng.randn(SSD_BATCH, SSD_ANCHORS * 4) * 0.5).astype(np.float32)
+    return label, prob, loc
+
+
+def _timed(fn):
+    """(result, device ms of one call, peak MiB of the call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return out, time_ms(fn, iters=5, warmup=1), peak
+
+
+def _near_or_bad(mismatch, near_at):
+    """(near-threshold count, other count) of the rows of mismatch mask
+    (images, rows): `near_at(image, row)` says whether a row lies within
+    `NEAR` of a threshold."""
+    idx = torch.nonzero(mismatch).tolist()
+    k = sum(1 for b, j in idx if near_at(b, j))
+    return k, len(idx) - k
+
+
+def _iou_near(boxes, b, j, thresh):
+    """Whether box j of image b has an IoU within NEAR of `thresh` with
+    any box of its image."""
+    from incubator_mxnet_torch.ops.extended import box_iou_corner
+    iou = box_iou_corner(boxes[b, j:j + 1], boxes[b])[0]
+    return bool(((iou - thresh).abs() < NEAR).any())
+
+
+def phase_detect_check(card):
+    """MultiBoxPrior at SSD300's 8,732 anchors, MultiBoxTarget,
+    MultiBoxDetection and box_nms at batch 32 and 21 classes, ROIAlign
+    at R-50-C4's head: the card against the CPU from one seeded input
+    (targets, masks and kept sets equal but where an IoU or score lies
+    within 1e-5 of its threshold; continuous outputs within 1e-5 of
+    their largest value), each op's device ms and peak memory."""
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.context import Context
+    from incubator_mxnet_torch.ops.extended import box_iou_corner
+    dev = _card()
+    ctx, host = Context.from_device(dev), Context.from_device(
+        torch.device("cpu"))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    bad, lines = [], []
+    _reset_all_counts()
+    try:
+        anchors, ms, mib = _timed(lambda: _ssd300_anchors(ctx))
+        ref_anchors = _ssd300_anchors(host)
+        err = _ops_err(anchors.data, ref_anchors.data)
+        lines.append(f"MultiBoxPrior x6 {ms:.3f} ms {mib:.1f} MiB")
+        if anchors.shape != (1, SSD_ANCHORS, 4) or err > NEAR:
+            bad.append(f"anchors {anchors.shape}, error {err:.2e}")
+        label, prob, loc = _ssd_inputs(np.random.RandomState(12))
+        c = SSD_CHECK_IMAGES
+        dl, dp, dloc = (nd.array(a, ctx=ctx) for a in (label, prob, loc))
+        hl, hp, hloc = (nd.array(a[:c], ctx=host) for a in (label, prob, loc))
+
+        # targets
+        tgt, ms, mib = _timed(lambda: nd.contrib.MultiBoxTarget(
+            anchors, dl, dp))
+        ref = nd.contrib.MultiBoxTarget(ref_anchors, hl, hp)
+        lines.append(f"MultiBoxTarget {ms:.3f} ms {mib:.1f} MiB")
+        lab = torch.from_numpy(label[:c])
+        iou = box_iou_corner(ref_anchors.data[0], lab[..., 1:])
+        iou = torch.where(lab[:, None, :, 0] >= 0, iou, torch.tensor(-1.0))
+        near = ((iou.amax(2) - 0.5).abs() < NEAR)               # (c, A)
+        mism = (tgt[2].data[:c].cpu() != ref[2].data) | (
+            tgt[1].data[:c].cpu().reshape(c, -1, 4)
+            != ref[1].data.reshape(c, -1, 4)).any(-1)
+        k, other = _near_or_bad(mism, lambda b, j: bool(near[b, j]))
+        same = ~mism.repeat_interleave(4, dim=1)
+        err = _ops_err(tgt[0].data[:c].cpu()[same], ref[0].data[same])
+        lines.append(f"targets: {other} anchors differ, {k} near 0.5, "
+                     f"box targets error {err:.1e}")
+        if other or err > NEAR:
+            bad.append(f"MultiBoxTarget: {other} anchors differ away from "
+                       f"the threshold, box targets error {err:.2e}")
+
+        # decoding and NMS
+        det, ms, mib = _timed(lambda: nd.contrib.MultiBoxDetection(
+            dp, dloc, anchors, threshold=0.01, nms_threshold=0.45))
+        ref = nd.contrib.MultiBoxDetection(hp, hloc, ref_anchors,
+                                           threshold=0.01,
+                                           nms_threshold=0.45)
+        got, want = det.data[:c].cpu(), ref.data
+        kept_got, kept_want = got[..., 0] >= 0, want[..., 0] >= 0
+        # every row in score order, none dropped: the scores and boxes
+        # that a disagreement is checked against
+        every = nd.contrib.MultiBoxDetection(hp, hloc, ref_anchors,
+                                             threshold=-1.0,
+                                             nms_threshold=2.0).data
+        k, other = _near_or_bad(
+            kept_got != kept_want,
+            lambda b, j: abs(float(every[b, j, 1]) - 0.01) < NEAR
+            or _iou_near(every[..., 2:], b, j, 0.45))
+        both = kept_got & kept_want
+        err = _ops_err(got[both], want[both])
+        lines.append(f"MultiBoxDetection {ms:.3f} ms {mib:.1f} MiB, kept "
+                     f"{int(kept_want.sum())} of {c * SSD_ANCHORS} rows on "
+                     f"{c} images, {other} differ, {k} near a threshold, "
+                     f"error {err:.1e}")
+        if other or err > NEAR:
+            bad.append(f"MultiBoxDetection: {other} rows differ away from "
+                       f"a threshold, error {err:.2e}")
+
+        rng = np.random.RandomState(13)
+        rows = np.concatenate([
+            rng.randint(0, VOC_CLASSES - 1, (SSD_BATCH, SSD_ANCHORS, 1)),
+            rng.uniform(0, 1, (SSD_BATCH, SSD_ANCHORS, 1)),
+            np.broadcast_to(ref_anchors.asnumpy(), (SSD_BATCH, SSD_ANCHORS,
+                                                    4))
+            + rng.randn(SSD_BATCH, SSD_ANCHORS, 4) * 0.01], -1) \
+            .astype(np.float32)
+        kw = dict(overlap_thresh=0.45, valid_thresh=0.01, id_index=0,
+                  topk=400)
+        drows = nd.array(rows, ctx=ctx)
+        nms, ms, mib = _timed(lambda: nd.contrib.box_nms(drows, **kw))
+        ref = nd.contrib.box_nms(nd.array(rows[:c], ctx=host), **kw)
+        got, want = nms.data[:c].cpu(), ref.data
+        boxes = torch.from_numpy(rows[:c, :, 2:])
+        k, other = _near_or_bad(
+            (got[..., 1] < 0) != (want[..., 1] < 0),
+            lambda b, j: abs(float(rows[b, j, 1]) - 0.01) < NEAR
+            or _iou_near(boxes, b, j, 0.45))
+        lines.append(f"box_nms {ms:.3f} ms {mib:.1f} MiB, kept "
+                     f"{int((want[..., 1] >= 0).sum())} rows, {other} "
+                     f"differ, {k} near 0.45")
+        if other:
+            bad.append(f"box_nms: {other} rows differ away from 0.45")
+
+        # RoIs
+        rng = np.random.RandomState(14)
+        feat = rng.randn(*RCNN_FEAT).astype(np.float32)
+        xy = rng.uniform(-32, 760, (2 * RCNN_ROIS, 2))
+        wh = rng.uniform(16, 400, (2 * RCNN_ROIS, 2))
+        rois = np.concatenate([np.repeat([0, 1], RCNN_ROIS)[:, None], xy,
+                               xy + wh], 1).astype(np.float32)
+        df, dr = nd.array(feat, ctx=ctx), nd.array(rois, ctx=ctx)
+        kw = dict(pooled_size=RCNN_POOL, spatial_scale=RCNN_SCALE,
+                  sample_ratio=RCNN_SAMPLES)
+        pooled, ms, mib = _timed(lambda: nd.contrib.ROIAlign(df, dr, **kw))
+        pick = np.concatenate([np.arange(RCNN_CHECK_ROIS // 2),
+                               RCNN_ROIS + np.arange(RCNN_CHECK_ROIS // 2)])
+        ref = nd.contrib.ROIAlign(nd.array(feat, ctx=host),
+                                  nd.array(rois[pick], ctx=host), **kw)
+        err = _ops_err(pooled.data[torch.from_numpy(pick).to(dev)],
+                       ref.data)
+        lines.append(f"ROIAlign {tuple(pooled.shape)} {ms:.3f} ms "
+                     f"{mib:.1f} MiB, error {err:.1e} on {len(pick)} RoIs")
+        if err > NEAR:
+            bad.append(f"ROIAlign: error {err:.2e}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    launched = {k: v for k, v in _all_counts().items() if v}
+    if launched:
+        bad.append(f"hand kernels launched: {launched}")
+    for line in lines:
+        log(f"[detect-check] {line} ({card})")
+    log(f"[detect-check] done in {time.time() - t0:.1f} s; no hand kernel "
+        f"launched")
+    if bad:
+        raise AssertionError("[detect-check] " + "; ".join(bad))
+
+
+# ---------------------------------------------------------------------
+# [train-ssd]: example/ssd/train_ssd.py's loop through the port
+# ---------------------------------------------------------------------
+SSD_IMG = 32
+SSD_SIZES, SSD_RATIOS = (0.3, 0.45, 0.6), (1.0, 1.5)
+SSD_TRAIN = dict(batch=32, batches=150, lr=2e-3, eval_batch=64)
+SSD_MIN_MIOU = 0.3                    # the example's own bar
+
+
+def _ssd_batch(batch, rng):
+    """The example's synthetic images: one bright rectangle (class 0) on
+    noise; labels (B, 1, 5) normalized."""
+    X = rng.rand(batch, 1, SSD_IMG, SSD_IMG).astype(np.float32) * 0.3
+    L = np.zeros((batch, 1, 5), np.float32)
+    for i in range(batch):
+        w, h = rng.randint(8, 17), rng.randint(8, 17)
+        x1, y1 = rng.randint(0, SSD_IMG - w), rng.randint(0, SSD_IMG - h)
+        X[i, 0, y1:y1 + h, x1:x1 + w] += 1.0
+        L[i, 0] = [0, x1 / SSD_IMG, y1 / SSD_IMG, (x1 + w) / SSD_IMG,
+                   (y1 + h) / SSD_IMG]
+    return X, L
+
+
+def _tiny_ssd(num_anchors):
+    """The example's TinySSD: three conv-relu-pool stages (16, 32, 64
+    channels), class and box heads."""
+    from incubator_mxnet_torch import gluon
+
+    class TinySSD(gluon.nn.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.backbone = gluon.nn.HybridSequential()
+            for ch in (16, 32, 64):
+                self.backbone.add(
+                    gluon.nn.Conv2D(ch, 3, padding=1, activation="relu"),
+                    gluon.nn.MaxPool2D(2))
+            self.cls_head = gluon.nn.Conv2D(num_anchors * 2, 3, padding=1)
+            self.box_head = gluon.nn.Conv2D(num_anchors * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            feat = self.backbone(x)
+            cls = self.cls_head(feat)
+            box = self.box_head(feat)
+            cls = F.reshape(F.transpose(cls, axes=(0, 2, 3, 1)),
+                            shape=(0, -1, 2))
+            box = F.reshape(F.transpose(box, axes=(0, 2, 3, 1)),
+                            shape=(0, -1))
+            return feat, cls, box
+    return TinySSD()
+
+
+def _box_iou_np(a, b):
+    tl = np.maximum(a[:, :2], b[:, :2])
+    br = np.minimum(a[:, 2:], b[:, 2:])
+    wh = np.maximum(br - tl, 0)
+    inter = wh[:, 0] * wh[:, 1]
+    ua = ((a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+          + (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) - inter)
+    return inter / np.maximum(ua, 1e-12)
+
+
+def phase_train_ssd(card):
+    """The SSD example's TinySSD trained on the card at its defaults
+    (batch 32, 150 batches, Adam 2e-3, MultiBoxPrior / MultiBoxTarget /
+    MultiBoxDetection, SoftmaxCrossEntropyLoss + HuberLoss), then its
+    evaluation on 64 images: mean IoU over the example's bar 0.3,
+    recall@0.5, a step's wall and device time; no hand kernel runs."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, gluon, nd
+    from incubator_mxnet_torch.context import Context
+    ctx = Context.from_device(_card())
+    cfg = SSD_TRAIN
+    rng = np.random.RandomState(0)
+    mx.random.seed(0)
+    num_anchors = len(SSD_SIZES) + len(SSD_RATIOS) - 1
+    net = _tiny_ssd(num_anchors)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    cls_loss = gluon.loss.SoftmaxCrossEntropyLoss()
+    box_loss = gluon.loss.HuberLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": cfg["lr"]})
+    anchors, losses = None, []
+
+    def step(X, L):
+        with autograd.record():
+            _, cls_pred, box_pred = net(X)
+            bt, bm, ct = nd.contrib.MultiBoxTarget(
+                anchors, L, nd.transpose(cls_pred, axes=(0, 2, 1)))
+            loss = cls_loss(cls_pred, ct).mean() \
+                + box_loss(box_pred * bm, bt * bm).mean()
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    _reset_all_counts()
+    t0 = time.time()
+    step_s = []
+    for it in range(cfg["batches"]):
+        X, L = (nd.array(a, ctx=ctx) for a in _ssd_batch(cfg["batch"], rng))
+        if anchors is None:
+            feat, _, _ = net(X)
+            anchors = nd.contrib.MultiBoxPrior(feat, sizes=SSD_SIZES,
+                                               ratios=SSD_RATIOS)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = step(X, L)
+        losses.append(float(loss.asnumpy()))
+        step_s.append(time.perf_counter() - s0)
+        if (it + 1) % 30 == 0:
+            log(f"[train-ssd] batch {it + 1}: loss {losses[-1]:.4f}")
+    train_s = time.time() - t0
+    X, L = (nd.array(a, ctx=ctx) for a in _ssd_batch(cfg["batch"], rng))
+    dev_ms = device_ms(lambda: step(X, L), iters=5)
+    counts = _all_counts()
+    Xe, Le = _ssd_batch(cfg["eval_batch"], rng)
+    _, cls_pred, box_pred = net(nd.array(Xe, ctx=ctx))
+    probs = nd.softmax(nd.transpose(cls_pred, axes=(0, 2, 1)), axis=1)
+    det = nd.contrib.MultiBoxDetection(probs, box_pred, anchors,
+                                       threshold=0.1,
+                                       nms_threshold=0.45).asnumpy()
+    gt = Le[:, 0, 1:]
+    ious = []
+    for i in range(det.shape[0]):
+        rows = det[i][det[i, :, 0] >= 0]
+        if not len(rows):
+            ious.append(0.0)
+            continue
+        best = rows[rows[:, 1].argmax()]
+        ious.append(float(_box_iou_np(best[None, 2:], gt[i][None])[0]))
+    miou = float(np.mean(ious))
+    recall = float(np.mean([v > 0.5 for v in ious]))
+    steady = sorted(step_s[10:])
+    log(f"[train-ssd] TinySSD {cfg['batches']} batches of {cfg['batch']} "
+        f"in {train_s:.1f} s: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"step wall {1e3 * steady[len(steady) // 2]:.2f} ms (median), "
+        f"device {dev_ms:.2f} ms; mean IoU {miou:.3f}, recall@0.5 "
+        f"{recall:.3f} on {det.shape[0]} images ({card})")
+    launched = {k: v for k, v in counts.items() if v}
+    if launched:
+        raise AssertionError(f"[train-ssd] hand kernels launched: {launched}")
+    log("[train-ssd] no hand kernel launched")
+    if not all(math.isfinite(v) for v in losses) or miou <= SSD_MIN_MIOU:
+        raise AssertionError(f"[train-ssd] mean IoU {miou:.3f} (bar "
+                             f"{SSD_MIN_MIOU}), losses finite "
+                             f"{all(math.isfinite(v) for v in losses)}")
 
 
 def main():
@@ -4004,6 +4551,8 @@ def main():
     torch.cuda.empty_cache()
     ia_fwd, ia_train = phase_interleaved_attn(card)
     phase_ops_check(card)
+    phase_detect_check(card)
+    phase_train_ssd(card)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn]")

@@ -31,5 +31,7 @@ from .optimizer import lr_scheduler
 from . import gluon
 from . import parallel
 from . import models
+from . import rtc
+from . import operator
 
 __version__ = "0.1.0"

@@ -65,6 +65,17 @@ def torch_dtype(dtype):
         raise MXNetError(f"unsupported dtype {dtype!r}") from None
 
 
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def torch_dtype_32(dtype):
+    """`torch_dtype`, with float64 and int64 as float32 and int32: the
+    dtype the JAX package stores for a requested one (JAX runs without
+    x64)."""
+    t = torch_dtype(dtype)
+    return _NARROW.get(t, t)
+
+
 def dtype_name(dtype):
     """The framework's name of a dtype ("bfloat16", "float32", ...)."""
     return str(torch_dtype(dtype)).replace("torch.", "")

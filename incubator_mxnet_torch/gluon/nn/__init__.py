@@ -1,3 +1,4 @@
 """Gluon layers."""
 from .basic_layers import *  # noqa: F401,F403
 from .conv_layers import *  # noqa: F401,F403
+from ..block import Block, HybridBlock  # noqa: F401

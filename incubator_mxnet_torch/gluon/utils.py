@@ -1,7 +1,8 @@
 """Gluon utilities (counterpart of `incubator_mxnet_tpu/gluon/utils.py`):
-`split_data`, `split_and_load`, `clip_global_norm`."""
+`split_data`, `split_and_load`, `clip_global_norm`, `check_sha1`."""
 from __future__ import annotations
 
+import hashlib
 import math
 import warnings
 
@@ -10,7 +11,7 @@ import torch
 from ..base import MXNetError
 from ..ndarray import NDArray, array
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -56,3 +57,12 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
         for a in arrays:
             a *= scale
     return total
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the SHA-1 of file `filename` is hex digest `sha1_hash`."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(block)
+    return sha1.hexdigest() == sha1_hash

@@ -12,7 +12,8 @@ from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
                       waitall, save, load, load_tensors, to_numpy)
 from .. import ops as _ops
 from . import sparse
-from .sparse import BaseSparseNDArray, RowSparseNDArray  # noqa: F401
+from .sparse import (BaseSparseNDArray, RowSparseNDArray,  # noqa: F401
+                     CSRNDArray)
 from ..ops import registry as _registry
 from ..random import seed as _seed
 

@@ -33,7 +33,7 @@ import weakref
 import numpy as _np
 import torch
 
-from ..base import MXNetError, torch_dtype, dtype_name, numpy_dtype
+from ..base import MXNetError, torch_dtype_32, dtype_name, numpy_dtype
 from ..context import Context, as_device
 from ..autograd import grad_scope, is_recording
 
@@ -184,9 +184,10 @@ class NDArray:
         return int(self.asscalar())
 
     def astype(self, dtype, copy=True):
-        """This array cast to `dtype`; with `copy=False` and the same
-        dtype, this array itself (the JAX method's rule)."""
-        dt = torch_dtype(dtype)
+        """This array cast to `dtype` (float64 and int64 as float32 and
+        int32); with `copy=False` and the same dtype, this array itself
+        (the JAX method's rule)."""
+        dt = torch_dtype_32(dtype)
         if not copy and dt == self._data.dtype:
             return self
         from ..ops.registry import apply_op
@@ -348,8 +349,10 @@ class NDArray:
             raise MXNetError("in-place assignment on an array is not "
                              "allowed inside autograd.record()")
         spec, arrays = _canon_index(key, self._data.device)
-        flips, tkey = torch_index(rebuild_index(spec, arrays),
-                                  self._data.shape)
+        idx, padded = _write_index(rebuild_index(spec, arrays),
+                                   self._data.shape)
+        if idx is None:
+            return                  # an integer key past the end: dropped
         self._prepare_write()
         t = self._data
         if isinstance(value, NDArray):
@@ -363,6 +366,10 @@ class NDArray:
             value = torch.as_tensor(_np.asarray(value)).to(device=t.device,
                                                            dtype=t.dtype)
         with torch.no_grad():
+            if padded:
+                _put_in_range(t, idx, padded, value)
+                return
+            flips, tkey = torch_index(idx, t.shape)
             if not flips:
                 t[tkey] = value
                 return
@@ -707,22 +714,95 @@ def rebuild_index(spec, arrays):
     return out if isinstance(out, tuple) else (out,)
 
 
+def _component_dims(idx, ndim):
+    """The dim of the indexed array that each component of index tuple
+    `idx` starts at (None for a new axis)."""
+    used = sum(0 if k is None or k is Ellipsis else
+               (k.ndim if isinstance(k, torch.Tensor) and
+                k.dtype == torch.bool else 1) for k in idx)
+    dims, dim = [], 0
+    for k in idx:
+        if k is None:
+            dims.append(None)
+            continue
+        dims.append(dim)
+        if k is Ellipsis:
+            dim += ndim - used
+        elif isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            dim += k.ndim
+        else:
+            dim += 1
+    return dims
+
+
+def _is_int_array(k):
+    return isinstance(k, torch.Tensor) and k.dtype != torch.bool
+
+
+def clamp_index(idx, shape):
+    """`idx` read as a `jnp` gather reads it: each integer and integer
+    array component counts from the end where negative and is then
+    clamped into [0, n - 1], so an index past either end reads the
+    nearest row."""
+    out = []
+    for k, dim in zip(idx, _component_dims(idx, len(shape))):
+        if isinstance(k, _INTEGER) and not isinstance(k, bool):
+            n = shape[dim]
+            k = min(max(k + n if k < 0 else k, 0), n - 1)
+        elif _is_int_array(k):
+            n = shape[dim]
+            k = torch.where(k < 0, k + n, k).clamp(0, n - 1)
+        out.append(k)
+    return tuple(out)
+
+
+def _write_index(idx, shape):
+    """(idx, the dims of its integer index arrays if one of them reaches
+    past an end, else ()) for a write, which drops what lies out of
+    range as `.at[].set` does; idx is None when an integer component is
+    out of range (nothing is written)."""
+    bad, arrays = [], []
+    for k, dim in zip(idx, _component_dims(idx, len(shape))):
+        if isinstance(k, _INTEGER) and not isinstance(k, bool):
+            if not -shape[dim] <= k < shape[dim]:
+                return None, ()
+        elif _is_int_array(k) and k.numel():
+            arrays.append(dim)
+            bad.append(((k < -shape[dim]) | (k >= shape[dim])).any())
+    if not bad or not bool(torch.stack(bad).any()):
+        return idx, ()
+    return idx, tuple(arrays)
+
+
+def _put_in_range(t, idx, padded, value):
+    """`t[idx] = value` with the entries of the index arrays on dims
+    `padded` that lie out of range dropped: the array is read through a
+    table of its flat positions with one more row on each such dim, the
+    row that every out-of-range index is sent to, holding -1."""
+    shape = tuple(t.shape)
+    table = torch.full(tuple(n + (d in padded) for d, n in enumerate(shape)),
+                       -1, dtype=torch.int64, device=t.device)
+    table[tuple(slice(0, n) for n in shape)] = torch.arange(
+        t.numel(), device=t.device).reshape(shape)
+    key = []
+    for k, dim in zip(idx, _component_dims(idx, len(shape))):
+        if dim in padded and _is_int_array(k):
+            n = shape[dim]
+            k = torch.where(k < 0, k + n, k)
+            k = torch.where((k < 0) | (k >= n), n, k)
+        key.append(k)
+    flips, tkey = torch_index(tuple(key), table.shape)
+    sel = (table.flip(flips) if flips else table)[tkey]
+    ok = sel >= 0
+    t.put_(sel[ok], value.expand(sel.shape)[ok])
+
+
 def torch_index(idx, shape):
     """(dims to flip, key) such that `t.flip(dims)[key]` is NumPy's
     `t[idx]`: torch takes no negative slice step, so each such slice
     becomes a positive one over its dim flipped."""
-    used = sum(0 if k is None or k is Ellipsis else
-               (k.ndim if isinstance(k, torch.Tensor) and
-                k.dtype == torch.bool else 1) for k in idx)
-    flips, out, dim = [], [], 0
-    for k in idx:
-        if k is None:
-            out.append(k)
-            continue
-        if k is Ellipsis:
-            dim += len(shape) - used
-            out.append(k)
-            continue
+    flips, out = [], []
+    for k, dim in zip(idx, _component_dims(idx, len(shape))):
         if isinstance(k, slice) and k.step is not None and k.step < 0:
             n = shape[dim]
             r = range(*k.indices(n))
@@ -732,8 +812,6 @@ def torch_index(idx, shape):
                 flips.append(dim)
                 k = slice(n - 1 - r[0], n - r[-1], -k.step)
         out.append(k)
-        dim += k.ndim if isinstance(k, torch.Tensor) and \
-            k.dtype == torch.bool else 1
     return flips, tuple(out)
 
 
@@ -759,8 +837,10 @@ def array(source_array, ctx=None, dtype=None):
     int64 and uint64 become float32, int32 and uint32, as JAX stores them
     without x64), a tensor's or NDArray's own, and float32 for Python
     lists, tuples and scalars and numpy scalars.  A 0-d source gives a
-    0-d array.  The result owns its storage, as the JAX package's does:
-    writing into it never changes the source, on any device."""
+    0-d array.  An explicit `dtype` of float64 or int64 is stored as
+    float32 or int32, as in the JAX package.  The result owns its
+    storage, as the JAX package's does: writing into it never changes
+    the source, on any device."""
     if isinstance(source_array, NDArray):
         source_array = source_array._data
     if isinstance(source_array, torch.Tensor):
@@ -775,7 +855,7 @@ def array(source_array, ctx=None, dtype=None):
     dev = as_device(ctx)
     with torch.no_grad():
         return NDArray(t.to(device=dev, dtype=None if dtype is None
-                            else torch_dtype(dtype), copy=True))
+                            else torch_dtype_32(dtype), copy=True))
 
 
 def from_numpy(a, zero_copy=False):
@@ -786,7 +866,7 @@ def from_numpy(a, zero_copy=False):
 def _filled(shape, ctx, dtype, fill):
     if isinstance(shape, _INTEGER):
         shape = (int(shape),)
-    return NDArray(torch.full(tuple(shape), fill, dtype=torch_dtype(
+    return NDArray(torch.full(tuple(shape), fill, dtype=torch_dtype_32(
         dtype if dtype is not None else "float32"), device=as_device(ctx)))
 
 

@@ -14,15 +14,25 @@ import torch.nn.functional as F
 
 from .registry import register
 from .reduce import norm  # noqa: F401  (reached as ops.math.norm too)
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, torch_dtype_32
 
 
 # ----------------------------------------------------------------- unary ----
+def _abs(x):
+    """`jnp.abs`, whose gradient at 0 is 1 (torch's is 0): the branch
+    x >= 0 keeps x; + 0.0 turns its -0.0 into 0.0."""
+    if x.dtype == torch.bool:
+        return x.clone()
+    if not x.is_floating_point():
+        return torch.abs(x)
+    return torch.where(x >= 0, x, -x) + 0.0
+
+
 # the JAX op's functions: dtypes follow torch's promotion, which for
 # these is jnp's (integer data to float32 for the transcendental ones)
 _UNARY = {
     "negative": torch.neg,
-    "abs": lambda x: x.clone() if x.dtype == torch.bool else torch.abs(x),
+    "abs": _abs,
     "sign": torch.sign,
     "exp": torch.exp,
     "expm1": torch.expm1,
@@ -143,10 +153,38 @@ def softrelu(data):
 
 @register("cast", aliases=("Cast",))
 def cast(data, *, dtype):
-    return data.to(torch_dtype(dtype))
+    """`data.astype(dtype)` as `jnp` casts: float64 and int64 are
+    float32 and int32, and a float cast to an integer type saturates at
+    the type's bounds with NaN as 0 (torch's wraps)."""
+    dt = torch_dtype_32(dtype)
+    if data.is_floating_point() and not dt.is_floating_point \
+            and dt != torch.bool:
+        info = torch.iinfo(dt)
+        x = data.detach().to(torch.float64)    # holds every int32 bound
+        x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+        return x.clamp(info.min, info.max).to(dt)
+    return data.to(dt)
 
 
 # ---------------------------------------------------------------- binary ----
+def _operand(x, like):
+    """A Python number as a 0-d tensor on `like`'s device, which takes
+    part in type promotion as a weak scalar, as `jnp` takes it."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=like.device)
+
+
+def _mod(a, b):
+    """`jnp.remainder`: Python's sign rule, and an integer remainder by
+    0 is 0 (torch's raises on the CPU)."""
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.remainder(a, b)
+    zero = b == 0
+    r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
 def _hypot(a, b):
     """`jnp.hypot`: integer operands give float32."""
     if not a.is_floating_point():
@@ -163,7 +201,7 @@ _BINARY = {
     "broadcast_div": (torch.div, ("elemwise_div", "_div", "divide")),
     "broadcast_power": (torch.pow, ("_power", "power", "pow")),
     # Python's sign rule, as `jnp.mod`
-    "broadcast_mod": (torch.remainder, ("_mod", "mod")),
+    "broadcast_mod": (_mod, ("_mod", "mod")),
     "broadcast_maximum": (torch.maximum, ("maximum",)),
     "broadcast_minimum": (torch.minimum, ("minimum",)),
     "broadcast_hypot": (_hypot, ()),
@@ -172,7 +210,7 @@ _BINARY = {
 
 def _make_binary(name, fn):
     def impl(lhs, rhs):
-        return fn(lhs, rhs)
+        return fn(lhs, _operand(rhs, lhs))
     impl.__name__ = impl.__qualname__ = name
     return impl
 
@@ -195,7 +233,7 @@ _CMP = {
 
 def _make_cmp(name, fn):
     def impl(lhs, rhs):
-        return fn(lhs.detach(), rhs.detach()).to(lhs.dtype)
+        return fn(lhs.detach(), _operand(rhs, lhs).detach()).to(lhs.dtype)
     impl.__name__ = impl.__qualname__ = name
     return impl
 
@@ -225,7 +263,8 @@ _SCALAR = {
     "_scalar_mul": (torch.mul, lambda s, x: x * s, ("_mul_scalar",)),
     "_scalar_div": (torch.div, lambda s, x: s / x, ("_div_scalar",)),
     "_scalar_power": (torch.pow, torch.pow, ("_power_scalar",)),
-    "_scalar_mod": (torch.remainder, torch.remainder, ("_mod_scalar",)),
+    "_scalar_mod": (lambda x, s: _mod(x, _operand(s, x)),
+                    lambda s, x: _mod(_operand(s, x), x), ("_mod_scalar",)),
     "_scalar_maximum": (torch.clamp_min, lambda s, x: torch.clamp_min(x, s),
                         ("_maximum_scalar",)),
     "_scalar_minimum": (torch.clamp_max, lambda s, x: torch.clamp_max(x, s),
@@ -270,17 +309,19 @@ for _name, (_fn, _rfn) in _SCALAR_CMP.items():
 
 # ---------------------------------------------------------------- index ----
 def _indexed(data, key_spec, arrays):
-    from ..ndarray.ndarray import rebuild_index, torch_index
+    from ..ndarray.ndarray import rebuild_index, torch_index, clamp_index
     arrays = [a if a.dtype == torch.bool else a.to(torch.int64)
               for a in arrays]
-    flips, key = torch_index(rebuild_index(key_spec, arrays), data.shape)
+    flips, key = torch_index(
+        clamp_index(rebuild_index(key_spec, arrays), data.shape), data.shape)
     return (data.flip(flips) if flips else data)[key]
 
 
 @register("_fancy_index")
 def _fancy_index(data, *arrays, key_spec):
     """data[key]: `key_spec` is `NDArray.__getitem__`'s encoding of the
-    key, with ("__arr__", i) for the i-th index array of `arrays`."""
+    key, with ("__arr__", i) for the i-th index array of `arrays`.  An
+    integer index past an end reads the nearest row (`clamp_index`)."""
     return _indexed(data, key_spec, arrays)
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from .registry import register
-from ..base import torch_dtype
+from ..base import torch_dtype_32
 from ..context import as_device
 from ..random import generator
 
@@ -34,7 +34,7 @@ def random_uniform(*, low=0.0, high=1.0, shape=(), dtype="float32",
                    ctx=None):
     dev, gen = _place(ctx)
     u = torch.rand(_shape(shape), generator=gen, device=dev, dtype=_F32)
-    return (low + (high - low) * u).to(torch_dtype(dtype))
+    return (low + (high - low) * u).to(torch_dtype_32(dtype))
 
 
 @register("_random_normal", aliases=("random_normal", "normal", "randn"))
@@ -42,7 +42,7 @@ def random_normal(*, loc=0.0, scale=1.0, shape=(), dtype="float32",
                   ctx=None):
     dev, gen = _place(ctx)
     z = torch.randn(_shape(shape), generator=gen, device=dev, dtype=_F32)
-    return (loc + scale * z).to(torch_dtype(dtype))
+    return (loc + scale * z).to(torch_dtype_32(dtype))
 
 
 @register("_random_gamma", aliases=("random_gamma",))
@@ -52,7 +52,7 @@ def random_gamma(*, alpha=1.0, beta=1.0, shape=(), dtype="float32",
     dev, gen = _place(ctx)
     a = torch.full(_shape(shape), float(alpha), device=dev, dtype=_F32)
     return (beta * torch._standard_gamma(a, generator=gen)).to(
-        torch_dtype(dtype))
+        torch_dtype_32(dtype))
 
 
 @register("_random_exponential", aliases=("random_exponential",))
@@ -60,14 +60,14 @@ def random_exponential(*, lam=1.0, shape=(), dtype="float32", ctx=None):
     dev, gen = _place(ctx)
     e = torch.empty(_shape(shape), device=dev, dtype=_F32).exponential_(
         generator=gen)
-    return (e / lam).to(torch_dtype(dtype))
+    return (e / lam).to(torch_dtype_32(dtype))
 
 
 @register("_random_poisson", aliases=("random_poisson",))
 def random_poisson(*, lam=1.0, shape=(), dtype="float32", ctx=None):
     dev, gen = _place(ctx)
     rate = torch.full(_shape(shape), float(lam), device=dev, dtype=_F32)
-    return torch.poisson(rate, generator=gen).to(torch_dtype(dtype))
+    return torch.poisson(rate, generator=gen).to(torch_dtype_32(dtype))
 
 
 @register("_random_randint", aliases=("random_randint", "randint"))
@@ -75,7 +75,7 @@ def random_randint(*, low=0, high=1, shape=(), dtype="int32", ctx=None):
     """Integers uniform in [low, high)."""
     dev, gen = _place(ctx)
     return torch.randint(int(low), int(high), _shape(shape), generator=gen,
-                         device=dev, dtype=torch_dtype(dtype))
+                         device=dev, dtype=torch_dtype_32(dtype))
 
 
 @register("_sample_multinomial", aliases=("sample_multinomial",))
@@ -94,7 +94,7 @@ def sample_multinomial(data, *, shape=(), get_prob=False, dtype="int32"):
     draws = torch.multinomial(rows, n, replacement=True,
                               generator=generator(data.device))
     out = draws.reshape(tuple(data.shape[:-1]) + (extra or ()))
-    return out.to(torch_dtype(dtype))
+    return out.to(torch_dtype_32(dtype))
 
 
 @register("_shuffle", aliases=("shuffle",))
@@ -109,4 +109,4 @@ def shuffle(data):
 def sample_bernoulli(*, p=0.5, shape=(), dtype="float32", ctx=None):
     dev, gen = _place(ctx)
     u = torch.rand(_shape(shape), generator=gen, device=dev, dtype=_F32)
-    return (u < p).to(torch_dtype(dtype))
+    return (u < p).to(torch_dtype_32(dtype))

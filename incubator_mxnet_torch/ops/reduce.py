@@ -184,8 +184,10 @@ def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
          dtype="float32"):
     """The k largest (smallest with `is_ascend`) along `axis`, equal
     values in index order, as `lax.top_k`.  `ret_typ` "value", "both"
-    (values, indices) or anything else the indices."""
-    idx = torch.argsort(data.detach(), dim=axis, stable=True,
+    (values, indices) or anything else the indices.  No gradient flows
+    back, as the JAX op is registered `differentiable=False`."""
+    data = data.detach()
+    idx = torch.argsort(data, dim=axis, stable=True,
                         descending=not is_ascend).narrow(axis, 0, k)
     if ret_typ == "value":
         return data.gather(axis, idx)

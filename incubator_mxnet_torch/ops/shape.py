@@ -176,13 +176,24 @@ def lookup_ids(data, rows):
 def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
     """Row lookup under `lookup_ids`' rules: an id that is no row gives
-    a row of NaN, where an unchecked lookup would fault the device.
+    a row of `jnp.take`'s fill value (NaN; for integer weights the
+    type's least value, signed, or its largest, unsigned; True for
+    bool), where an unchecked lookup would fault the device.
     `sparse_grad` is taken and, as in the JAX op, changes nothing here
     (the layer gives the row-sparse gradient)."""
     rows = weight.shape[0]
     ids, valid = lookup_ids(data, rows)
     out = torch.nn.functional.embedding(ids.clamp(0, rows - 1), weight)
-    return out.masked_fill(~valid.unsqueeze(-1), float("nan"))
+    return out.masked_fill(~valid.unsqueeze(-1), _take_fill(weight.dtype))
+
+
+def _take_fill(dtype):
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
 
 
 @register("flatten", aliases=("Flatten",))
