@@ -250,7 +250,36 @@ Phases (each prints its own lines; any failure exits non-zero):
    the port at the example's defaults (batch 32, 150 batches, Adam
    2e-3): mean IoU on 64 images over the example's bar 0.3, recall@0.5,
    a step's wall and device time; no hand kernel.
-34. A JSON line describing each kernel, then the card line, then the
+34. `[io-check]`: the input path on the card against the CPU port, bit
+   for bit: `NDArrayIter` (shuffled, `state()` mid-epoch and
+   `restore()`), `PrefetchingIter` over two iterators, `CSVIter`,
+   `LibSVMIter` on a generated file at Criteo's width (2^20 features,
+   39 entries a row, batches of 8,192; its CSR batches through
+   `nd.sparse.dot` with a 2^20 x 64 weight against the dense product),
+   `DataLoader` with 0 workers, 4 thread workers and 4 process workers
+   (pinned; no process worker initializes CUDA) and
+   `DevicePrefetcher(threads=3)` over a shuffled loader, in the
+   sampler's order; no hand kernel.
+35. `[train-loader]`: `bench_resnet50`'s model and recipe fed by
+   `DataLoader(SyntheticImageDataset(2048, 3 x 224 x 224), 256,
+   shuffle=True, num_workers=min(8, cores), pin_memory=True)` through
+   `DevicePrefetcher(trainer=tr, depth=2)` into `ParallelTrainer.step`
+   for 8 steps (the float32 batch cast to bf16 on the card): the core
+   count, the feed rate alone, the loader-fed step against
+   `[train-resnet]`'s resident step (vs_synthetic), the consumer's
+   stall, a profiled step's device time and idle share; losses finite
+   and falling, the first batch equal to the CPU port's of its indices,
+   no worker process with CUDA, no hand kernel.
+36. `[estimator]`: `Estimator.fit` of `train_dist.py`'s net
+   (resnet18_v1, thumbnail, 10 classes) for 3 epochs of
+   `SyntheticImageDataset(2048, 3 x 32 x 32)` at batch 64 with
+   RandomFlipLeftRight and Normalize, `LoggingHandler`,
+   `CheckpointHandler` and `EarlyStoppingHandler`; held-out accuracy
+   over `EST_MIN_ACC`; the last checkpoint loaded into a fresh net gives
+   its outputs; then `train_dist.py`'s loop body on one card
+   (`NDArrayIter`, `metric.Accuracy`, `callback.Speedometer` text and
+   JSON records; the kvstore left out); no hand kernel.
+37. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -259,6 +288,7 @@ of the repository.
 import contextlib
 import http.client
 import json
+import logging
 import math
 import os
 import re
@@ -4487,6 +4517,586 @@ def phase_train_ssd(card):
                              f"{all(math.isfinite(v) for v in losses)}")
 
 
+# -- the input pipeline and the training-loop helpers --------------------
+
+LOADER_SAMPLES, LOADER_STEPS = 2048, 8          # one epoch of 256
+LOADER_SEED = 5
+IO_ROWS = 1000
+IO_LIBSVM_ROWS = 2 * CSR_ROWS - 1000            # the second batch pads
+IO_DOT_RTOL = 1e-5       # of the largest value: 39 products a row added
+#                          in another order than the dense product's
+EST_SAMPLES, EST_BATCH, EST_EPOCHS = 2048, 64, 3
+EST_SGD = {"learning_rate": 0.05, "momentum": 0.9}   # train_dist.py's
+EST_MIN_ACC = 0.9        # held-out accuracy after the 3 epochs
+EST_OUT_RTOL = 1e-5      # a loaded checkpoint's outputs, of the largest
+DIST_MIN_ACC = 0.8       # train_dist.py's loop: last epoch's accuracy
+
+
+class LoaderProbe:
+    """A dataset for the loader phases: item i of `dataset`, then i, then
+    whether the process that made the item has initialized CUDA and its
+    pid.  A DataLoader's process workers must never open the card."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        img, label = self.dataset[i]
+        return img, label, i, int(torch.cuda.is_initialized()), os.getpid()
+
+
+def _batch_arrays(batch):
+    """The arrays of a DataBatch, a tuple or an NDArray, in order."""
+    if hasattr(batch, "data") and hasattr(batch, "label"):
+        return list(batch.data) + list(batch.label or [])
+    return list(batch) if isinstance(batch, (tuple, list)) else [batch]
+
+
+def _bit_equal(card_batches, cpu_batches, what, columns=None):
+    """Each card batch's arrays on the card and equal in dtype and bits to
+    the CPU port's; `columns` picks the arrays to compare."""
+    card_batches, cpu_batches = list(card_batches), list(cpu_batches)
+    if len(card_batches) != len(cpu_batches):
+        raise AssertionError(f"[io-check] {what}: {len(card_batches)} card "
+                             f"batches, {len(cpu_batches)} on the CPU")
+    for k, (c, h) in enumerate(zip(card_batches, cpu_batches)):
+        ca, ha = _batch_arrays(c), _batch_arrays(h)
+        if columns is not None:
+            ca, ha = [ca[i] for i in columns], [ha[i] for i in columns]
+        if getattr(c, "pad", 0) != getattr(h, "pad", 0):
+            raise AssertionError(f"[io-check] {what}: batch {k} pads "
+                                 f"differ")
+        for j, (a, b) in enumerate(zip(ca, ha)):
+            if a.context.device_type != "gpu":
+                raise AssertionError(f"[io-check] {what}: batch {k} array "
+                                     f"{j} lies on {a.context}")
+            if a.dtype != b.dtype or not np.array_equal(a.asnumpy(),
+                                                        b.asnumpy()):
+                raise AssertionError(f"[io-check] {what}: batch {k} array "
+                                     f"{j} differs from the CPU port's")
+    return len(card_batches)
+
+
+def _check_probe(probes, what):
+    """No item was made by a process that initialized CUDA: `probes` are
+    the (CUDA flag, pid) columns of LoaderProbe batches; returns the pids
+    that made the items."""
+    pids = set()
+    for flags, pid in probes:
+        if flags.asnumpy().any():
+            raise AssertionError(f"{what}: a DataLoader worker process "
+                                 f"initialized CUDA")
+        pids.update(pid.asnumpy().tolist())
+    if os.getpid() in pids:
+        raise AssertionError(f"{what}: items were made in the parent, not "
+                             f"in the worker processes")
+    return pids
+
+
+def _io_iterators(dir_):
+    """NDArrayIter (shuffled, state/restore mid-epoch), PrefetchingIter
+    over two iterators and CSVIter: the card's batches against the CPU
+    port's."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import io
+    rng = np.random.RandomState(0)
+    x = rng.randn(IO_ROWS, 3, 16, 16)                  # float64 -> float32
+    y = rng.randint(0, 10, IO_ROWS)                    # int64 -> int32
+    kw = dict(batch_size=64, shuffle=True, shuffle_seed=3)
+
+    def epoch(make):
+        it = make()
+        first = [it.next() for _ in range(3)]
+        token = it.state()
+        rest = list(it)
+        again = make()
+        again.restore(token)
+        return first + rest, list(again)
+    card, card_again = epoch(lambda: io.NDArrayIter(x, y, **kw))
+    with mx.cpu():
+        host, host_again = epoch(lambda: io.NDArrayIter(x, y, **kw))
+    n = _bit_equal(card, host, "NDArrayIter")
+    _bit_equal(card_again, host_again, "NDArrayIter after restore")
+    _bit_equal(card_again, card[3:], "NDArrayIter restored against its "
+               "own run")
+    lines = [f"NDArrayIter {n} batches (shuffled; state() after 3, "
+             f"restore() replays {len(card_again)})"]
+
+    def two():
+        return io.PrefetchingIter([io.NDArrayIter(x, y, 100),
+                                   io.NDArrayIter({"w": x[:, 0]}, None,
+                                                  100)])
+    card = list(two())
+    with mx.cpu():
+        host = list(two())
+    lines.append(f"PrefetchingIter over 2 iterators "
+                 f"{_bit_equal(card, host, 'PrefetchingIter')} batches")
+    path = os.path.join(dir_, "io.csv")
+    np.savetxt(path, rng.randn(333, 12), delimiter=",")
+    card = list(io.CSVIter(path, (3, 4), batch_size=50))
+    with mx.cpu():
+        host = list(io.CSVIter(path, (3, 4), batch_size=50))
+    lines.append(f"CSVIter {_bit_equal(card, host, 'CSVIter')} batches "
+                 f"(last pad {card[-1].pad})")
+    return lines
+
+
+def _write_libsvm(path, rng):
+    """Criteo's shape: 13 numeric fields (lognormal) and 26 categorical
+    (1.0) a row, hashed into 2^20 columns."""
+    cols = np.sort(rng.randint(0, CSR_FEATURES, (IO_LIBSVM_ROWS,
+                                                 CSR_NNZ_ROW)), axis=1)
+    vals = np.ones((IO_LIBSVM_ROWS, CSR_NNZ_ROW), np.float32)
+    vals[:, :13] = rng.lognormal(0.0, 1.0, (IO_LIBSVM_ROWS, 13))
+    labels = rng.randint(0, 2, IO_LIBSVM_ROWS)
+    with open(path, "w") as f:
+        for lab, c, v in zip(labels, cols, vals):
+            f.write(f"{lab} " + " ".join(f"{i}:{x:.6g}" for i, x in
+                                         zip(c.tolist(), v.tolist()))
+                    + "\n")
+
+
+def _dense_dot(vals, cols, indptr, w, rows=512):
+    """The dense product of a CSR matrix (host members) and `w` on the
+    card, `rows` densified rows at a time."""
+    n = len(indptr) - 1
+    out = torch.empty((n, w.shape[1]), dtype=w.dtype, device=w.device)
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        s, e = int(indptr[r0]), int(indptr[r1])
+        row = np.repeat(np.arange(r1 - r0), np.diff(indptr[r0:r1 + 1]))
+        dense = torch.zeros((r1 - r0, w.shape[0]), dtype=w.dtype,
+                            device=w.device)
+        dense.index_put_((torch.from_numpy(row).to(w.device),
+                          torch.from_numpy(cols[s:e].astype(np.int64))
+                          .to(w.device)),
+                         torch.from_numpy(vals[s:e]).to(w.device),
+                         accumulate=True)
+        out[r0:r1] = dense @ w
+        del dense
+    return out
+
+
+def _io_libsvm(dir_, card):
+    """LibSVMIter at Criteo's width: CSR batches on the card against the
+    CPU port's, and their `nd.sparse.dot` with a 2^20 x 64 weight
+    against the dense product."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import io, nd
+    rng = np.random.RandomState(7)
+    path = os.path.join(dir_, "criteo.libsvm")
+    t0 = time.time()
+    _write_libsvm(path, rng)
+    kw = dict(data_libsvm=path, data_shape=(CSR_FEATURES,),
+              batch_size=CSR_ROWS)
+    t1 = time.time()
+    card_batches = list(io.LibSVMIter(**kw))
+    t2 = time.time()
+    with mx.cpu():
+        host_batches = list(io.LibSVMIter(**kw))
+    w = nd.array(rng.randn(CSR_FEATURES, CSR_WIDTH).astype(np.float32)
+                 * 0.01)
+    errs = []
+    for k, (c, h) in enumerate(zip(card_batches, host_batches)):
+        csr, hcsr = c.data[0], h.data[0]
+        if csr.stype != "csr" or csr.context.device_type != "gpu" or \
+                c.pad != h.pad:
+            raise AssertionError(f"[io-check] LibSVMIter batch {k}: "
+                                 f"{csr.stype} on {csr.context}")
+        members = [getattr(hcsr, m).asnumpy() for m in
+                   ("data", "indices", "indptr")]
+        for m, ref in zip(("data", "indices", "indptr"), members):
+            got = getattr(csr, m)
+            if got.dtype != ref.dtype or not np.array_equal(got.asnumpy(),
+                                                            ref):
+                raise AssertionError(f"[io-check] LibSVMIter batch {k}: "
+                                     f"{m} differs from the CPU port's")
+        if not np.array_equal(c.label[0].asnumpy(), h.label[0].asnumpy()):
+            raise AssertionError(f"[io-check] LibSVMIter batch {k}: labels")
+        got = nd.sparse.dot(csr, w).data
+        ref = _dense_dot(*members, w.data)
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        errs.append(err)
+        if err > IO_DOT_RTOL:
+            raise AssertionError(f"[io-check] LibSVMIter batch {k}: sparse "
+                                 f"dot error {err:.2e} of the largest "
+                                 f"value against the dense product")
+    nnz = sum(int(b.data[0].indptr.asnumpy()[-1]) for b in card_batches)
+    return (f"LibSVMIter {IO_LIBSVM_ROWS} rows x 2^20 features ({nnz} "
+            f"entries; file written in {t1 - t0:.1f} s, parsed in "
+            f"{t2 - t1:.1f} s), {len(card_batches)} CSR batches of "
+            f"{CSR_ROWS} (last pad {card_batches[-1].pad}), members equal "
+            f"to the CPU port's; nd.sparse.dot with a 2^20 x {CSR_WIDTH} "
+            f"weight against the dense product: max error "
+            f"{max(errs):.1e} of the largest value")
+
+
+def _timed_list(loader):
+    t0 = time.time()
+    return list(loader), time.time() - t0
+
+
+def _io_loaders(ds, procs, spawn, spawned):
+    """DataLoader with 0 workers, 4 thread workers and 4 process workers
+    (`procs`, whose first epoch `spawn` runs into `spawned`), all
+    pinned, and DevicePrefetcher(threads=3) over a shuffled loader: the
+    card's batches against the CPU port's, the prefetcher's order
+    against the sampler's."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import io
+    from incubator_mxnet_torch.gluon.data import DataLoader
+    lines = []
+    for workers, thread_pool in ((0, False), (4, True), (4, False)):
+        if workers and not thread_pool:
+            loader = procs
+            spawn.join()
+            if "error" in spawned:
+                raise spawned["error"]
+            card, secs = spawned["card"]
+        else:
+            loader = DataLoader(ds, 32, num_workers=workers,
+                                thread_pool=thread_pool, pin_memory=True)
+            card, secs = _timed_list(loader)
+        with mx.cpu():
+            host = list(loader)
+        loader.close()
+        n = _bit_equal(card, host, f"DataLoader({workers} workers)",
+                       columns=(0, 1, 2))
+        kind = "processes" if workers and not thread_pool else \
+            "threads" if workers else "inline"
+        if kind == "processes":
+            pids = _check_probe([b[3:] for b in card + host],
+                                "[io-check]")
+            kind += f" ({len(pids)} pids, none initialized CUDA)"
+        lines.append(f"DataLoader {workers} workers {kind}: {n} batches "
+                     f"({secs:.2f} s for the card's epoch)")
+    loader = DataLoader(ds, 32, shuffle=True, num_workers=4,
+                        thread_pool=True, pin_memory=True)
+    np.random.seed(LOADER_SEED)
+    order = np.random.permutation(len(ds))
+    np.random.seed(LOADER_SEED)
+    pf = io.DevicePrefetcher(loader, ctx=mx.gpu(0), threads=3)
+    card = list(pf)
+    pf.close()
+    np.random.seed(LOADER_SEED)
+    with mx.cpu():
+        host = list(loader)
+    n = _bit_equal(card, host, "DevicePrefetcher(threads=3)",
+                   columns=(0, 1, 2))
+    got = np.concatenate([b[2].asnumpy() for b in card])
+    if not np.array_equal(got, order):
+        raise AssertionError("[io-check] DevicePrefetcher(threads=3) "
+                             "changed the sampler's order")
+    lines.append(f"DevicePrefetcher(threads=3) over a shuffled loader: "
+                 f"{n} batches in the sampler's order")
+    return lines
+
+
+def phase_io_check(card):
+    """Every iterator and loader of the input path on the card against
+    the CPU port, bit for bit; no hand kernel runs."""
+    from incubator_mxnet_torch.gluon.data import DataLoader
+    from incubator_mxnet_torch.gluon.data.vision import SyntheticImageDataset
+    t0 = time.time()
+    _reset_all_counts()
+    ds = LoaderProbe(SyntheticImageDataset(256, (3, 32, 32)))
+    # the process workers' first epoch starts first, on a thread: their
+    # spawn (each child imports torch) overlaps the other checks
+    procs = DataLoader(ds, 32, num_workers=4, pin_memory=True)
+    spawned = {}
+
+    def first_epoch():
+        try:
+            spawned["card"] = _timed_list(procs)
+        except Exception as e:      # noqa: BLE001 — raised after join
+            spawned["error"] = e
+    spawn = threading.Thread(target=first_epoch)
+    spawn.start()
+    with tempfile.TemporaryDirectory() as d:
+        lines = _io_iterators(d) + [_io_libsvm(d, card)] + \
+            _io_loaders(ds, procs, spawn, spawned)
+    counts = _all_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[io-check] launched hand kernels {counts}")
+    for line in lines:
+        log(f"[io-check] {line}")
+    log(f"[io-check] card batches bit-equal to the CPU port's; no hand "
+        f"kernel launched; {time.time() - t0:.1f} s ({card})")
+
+
+def phase_train_loader(card, resident_step_ms):
+    """`bench_resnet50`'s model and recipe fed by the input path:
+    SyntheticImageDataset(2048, 3x224x224) through a shuffled, pinned
+    DataLoader with process workers and DevicePrefetcher(trainer=tr,
+    depth=2) into ParallelTrainer.step, 8 steps (one epoch); the feed
+    rate alone, the loader-fed step against [train-resnet]'s
+    resident-batch step, the consumer's stall, a profiled step."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import io
+    from incubator_mxnet_torch.gluon.data import DataLoader
+    from incubator_mxnet_torch.gluon.data.dataloader import \
+        default_batchify_fn
+    from incubator_mxnet_torch.gluon.data.vision import SyntheticImageDataset
+    cores = os.cpu_count()
+    workers = min(8, cores)
+    t_start = time.time()
+    net, loss, tr, _, _ = _resnet50_bench()
+    ds = LoaderProbe(SyntheticImageDataset(LOADER_SAMPLES,
+                                           (3, RESNET_SIZE, RESNET_SIZE)))
+    loader = DataLoader(ds, RESNET_BATCH, shuffle=True, num_workers=workers,
+                        pin_memory=True)
+    nbytes = RESNET_BATCH * 3 * RESNET_SIZE ** 2 * 4
+    log(f"[train-loader] os.cpu_count() = {cores}; {workers} worker "
+        f"processes; a batch is {nbytes / 1e6:.1f} MB of float32, "
+        f"depth 2")
+    _reset_all_counts()
+    np.random.seed(LOADER_SEED)
+    pf = io.DevicePrefetcher(loader, trainer=tr, depth=2)
+    losses, stalls, probes, first = [], [], [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(LOADER_STEPS):
+        ts = time.perf_counter()
+        x, y, idx, cuda_flag, pid = next(pf)
+        stalls.append(time.perf_counter() - ts)
+        if step == 0:
+            first = (x.asnumpy(), y.asnumpy(), idx.asnumpy())
+        probes.append((cuda_flag, pid))
+        # the loader gives float32; the net is bfloat16, so the step's
+        # input is cast on the card (ParallelTrainer places nothing)
+        losses.append(tr.step(x.astype("bfloat16"), y))
+        if step == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    losses = [v.asscalar() for v in losses]
+    pf.close()
+    step_ms = (t2 - t1) / (LOADER_STEPS - 1) * 1e3
+    pids = _check_probe(probes, "[train-loader]")
+    with mx.cpu():
+        ref = default_batchify_fn([ds.dataset[int(i)] for i in first[2]])
+    if not (np.array_equal(first[0], ref[0].asnumpy())
+            and np.array_equal(first[1], ref[1].asnumpy())):
+        raise AssertionError("[train-loader] the first batch differs from "
+                             "the CPU port's batch of the same indices")
+    np.random.seed(LOADER_SEED)
+    if not np.array_equal(first[2], np.random.permutation(
+            LOADER_SAMPLES)[:RESNET_BATCH]):
+        raise AssertionError("[train-loader] the first batch is not the "
+                             "sampler's")
+    log(f"[train-loader] {LOADER_STEPS} steps, losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; first step (pool spawn, first batches) "
+        f"{(t1 - t0) * 1e3:.0f} ms; items made by {len(pids)} worker "
+        f"pids, none initialized CUDA; the first batch equals the CPU "
+        f"port's batch of its indices")
+    # the feed alone, the pool warm and no step running: the loader's
+    # page-locked host batches, then the same through the prefetcher
+    t0 = time.perf_counter()
+    with mx.cpu():
+        n = sum(b[0].shape[0] for b in loader)
+    host_feed = n / (time.perf_counter() - t0)
+    pf = io.DevicePrefetcher(loader, trainer=tr, depth=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for last in pf:
+        n += last[0].shape[0]
+    torch.cuda.synchronize()
+    feed = n / (time.perf_counter() - t0)
+    pf.close()
+    loader.close()
+    xb, yb = last[0].astype("bfloat16"), last[1]
+    dev_ms, launches = log_profile(
+        lambda: losses.append(tr.step(xb, yb).asscalar()),
+        f"one loader-fed {RESNET_BATCH}x3x{RESNET_SIZE}x{RESNET_SIZE} "
+        f"training step", tag="[train-loader]")
+    counts = _all_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[train-loader] launched hand kernels "
+                             f"{counts}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train-loader] losses {losses} are not "
+                             f"finite and falling")
+    stall_ms = 1e3 * sum(stalls[1:]) / (LOADER_STEPS - 1)
+    log(f"[train-loader] feed alone, no step: the loader's page-locked "
+        f"host batches {host_feed:.1f} images/s; through DevicePrefetcher "
+        f"onto the card {feed:.1f} images/s ({card})")
+    log(f"[train-loader] loader-fed step {step_ms:.2f} ms "
+        f"({RESNET_BATCH / step_ms * 1e3:.1f} images/s, steps 2-"
+        f"{LOADER_STEPS}, host clock to a synchronize) against "
+        f"[train-resnet]'s resident-batch step {resident_step_ms:.2f} ms: "
+        f"vs_synthetic {resident_step_ms / step_ms:.3f} ({card})")
+    log(f"[train-loader] consumer stall in next(): {stall_ms:.2f} ms a "
+        f"step (steps 2-{LOADER_STEPS}), first step "
+        f"{stalls[0] * 1e3:.0f} ms")
+    log(f"[train-loader] profiled step: {dev_ms:.2f} ms of device time in "
+        f"{launches} launches; against the {step_ms:.2f} ms loader-fed "
+        f"step the device is idle {1 - dev_ms / step_ms:.3f} of the step; "
+        f"no hand kernel launched; {time.time() - t_start:.1f} s")
+    del net, tr
+    torch.cuda.empty_cache()
+
+
+class BatchEndParam:
+    """What a batch-end callback reads (the Module fit loop's argument)."""
+
+    def __init__(self, epoch, nbatch, eval_metric):
+        self.epoch, self.nbatch, self.eval_metric = epoch, nbatch, \
+            eval_metric
+
+
+def _est_loaders():
+    from incubator_mxnet_torch.gluon.data import DataLoader
+    from incubator_mxnet_torch.gluon.data.vision import (
+        SyntheticImageDataset, transforms as T)
+    norm = T.Normalize(0.5, 0.25)
+    train = SyntheticImageDataset(EST_SAMPLES, (3, 32, 32), seed=0) \
+        .transform_first(T.Compose([T.RandomFlipLeftRight(), norm]))
+    val = SyntheticImageDataset(EST_SAMPLES // 4, (3, 32, 32), seed=1) \
+        .transform_first(norm)
+    return (DataLoader(train, EST_BATCH, shuffle=True, num_workers=4,
+                       thread_pool=True, pin_memory=True),
+            DataLoader(val, EST_BATCH, num_workers=4, thread_pool=True))
+
+
+def _resnet18(ctx):
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    net = get_model("resnet18_v1", classes=10, thumbnail=True)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _train_dist_loop(ctx):
+    """example/distributed_training/train_dist.py's loop body on one card
+    (its data recipe, NDArrayIter, Accuracy, 2 epochs), with a
+    Speedometer; the distributed kvstore is left out."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, callback, gluon, io, metric
+    rng = np.random.RandomState(7)
+    proto = rng.randn(10, 3, 32, 32).astype(np.float32)
+    labels = rng.randint(0, 10, EST_SAMPLES)
+    data = proto[labels] + 0.4 * rng.randn(EST_SAMPLES, 3, 32, 32) \
+        .astype(np.float32)
+    train = io.NDArrayIter(data, labels.astype(np.float32),
+                           batch_size=EST_BATCH, shuffle=True)
+    mx.random.seed(0)
+    net = _resnet18(ctx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", EST_SGD)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    speed = callback.Speedometer(EST_BATCH, frequent=16, auto_reset=False,
+                                 emit_json=True)
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        for epoch in range(2):
+            train.reset()
+            acc.reset()
+            for nbatch, batch in enumerate(train):
+                x = batch.data[0].as_in_context(ctx)
+                y = batch.label[0].as_in_context(ctx)
+                with autograd.record():
+                    out = net(x)
+                    loss = loss_fn(out, y).mean()
+                loss.backward()
+                trainer.step(1)
+                acc.update([y], [out])
+                speed(BatchEndParam(epoch, nbatch, acc))
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    jsonl = [json.loads(m) for m in records if m.startswith("{")]
+    keys = {"epoch", "batch", "samples_per_sec", "metrics", "time", "rank",
+            "role", "host"}
+    if not jsonl or any(set(r) != keys for r in jsonl):
+        raise AssertionError(f"[estimator] Speedometer records {jsonl[:1]}")
+    name, value = acc.get()
+    if value < DIST_MIN_ACC:
+        raise AssertionError(f"[estimator] train_dist loop: {name} "
+                             f"{value:.3f} < {DIST_MIN_ACC}")
+    texts = [m for m in records if m.startswith("Epoch[")]
+    return (f"train_dist.py's loop (NDArrayIter, Accuracy, Speedometer) 2 "
+            f"epochs: last epoch {name} {value:.4f}; Speedometer: "
+            f"{len(texts)} lines and {len(jsonl)} JSON records, e.g. "
+            f"{texts[-1]!r}")
+
+
+def phase_estimator(card):
+    """Estimator.fit of train_dist.py's net (resnet18_v1, thumbnail, 10
+    classes) for 3 epochs from a DataLoader with RandomFlipLeftRight and
+    Normalize, with LoggingHandler, CheckpointHandler and
+    EarlyStoppingHandler; evaluate on held-out data (gate EST_MIN_ACC),
+    a checkpoint loaded into a fresh net, then train_dist.py's loop."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import gluon
+    from incubator_mxnet_torch.gluon.contrib import estimator as est
+    t0 = time.time()
+    ctx = mx.gpu(0)
+    _reset_all_counts()
+    mx.random.seed(0)
+    np.random.seed(0)
+    net = _resnet18(ctx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", EST_SGD)
+    e = est.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      train_metrics="acc", trainer=trainer, context=ctx)
+    train, val = _est_loaders()
+    accs = []
+
+    class Record(est.EpochEnd):
+        def epoch_end(self, estimator):
+            accs.append(estimator.train_metric.get()[1])
+    with tempfile.TemporaryDirectory() as d:
+        e.fit(train, epochs=EST_EPOCHS, event_handlers=[
+            est.LoggingHandler(log_interval=16),
+            est.CheckpointHandler(d, "resnet18"),
+            est.EarlyStoppingHandler(patience=1), Record()])
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        (name, value), = e.evaluate(val)
+        files = sorted(os.listdir(d))
+        fresh = _resnet18(ctx)
+        fresh.load_parameters(os.path.join(
+            d, f"resnet18-epoch{EST_EPOCHS - 1}.params"), ctx=ctx)
+    x = next(iter(val))[0]
+    with torch.no_grad():
+        ref, got = net(x).data, fresh(x).data
+    out_err = ((got - ref).abs().max() / ref.abs().max()).item()
+    if files != [f"resnet18-epoch{i}.params" for i in range(EST_EPOCHS)]:
+        raise AssertionError(f"[estimator] checkpoint files {files}")
+    if out_err > EST_OUT_RTOL:
+        raise AssertionError(f"[estimator] loaded checkpoint's outputs "
+                             f"differ by {out_err:.2e}")
+    if value < EST_MIN_ACC or len(accs) != EST_EPOCHS:
+        raise AssertionError(f"[estimator] held-out {name} {value:.3f} "
+                             f"(gate {EST_MIN_ACC}) after {len(accs)} "
+                             f"epochs")
+    log(f"[estimator] Estimator.fit resnet18_v1 (thumbnail, 10 classes) "
+        f"{EST_EPOCHS} epochs of {EST_SAMPLES} 3x32x32 at batch "
+        f"{EST_BATCH} (RandomFlipLeftRight, Normalize; 4 loader threads): "
+        f"training accuracy by epoch "
+        + ", ".join(f"{a:.4f}" for a in accs)
+        + f"; held-out {name} {value:.4f} (gate {EST_MIN_ACC}); "
+        f"{fit_s:.1f} s; checkpoints {files}; the last loaded into a "
+        f"fresh net gives its outputs within {out_err:.1e}")
+    log(f"[estimator] {_train_dist_loop(ctx)}")
+    counts = _all_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[estimator] launched hand kernels {counts}")
+    log(f"[estimator] no hand kernel launched; {time.time() - t0:.1f} s "
+        f"({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4528,7 +5138,7 @@ def main():
         f"BTHD route, {train_ms:.2f} ms on the default route ([train]) "
         f"({card})")
     bnb_recs, bnb_counts = phase_bottleneck(card)
-    net, x, _ = phase_train_resnet(card)
+    net, x, resident_step_ms = phase_train_resnet(card)
     phase_infer_resnet(card, net, x)
     del net, x
     torch.cuda.empty_cache()
@@ -4553,6 +5163,9 @@ def main():
     phase_ops_check(card)
     phase_detect_check(card)
     phase_train_ssd(card)
+    phase_io_check(card)
+    phase_train_loader(card, resident_step_ms)
+    phase_estimator(card)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn]")

@@ -12,6 +12,11 @@ It serves and trains BERT and trains ResNet v1/v1b: Gluon blocks on
 BERT and ResNet models, `deploy.export_serving`/`load_serving` and the
 `serving.ServingRuntime` front end; `autograd`, the losses, SGD and
 Adam, `gluon.Trainer` and `parallel.ParallelTrainer` on one device.
+Data comes in through `io` (the iterators and `DevicePrefetcher`, the
+host-to-card staging ring), `gluon.data` (datasets, the DataLoader with
+thread or process workers) and `recordio`; `metric`, `callback` and
+`gluon.contrib.estimator` are the training-loop helpers, and `image`
+holds the array helpers of the transforms.
 Attention runs in the CUDA kernels of `ops/flash_attention.py`;
 `tools.bottleneck_bwd` is the ResNet bottleneck's fused BN backward in
 two CUDA kernels (`python -m incubator_mxnet_torch.tools.bottleneck_bwd`).
@@ -33,5 +38,10 @@ from . import parallel
 from . import models
 from . import rtc
 from . import operator
+from . import io
+from . import recordio
+from . import metric
+from . import callback
+from . import image
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
 """Gluon contrib (counterpart of `incubator_mxnet_tpu/gluon/contrib/`):
-the `nn` layers, `cnn` (DeformableConvolution) and `rnn` (the
-convolutional recurrent cells).  `estimator` is not ported yet."""
+`estimator` (the fit loop and its event handlers), the `nn` layers,
+`cnn` (DeformableConvolution) and `rnn` (the convolutional recurrent
+cells)."""
+from . import estimator
 from . import nn
 from . import cnn
 from . import rnn

@@ -1,0 +1,9 @@
+"""Datasets, samplers and the DataLoader (counterpart of
+`incubator_mxnet_tpu/gluon/data/`).  `vision` holds MNIST,
+FashionMNIST, CIFAR10 (from local files), `SyntheticImageDataset` and
+the transforms; `ImageRecordDataset` and `ImageFolderDataset` are not
+ported yet (ROADMAP.md)."""
+from .dataset import Dataset, ArrayDataset, SimpleDataset, RecordFileDataset
+from .sampler import Sampler, SequentialSampler, RandomSampler, BatchSampler
+from .dataloader import DataLoader, default_batchify_fn
+from . import vision

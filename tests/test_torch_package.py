@@ -28,7 +28,10 @@ def test_import_pulls_in_no_jax():
             "incubator_mxnet_torch.gluon.trainer, "
             "incubator_mxnet_torch.gluon.loss, "
             "incubator_mxnet_torch.gluon.model_zoo.vision, "
-            "incubator_mxnet_torch.tools.bottleneck_bwd\n"
+            "incubator_mxnet_torch.tools.bottleneck_bwd, "
+            "incubator_mxnet_torch.io, incubator_mxnet_torch.recordio, "
+            "incubator_mxnet_torch.gluon.data.vision, "
+            "incubator_mxnet_torch.gluon.contrib.estimator\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\n"
@@ -70,7 +73,8 @@ def test_no_forbidden_import_in_source(path):
 
 @pytest.mark.parametrize("entry", ["initialize", "array", "zeros",
                                    "load_serving", "default_mesh",
-                                   "ParallelTrainer", "Updater.set_states"])
+                                   "ParallelTrainer", "Updater.set_states",
+                                   "DataLoader", "DevicePrefetcher"])
 def test_entry_point_without_ctx_raises_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
@@ -96,6 +100,11 @@ def test_entry_point_without_ctx_raises_without_cuda(entry, tmp_path):
             net.initialize()
         elif entry == "array":
             nd.array([1.0, 2.0])
+        elif entry == "DataLoader":
+            iter(mx.gluon.data.DataLoader(
+                mx.gluon.data.ArrayDataset([1.0, 2.0]), 2))
+        elif entry == "DevicePrefetcher":
+            mx.io.DevicePrefetcher([(1.0, 2.0)])
         elif entry == "zeros":
             nd.zeros((2, 2))
         else:
