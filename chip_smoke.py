@@ -279,7 +279,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    its outputs; then `train_dist.py`'s loop body on one card
    (`NDArrayIter`, `metric.Accuracy`, `callback.Speedometer` text and
    JSON records; the kvstore left out); no hand kernel.
-37. A JSON line describing each kernel, then the card line, then the
+37. `[image-check]`: the port's host library (JPEG codec, RecordIO,
+   record pipeline) built by the host's `c++` (seconds, version line;
+   `ldd` shows no CUDA library), `pack_img` -> `unpack_img` at 224^2 and
+   375 x 500, q95 and q85, 4:2:0 (RGB and luma PSNR; the luma over
+   30 dB), `imdecode`'s centre crops equal to the pipeline's pixels,
+   `ImageRecordIter` on both engines (labels and pixels bit-equal), the
+   1/8 and 1/4 decodes (1024^2 and 512^2 at resize 128) against the full
+   decode and a box average, `ImageDetIter` with `CreateDetAugmenter`
+   over a 300^2 VOC-shaped batch on the card equal to the CPU's, and a
+   corrupt record counted as one decode failure; no hand kernel.
+38. `[train-record]`: `bench_resnet50_input`: a 1024-image JPEG shard
+   (256^2, q85, the port's `build_shard`), the native pipeline (shuffle,
+   random crop and mirror, resize 256, uint8 NHWC, max(2, cores)
+   threads, 4 page-locked slots) through `staging_ring(trainer=tr)`
+   into `ParallelTrainer` SGD of `NormalizedResNet` (normalize on the
+   card, resnet50_v1b in bf16): the feed alone, one slot's copy to the
+   card, the pre-filled slots drained, 16 steady steps over endless
+   epochs (images/s, vs_synthetic against `[train-resnet]`, the stall),
+   a profiled step's device time and idle share; losses finite, decode
+   failures 0, no hand kernel.
+39. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -5097,6 +5117,366 @@ def phase_estimator(card):
         f"({card})")
 
 
+
+# -- the image input path ------------------------------------------------------
+
+IMG_SIZES = ((224, 224), (375, 500))     # (h, w): a crop's size, a VOC photo
+IMG_QUALITIES = (95, 85)
+IMG_MIN_LUMA_PSNR = 30.0                 # dB, 4:2:0 (see phase_image_check)
+REDUCED_SIZES = ((1024, 8), (512, 4))    # (stored size, decode scale)
+REDUCED_MAX_MEAN = 2.0                   # levels, against a box average
+RECORD_IMAGES, RECORD_SIZE, RECORD_QUALITY = 1024, 256, 85
+RECORD_STEPS = 16
+RECORD_RESIZE = 256
+MEAN_RGB = (123.68, 116.28, 103.53)
+STD_RGB = (58.395, 57.12, 57.375)
+
+
+def _shard_image(h, w, seed):
+    """`build_shard`'s image: 8 x 8 blocks of color plus N(0, 12^2)."""
+    from incubator_mxnet_torch.tools.io_bench import block_image
+    return block_image(np.random.RandomState(seed), h, w)
+
+
+def _psnr(err):
+    return 10 * math.log10(255.0 ** 2 / max(float(np.mean(err ** 2)), 1e-12))
+
+
+def _write_rec(path, images, labels=None, corrupt=()):
+    from incubator_mxnet_torch import recordio
+    w = recordio.MXRecordIO(path, "w")
+    for i, img in enumerate(images):
+        hdr = recordio.IRHeader(0, float(i if labels is None else labels[i]),
+                                i, 0)
+        w.write(recordio.pack(hdr, b"\xff\xd8corrupt" * 8) if i in corrupt
+                else recordio.pack_img(hdr, img, quality=90))
+    w.close()
+
+
+def _host_library_links_no_cuda(path):
+    out = subprocess.run(["ldd", path], capture_output=True, text=True,
+                         timeout=60).stdout
+    bad = [ln.strip() for ln in out.splitlines()
+           if "cuda" in ln.lower() or "nvidia" in ln.lower()]
+    if bad:
+        raise AssertionError(f"the host library links CUDA: {bad}")
+    return len(out.splitlines())
+
+
+def phase_image_check(card):
+    """The port's host codec and record pipeline on the card's host: the
+    build, pack/unpack PSNR, imdecode against the pipeline, both
+    ImageRecordIter engines, the reduced-size decodes, ImageDetIter over a
+    VOC-shaped batch and the decode-failure count."""
+    import random
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import _native, image, io, recordio
+    from incubator_mxnet_torch.io.native_image import NativeImagePipeline
+    from incubator_mxnet_torch.tools.io_bench import build_shard
+    t_start = time.time()
+    _reset_all_counts()
+    info = _native.build()
+    deps = _host_library_links_no_cuda(info["path"])
+    log(f"[image-check] host library {os.path.basename(info['path'])}: "
+        + (f"built in {info['seconds']:.1f} s" if info["built"]
+           else "already built") + f" by {_native.compiler_version()}; "
+        f"ldd lists {deps} libraries, none of CUDA")
+    # pack_img -> unpack_img: 4:2:0 averages each channel's independent
+    # noise away in the chroma, so the gate is on the luma's PSNR and the
+    # RGB PSNR is logged beside it
+    weights = np.array([0.299, 0.587, 0.114])
+    for (h, w) in IMG_SIZES:
+        img = _shard_image(h, w, seed=h)
+        for q in IMG_QUALITIES:
+            t0 = time.perf_counter()
+            packed = recordio.pack_img(recordio.IRHeader(0, 1.0, 0, 0), img,
+                                       quality=q)
+            t1 = time.perf_counter()
+            back = recordio.unpack_img(packed)[1].astype(np.float64)
+            t2 = time.perf_counter()
+            err = back - img
+            luma = _psnr(err @ weights)
+            log(f"[image-check] pack_img/unpack_img {h}x{w} q{q} 4:2:0: "
+                f"{len(packed)} bytes, PSNR RGB {_psnr(err):.2f} dB, luma "
+                f"{luma:.2f} dB; encode {(t1 - t0) * 1e3:.2f} ms, decode "
+                f"{(t2 - t1) * 1e3:.2f} ms (one host thread)")
+            if luma < IMG_MIN_LUMA_PSNR:
+                raise AssertionError(f"[image-check] luma PSNR {luma:.2f} "
+                                     f"dB under {IMG_MIN_LUMA_PSNR}")
+    with tempfile.TemporaryDirectory() as d:
+        # imdecode against the pipeline: no resize, centre crop, in order
+        imgs = [_shard_image(h, w, seed=i) for i, (h, w) in
+                enumerate(IMG_SIZES * 4)]
+        rec = os.path.join(d, "mixed.rec")
+        _write_rec(rec, imgs)
+        pipe = NativeImagePipeline(rec, (3, 224, 224), len(imgs),
+                                   preprocess_threads=4, out_uint8=True)
+        data, label = pipe.next_arrays()
+        reader = recordio.MXRecordIO(rec, "r")
+        for i in range(len(imgs)):
+            full = image.imdecode(recordio.unpack(reader.read())[1])
+            y0, x0 = (full.shape[0] - 224) // 2, (full.shape[1] - 224) // 2
+            if not (np.array_equal(data[i], full[y0:y0 + 224, x0:x0 + 224])
+                    and label[i, 0] == i):
+                raise AssertionError(f"[image-check] pipeline image {i} "
+                                     f"differs from imdecode's crop")
+        clean = [pipe.decode_failures]
+        pipe.close()
+        log(f"[image-check] imdecode's centre crops equal the pipeline's "
+            f"pixels bit for bit ({len(imgs)} images, 224x224 and 375x500)")
+        # both ImageRecordIter engines, crop only (images under twice the
+        # crop: larger ones the native engine decodes at reduced size)
+        rec = os.path.join(d, "small.rec")
+        _write_rec(rec, [_shard_image(256, 256, seed=i) for i in range(32)])
+        batches = {}
+        for engine in ("1", "0"):
+            os.environ["MXNET_NATIVE_IMAGE_PIPELINE"] = engine
+            t0 = time.perf_counter()
+            it = io.ImageRecordIter(path_imgrec=rec, data_shape=(3, 224, 224),
+                                    batch_size=8, preprocess_threads=4)
+            got = [(b.data[0], b.label[0]) for b in it]
+            batches[engine] = [(x.asnumpy(), y.asnumpy()) for x, y in got]
+            log(f"[image-check] ImageRecordIter engine "
+                f"{type(it).__name__}: {len(got)} batches of 8 on "
+                f"{got[0][0].context} in "
+                f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+        os.environ.pop("MXNET_NATIVE_IMAGE_PIPELINE")
+        for (a, la), (b, lb) in zip(batches["1"], batches["0"]):
+            if not (np.array_equal(la, lb) and np.array_equal(a, b)):
+                raise AssertionError("[image-check] the two ImageRecordIter "
+                                     "engines disagree")
+        log("[image-check] both engines: labels equal, pixels bit-equal")
+        # reduced-size decodes against the full decode and a box average
+        for size, scale in REDUCED_SIZES:
+            rec = os.path.join(d, f"r{size}.rec")
+            build_shard(rec, 8, size, RECORD_QUALITY, seed=size)
+            pipe = NativeImagePipeline(rec, (3, 128, 128), 8, resize=128,
+                                       preprocess_threads=4, out_uint8=True)
+            t0 = time.perf_counter()
+            got = pipe.next_arrays()[0].copy()
+            ms = (time.perf_counter() - t0) * 1e3
+            clean.append(pipe.decode_failures)
+            pipe.close()
+            reader = recordio.MXRecordIO(rec, "r")
+            diff = np.stack([np.abs(got[i].astype(int) - image.imresize(
+                recordio.unpack_img(reader.read())[1], 128, 128, 3))
+                for i in range(8)])
+            log(f"[image-check] {size}x{size} at resize 128 (the 1/{scale} "
+                f"decode): against the full decode and a box average to 128, "
+                f"mean |diff| {diff.mean():.3f}, p99 "
+                f"{np.percentile(diff, 99):.0f}, max {diff.max()} levels "
+                f"(bound: mean {REDUCED_MAX_MEAN}); 8 images {ms:.1f} ms")
+            if diff.mean() > REDUCED_MAX_MEAN:
+                raise AssertionError(f"[image-check] the 1/{scale} decode is "
+                                     f"off by {diff.mean():.3f} on average")
+        # decode failures: none on a clean shard, one corrupt record counted
+        rec = os.path.join(d, "bad.rec")
+        _write_rec(rec, [_shard_image(64, 64, seed=i) for i in range(8)],
+                   corrupt=(3,))
+        pipe = NativeImagePipeline(rec, (3, 32, 32), 4, out_uint8=True)
+        while pipe.next_arrays() is not None:
+            pass
+        failures = pipe.decode_failures
+        pipe.close()
+        if any(clean):
+            raise AssertionError(f"[image-check] decode failures {clean} on "
+                                 f"clean shards")
+        if failures != 1:
+            raise AssertionError(f"[image-check] {failures} decode failures "
+                                 f"counted for 1 corrupt record")
+    # ImageDetIter over a VOC-shaped batch: 375 x 500 JPEGs, 1-6 boxes
+    rng = np.random.RandomState(0)
+    items = []
+    for i in range(8):
+        img = image.imdecode(recordio.unpack(recordio.pack_img(
+            recordio.IRHeader(0, 0.0, i, 0), _shard_image(375, 500, i),
+            quality=90))[1])
+        n = 1 + i % 6
+        x1, y1 = rng.rand(n) * 0.5, rng.rand(n) * 0.5
+        items.append((img, np.stack([rng.randint(0, 20, n), x1, y1,
+                                     x1 + 0.1 + rng.rand(n) * 0.4,
+                                     y1 + 0.1 + rng.rand(n) * 0.4],
+                                    1).astype(np.float32)))
+    out = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mx.random.seed(1)
+        random.seed(1)
+        augs = image.CreateDetAugmenter((3, 300, 300), rand_crop=0.5,
+                                        rand_mirror=True, mean=True, std=True)
+        with ctx:
+            t0 = time.perf_counter()
+            b = next(iter(image.ImageDetIter(8, (3, 300, 300), imglist=items,
+                                             augmenters=augs)))
+            out[ctx.device_type] = (b.data[0], b.label[0].asnumpy(),
+                                    (time.perf_counter() - t0) * 1e3)
+    data, lab, ms = out["gpu"]
+    if data.context.device_type != "gpu" or data.shape != (8, 3, 300, 300):
+        raise AssertionError(f"[image-check] ImageDetIter gave {data.shape} "
+                             f"on {data.context}")
+    if not (np.isfinite(data.asnumpy()).all()
+            and np.array_equal(data.asnumpy(), out["cpu"][0].asnumpy())
+            and np.array_equal(lab, out["cpu"][1])):
+        raise AssertionError("[image-check] ImageDetIter's card batch "
+                             "differs from the CPU's")
+    boxes = lab[lab[..., 0] >= 0]
+    log(f"[image-check] ImageDetIter + CreateDetAugmenter: data "
+        f"{tuple(data.shape)} on {data.context}, labels {lab.shape}, "
+        f"{len(boxes)} boxes kept, all in [0, 1]: "
+        f"{bool(((boxes[:, 1:5] >= -1e-6) & (boxes[:, 1:5] <= 1 + 1e-6)).all())}"
+        f"; equal to the CPU's batch; {ms:.0f} ms")
+    counts = _all_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[image-check] launched hand kernels {counts}")
+    log(f"[image-check] decode failures 0 on clean shards, 1 for the "
+        f"corrupt record; no hand kernel launched; "
+        f"{time.time() - t_start:.1f} s ({card})")
+
+
+def _copy_ms(src):
+    """Device time of one non-blocking copy of host tensor `src` to the
+    card."""
+    dst = torch.empty(src.shape, dtype=src.dtype, device="cuda")
+    return time_ms(lambda: dst.copy_(src, non_blocking=True))
+
+
+def _normalized_resnet(ctx):
+    """`bench_resnet50_input`'s model: uint8 NHWC -> float32 NCHW ->
+    (x - mean) / std -> bfloat16, made NCHW-contiguous -> resnet50_v1b,
+    on the card."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import gluon, nd
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_torch.ndarray import NDArray
+
+    class NormalizedResNet(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.net = get_model("resnet50_v1b", classes=RESNET_CLASSES)
+            with ctx:
+                self._mean = nd.array(np.array(MEAN_RGB, np.float32)
+                                      .reshape(1, 3, 1, 1))
+                self._std = nd.array(np.array(STD_RGB, np.float32)
+                                     .reshape(1, 3, 1, 1))
+
+        def hybrid_forward(self, F, x):
+            x = x.astype("float32").transpose((0, 3, 1, 2))
+            x = ((x - self._mean) / self._std).astype("bfloat16")
+            # the transpose is a view with NHWC strides, and PyTorch keeps
+            # a tensor's memory format through convolutions and
+            # elementwise ops: without this copy every layer runs
+            # channels-last (on an H100 at 700 W: 223.63 ms of device
+            # time a step against the NCHW step's 161.65)
+            return self.net(NDArray(x._data.contiguous()))
+
+    mx.random.seed(0)
+    np.random.seed(0)
+    net = NormalizedResNet()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.net.cast("bfloat16")
+    return net
+
+
+def phase_train_record(card, resident_step_ms):
+    """`bench_resnet50_input`: ResNet-50 v1b at 256 x 3 x 224^2 bf16
+    trained from a 1024-image JPEG RecordIO shard (256^2, q85) through the
+    native pipeline's page-locked slots and `staging_ring(trainer=tr)`."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import gluon, parallel
+    from incubator_mxnet_torch.io.native_image import NativeImageRecordIter
+    from incubator_mxnet_torch.tools.io_bench import build_shard
+    t_start = time.time()
+    cores = os.cpu_count() or 2
+    threads = max(2, cores)
+    with tempfile.TemporaryDirectory() as d:
+        rec = os.path.join(d, "shard.rec")
+        build_s = build_shard(rec, RECORD_IMAGES, RECORD_SIZE, RECORD_QUALITY)
+        log(f"[train-record] shard: {RECORD_IMAGES} JPEGs {RECORD_SIZE}^2 "
+            f"q{RECORD_QUALITY} built by the port's encoder in {build_s:.1f} s "
+            f"({os.path.getsize(rec) / 1e6:.1f} MB)")
+        it = NativeImageRecordIter(
+            rec, (3, RESNET_SIZE, RESNET_SIZE), RESNET_BATCH, shuffle=True,
+            rand_crop=True, rand_mirror=True, out_uint8=True,
+            resize=RECORD_RESIZE, preprocess_threads=threads, prefetch=4)
+        pipe = it._pipe
+        if not pipe.next_tensors()[0].is_pinned():
+            raise AssertionError("[train-record] the slots are not "
+                                 "page-locked")
+        net = _normalized_resnet(mx.gpu(0))
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        tr = parallel.ParallelTrainer(
+            net, lambda o, y: loss_fn(o.astype("float32"), y),
+            optimizer="sgd", optimizer_params=SGD,
+            mesh=parallel.default_mesh(ctx=mx.gpu(0)))
+        # the feed alone: reset first, so no batch decoded while the model
+        # was built counts
+        pipe.reset()
+        t0 = time.perf_counter()
+        nb = 0
+        while pipe.next_tensors() is not None:
+            nb += 1
+        feed = nb * RESNET_BATCH / (time.perf_counter() - t0)
+        # the host-to-card copy of one page-locked slot
+        pipe.reset()
+        slot = pipe.next_tensors()[0]
+        copy_ms = _copy_ms(slot)
+        gbps = slot.numel() / copy_ms / 1e6
+        log(f"[train-record] feed alone: {feed:.1f} images/s over one epoch "
+            f"({nb} batches, {threads} decode threads, os.cpu_count() = "
+            f"{cores}); one {slot.numel() / 1e6:.1f} MB uint8 slot to the "
+            f"card {copy_ms:.3f} ms, {gbps:.1f} GB/s ({card})")
+        _reset_all_counts()
+        ring = it.staging_ring(trainer=tr, loop=True)
+        x, y = next(ring)
+        losses = [tr.step(x, y)]
+        drain = RECORD_IMAGES // RESNET_BATCH + 2 + 2 * 1
+        for _ in range(drain):
+            x, y = next(ring)
+            losses.append(tr.step(x, y))
+        torch.cuda.synchronize()
+        stalls = []
+        t0 = time.perf_counter()
+        for _ in range(RECORD_STEPS):
+            ts = time.perf_counter()
+            x, y = next(ring)
+            stalls.append(time.perf_counter() - ts)
+            losses.append(tr.step(x, y))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / RECORD_STEPS
+        ring.close()
+        failures = pipe.decode_failures
+        dev_ms, launches = log_profile(
+            lambda: losses.append(tr.step(x, y)),
+            f"one record-fed {RESNET_BATCH}x{RESNET_SIZE}x{RESNET_SIZE}x3 "
+            f"uint8 training step", tag="[train-record]")
+        it.close()
+    losses = [v.asscalar() for v in losses]
+    counts = _all_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[train-record] launched hand kernels {counts}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"[train-record] losses {losses} not finite")
+    if failures:
+        raise AssertionError(f"[train-record] {failures} decode failures")
+    stall_ms = 1e3 * sum(stalls) / len(stalls)
+    log(f"[train-record] {1 + drain} warm-up steps (the pre-filled slots "
+        f"drained), then {RECORD_STEPS} steps over endless epochs; losses "
+        + ", ".join(f"{v:.4f}" for v in losses[::4]))
+    log(f"[train-record] record-fed step {step_ms:.2f} ms "
+        f"({RESNET_BATCH / step_ms * 1e3:.1f} images/s, host clock to a "
+        f"synchronize) against [train-resnet]'s resident-batch step "
+        f"{resident_step_ms:.2f} ms: vs_synthetic "
+        f"{resident_step_ms / step_ms:.3f}; consumer stall in next() "
+        f"{stall_ms:.2f} ms a step ({card})")
+    log(f"[train-record] profiled step: {dev_ms:.2f} ms of device time in "
+        f"{launches} launches; against the {step_ms:.2f} ms record-fed step "
+        f"the device is idle {1 - dev_ms / step_ms:.3f} of the step; decode "
+        f"failures 0; the decode workers are C++ threads of a library that "
+        f"links no CUDA; no hand kernel launched; "
+        f"{time.time() - t_start:.1f} s")
+    del net, tr
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5166,6 +5546,8 @@ def main():
     phase_io_check(card)
     phase_train_loader(card, resident_step_ms)
     phase_estimator(card)
+    phase_image_check(card)
+    phase_train_record(card, resident_step_ms)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn]")

@@ -1,8 +1,7 @@
 """Datasets, samplers and the DataLoader (counterpart of
 `incubator_mxnet_tpu/gluon/data/`).  `vision` holds MNIST,
-FashionMNIST, CIFAR10 (from local files), `SyntheticImageDataset` and
-the transforms; `ImageRecordDataset` and `ImageFolderDataset` are not
-ported yet (ROADMAP.md)."""
+FashionMNIST, CIFAR10 (from local files), `SyntheticImageDataset`,
+`ImageRecordDataset`, `ImageFolderDataset` and the transforms."""
 from .dataset import Dataset, ArrayDataset, SimpleDataset, RecordFileDataset
 from .sampler import Sampler, SequentialSampler, RandomSampler, BatchSampler
 from .dataloader import DataLoader, default_batchify_fn

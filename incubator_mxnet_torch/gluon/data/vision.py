@@ -8,8 +8,9 @@ seed.  Items and transform outputs are NDArrays made in the current
 context; the DataLoader's workers make them under `cpu()`.  The random
 transforms draw from the framework's numpy RandomState
 (`random.np_rng()`), so `mx.random.seed(n)` gives the same crops, flips
-and jitters as in the JAX package.  `ImageRecordDataset` and
-`ImageFolderDataset` are not ported yet (ROADMAP.md).
+and jitters as in the JAX package.  `ImageRecordDataset` (an im2rec
+shard) and `ImageFolderDataset` (`root/<class>/<image>`) decode through
+the port's `imdecode`.
 """
 from __future__ import annotations
 
@@ -20,13 +21,65 @@ import struct
 import numpy as _np
 
 from ...base import MXNetError
-from ...image import center_crop, fixed_crop, imresize, resize_short
+from ...image import (center_crop, fixed_crop, imdecode, imresize,
+                      resize_short)
 from ...ndarray import NDArray, array
 from ...random import np_rng as _frng
-from .dataset import Dataset
+from .dataset import Dataset, RecordFileDataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "SyntheticImageDataset",
-           "transforms"]
+           "ImageRecordDataset", "ImageFolderDataset", "transforms"]
+
+
+class ImageRecordDataset(RecordFileDataset):
+    """The images of an im2rec-packed `.rec` file (with its `.idx`).
+    Items are (image NDArray HWC uint8, label float or float32 vector);
+    `flag=0` decodes gray with a channel axis of 1."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ...recordio import unpack
+        header, img_bytes = unpack(super().__getitem__(idx))
+        img = array(imdecode(img_bytes, flag=self._flag))
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
+
+
+class ImageFolderDataset(Dataset):
+    """The images under `root/<category>/`, in sorted order.  `synsets`
+    lists the category names; an item's label is its category's index."""
+
+    def __init__(self, root, flag=1, transform=None,
+                 exts=(".jpg", ".jpeg", ".png")):
+        self._flag = flag
+        self._transform = transform
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for fname in sorted(os.listdir(path)):
+                if fname.lower().endswith(tuple(exts)):
+                    self.items.append((os.path.join(path, fname), label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        path, label = self.items[idx]
+        with open(path, "rb") as f:
+            img = array(imdecode(f.read(), flag=self._flag))
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class _DownloadedDataset(Dataset):

@@ -6,13 +6,14 @@ The format is dmlc-core's, byte for byte the JAX package's: each record
 is the magic 0xced7230a and its length as two little-endian uint32, the
 payload, and zeros up to a multiple of 4 bytes; a `.idx` sidecar holds
 one ``key<TAB>offset`` line a record.  Files written by either package
-read in the other.  The reader and writer are Python (the JAX package's
-native copy of them is not ported yet).  `pack_img` and `unpack_img`
-import PIL when called, and raise without it.
+read in the other.  The reader and writer here are Python; the host
+library's C copy of them (`csrc/recordio.cc`) serves the image-record
+pipeline.  `pack_img` and `unpack_img` encode and decode through the
+port's own codecs (`image/codec.py`): JPEG as PIL writes it at the same
+quality (4:2:0), PNG losslessly.
 """
 from __future__ import annotations
 
-import io as _io
 import os
 import struct
 import threading
@@ -166,19 +167,21 @@ def unpack(s):
 
 
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
-    """Encode an HWC uint8 array (JPEG or PNG, through PIL) and pack it."""
-    from PIL import Image
-    buf = _io.BytesIO()
-    fmt = "JPEG" if img_fmt.lower() in (".jpg", ".jpeg") else "PNG"
-    Image.fromarray(_np.asarray(img, dtype=_np.uint8)).save(
-        buf, format=fmt, quality=quality)
-    return pack(header, buf.getvalue())
+    """Encode an HWC (or HW) uint8 array as JPEG at `quality` or as PNG,
+    and pack it."""
+    from .image import codec
+    a = _np.asarray(img, dtype=_np.uint8)
+    if img_fmt.lower() in (".jpg", ".jpeg"):
+        buf = codec.jpeg_encode(a, quality=quality)
+    else:
+        buf = codec.png_encode(a)
+    return pack(header, buf)
 
 
 def unpack_img(s, iscolor=1):
-    """(IRHeader, HWC uint8 array) of a record packed by `pack_img`."""
+    """(IRHeader, image) of a record packed by `pack_img`: HWC uint8 RGB,
+    or HW uint8 gray (PIL's L weights) with `iscolor=0`."""
+    from .image import codec
     hdr, img_bytes = unpack(s)
-    from PIL import Image
-    img = Image.open(_io.BytesIO(img_bytes))
-    img = img.convert("RGB" if iscolor else "L")
-    return hdr, _np.asarray(img)
+    img = codec.decode(img_bytes, channels=3 if iscolor else 1)
+    return hdr, img if iscolor else img[:, :, 0]

@@ -10,7 +10,8 @@ Tolerances: exact everywhere except the float resize (`imresize` of
 non-uint8 data, and the transforms that resize float images), which is
 held to 1e-5 of the largest value: the port builds the same separable
 weights as `jax.image.resize` in numpy, and the products add in another
-order.  uint8 resizes go through PIL in both packages and are exact.
+order.  uint8 resizes (PIL in the JAX package, the port's numpy copy of
+PIL's arithmetic) are exact.
 """
 import collections
 import gzip

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never carry on quietly on the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package nor
+PIL or OpenCV, and its entry points never carry on quietly on the
+CPU."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,7 @@ from incubator_mxnet_torch.models import get_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "incubator_mxnet_torch")
-FORBIDDEN = ("jax", "jaxlib", "incubator_mxnet_tpu", "mxnet")
+FORBIDDEN = ("jax", "jaxlib", "incubator_mxnet_tpu", "mxnet", "PIL", "cv2")
 
 
 def test_import_pulls_in_no_jax():
@@ -31,7 +32,11 @@ def test_import_pulls_in_no_jax():
             "incubator_mxnet_torch.tools.bottleneck_bwd, "
             "incubator_mxnet_torch.io, incubator_mxnet_torch.recordio, "
             "incubator_mxnet_torch.gluon.data.vision, "
-            "incubator_mxnet_torch.gluon.contrib.estimator\n"
+            "incubator_mxnet_torch.gluon.contrib.estimator, "
+            "incubator_mxnet_torch.image, incubator_mxnet_torch._native, "
+            "incubator_mxnet_torch.io.native_image, "
+            "incubator_mxnet_torch.tools.im2rec, "
+            "incubator_mxnet_torch.tools.io_bench\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\n"

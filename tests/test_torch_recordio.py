@@ -1,7 +1,8 @@
 """The port's `recordio` against the JAX package's on the CPU: record
 files written by each package read in the other (sequential and
 indexed), byte-for-byte equal files, `pack`/`unpack` with scalar and
-vector labels, and `pack_img`/`unpack_img`.
+vector labels, and `pack_img`/`unpack_img` (the JPEG bytes equal PIL's;
+PNG, written by the port's own encoder, decodes to the same pixels).
 
 Tolerance: none; records, headers and files are compared exactly.  The
 JAX writer is run on its Python path (its native library is switched
@@ -112,8 +113,12 @@ def test_pack_img_matches_jax(fmt):
         np.uint8)
     hdr = rec.IRHeader(0, 4.0, 1, 0)
     packed = rec.pack_img(hdr, img, img_fmt=fmt)
-    assert packed == jrec.pack_img(jrec.IRHeader(0, 4.0, 1, 0), img,
-                                   img_fmt=fmt)
+    jpacked = jrec.pack_img(jrec.IRHeader(0, 4.0, 1, 0), img, img_fmt=fmt)
+    if fmt == ".jpg":     # the port's encoder writes PIL's bytes
+        assert packed == jpacked
+    else:                 # PNG is lossless; the zlib streams may differ
+        np.testing.assert_array_equal(jrec.unpack_img(packed)[1],
+                                      jrec.unpack_img(jpacked)[1])
     (h, got), (_, ref) = rec.unpack_img(packed), jrec.unpack_img(packed)
     np.testing.assert_array_equal(got, ref)
     assert h.label == 4.0

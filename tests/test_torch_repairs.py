@@ -1185,3 +1185,109 @@ def test_grad_with_create_graph_departs():
         with jag.record():
             jz = (jx ** 3).sum()
             jag.grad(jz, [jx], create_graph=True)
+
+
+# -- the image paths that needed PIL ------------------------------------------
+#
+# `imresize` of uint8 data and `recordio.pack_img` / `unpack_img` imported
+# PIL, which the card's host does not have.  Each test computes the JAX
+# reference (PIL) first, then blocks PIL (`sys.modules["PIL"] = None`
+# makes every `import PIL...` raise) and runs the port.  Tolerance: none;
+# the port's resampler and JPEG codec reproduce PIL's arithmetic.
+
+def _block_pil(monkeypatch):
+    import sys
+    for name in [m for m in sys.modules if m.split(".")[0] == "PIL"]:
+        monkeypatch.setitem(sys.modules, name, None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+
+
+def _blocks_image(h, w, c, seed):
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 255, (4, 4, c)).astype(np.float32)
+    big = np.kron(base, np.ones((h // 4 + 1, w // 4 + 1, 1), np.float32))
+    return np.clip(big[:h, :w] + rng.randn(h, w, c) * 12, 0, 255).astype(
+        np.uint8)
+
+
+@pytest.mark.parametrize("interp", [0, 1, 2, 3, 4])
+def test_imresize_uint8_without_pil(monkeypatch, interp):
+    from incubator_mxnet_tpu import image as jimage
+    from incubator_mxnet_torch import image as timage
+    img = _blocks_image(21, 30, 3, interp)
+    refs = {size: jimage.imresize(img, *size, interp)
+            for size in ((45, 13), (11, 40))}
+    _block_pil(monkeypatch)
+    for size, ref in refs.items():
+        np.testing.assert_array_equal(timage.imresize(img, *size, interp),
+                                      ref)
+
+
+@pytest.mark.parametrize("fmt", [".jpg", ".png"])
+def test_pack_img_without_pil(monkeypatch, fmt):
+    from incubator_mxnet_tpu import recordio as jrec
+    from incubator_mxnet_torch import recordio as trec
+    img = _blocks_image(19, 26, 3, 7)
+    ref = jrec.unpack_img(jrec.pack_img(jrec.IRHeader(0, 2.0, 5, 0), img,
+                                        quality=85, img_fmt=fmt))[1]
+    _block_pil(monkeypatch)
+    packed = trec.pack_img(trec.IRHeader(0, 2.0, 5, 0), img, quality=85,
+                           img_fmt=fmt)
+    hdr, got = trec.unpack_img(packed)
+    assert (hdr.label, hdr.id) == (2.0, 5)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("iscolor", [1, 0])
+def test_unpack_img_without_pil(monkeypatch, iscolor):
+    from incubator_mxnet_tpu import recordio as jrec
+    from incubator_mxnet_torch import recordio as trec
+    packed = jrec.pack_img(jrec.IRHeader(0, 1.0, 3, 0),
+                           _blocks_image(24, 17, 3, 11), quality=90)
+    ref = jrec.unpack_img(packed, iscolor)[1]
+    _block_pil(monkeypatch)
+    got = trec.unpack_img(packed, iscolor)[1]
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    if not iscolor:   # PIL's convert("L") weights of the decoded RGB
+        rgb = trec.unpack_img(packed)[1].astype(np.uint32)
+        np.testing.assert_array_equal(
+            got, (rgb[..., 0] * 19595 + rgb[..., 1] * 38470
+                  + rgb[..., 2] * 7471 + 0x8000) >> 16)
+
+
+def test_port_imports_no_pil_cv2_or_jax():
+    """Every module of the port imports, and the image paths run, in a
+    process where PIL, cv2, jax and the JAX package cannot be imported."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "incubator_mxnet_torch")
+    mods = []
+    for dirpath, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), root)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(
+                    ".__init__"))
+    code = (
+        "import sys, importlib\n"
+        "for m in ('PIL', 'cv2', 'jax', 'jaxlib', 'incubator_mxnet_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {sorted(mods)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from incubator_mxnet_torch import image, recordio\n"
+        "a = np.arange(300, dtype=np.uint8).reshape(10, 10, 3)\n"
+        "image.imresize(a, 7, 13, 2)\n"
+        "h, b = recordio.unpack_img(recordio.pack_img("
+        "recordio.IRHeader(0, 1.0, 0, 0), a))\n"
+        "assert b.shape == (10, 10, 3)\n"
+        "print('OK', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=root, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "OK" in r.stdout
