@@ -299,7 +299,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    epochs (images/s, vs_synthetic against `[train-resnet]`, the stall),
    a profiled step's device time and idle share; losses finite, decode
    failures 0, no hand kernel.
-39. A JSON line describing each kernel, then the card line, then the
+39. `[serve-buckets]`: BERT-base bf16 exported with batch buckets, at
+   T = 128 (capacity 128, buckets 1-64) and T = 2048 (capacity 16,
+   buckets 1-8): at each bucket's batch row 1 (T = 128) or row 2
+   (T = 2048) against its plain version, with its time beside the
+   bound; then requests sized to hit every bucket, one at a time,
+   through a bucketed and a flat (`MXNET_SERVE_BUCKETS=0`) runtime:
+   12 launches of the kernel a batch and no other, every bucketed row
+   bit for bit a direct call at its pad target and the flat runtime's
+   row, within `LOGIT_ATOL` of the einsum forward, per bucket the
+   forward's ms back to back and its kernels' ms, and the p50 latency
+   of a request of that size bucketed and flat, and the
+   `serving_batch_pad_rows`
+   histogram; at T = 128 also a reload to a corrupt artifact that
+   leaves the outputs bit for bit and the allocated memory unchanged.
+40. `[serve-chaos]`: `incubator_mxnet_torch.tools.serve_chaos` through
+   `python -m incubator_mxnet_torch.serving --ctx gpu` on BERT-base bf16
+   at T = 128, capacity 8 (a deadline 504, poison 500s tripping the
+   breaker, its fast 503 and half-open probe, 400s, a 429 burst, a
+   corrupt reload rolled back, a good reload to a second seed, a
+   mid-flight SIGTERM, the fault counters in /metrics, the debugz pages
+   on the serving port): the reload's seconds, the breaker-open 503's
+   latency and the drain seconds.
+41. `[fleet]`: `incubator_mxnet_torch.tools.fleet_chaos`: a router
+   process over three replica processes, each serving BERT-base bf16 at
+   T = 128, capacity 8 without buckets, under client load through a
+   SIGKILL, a wedged replica and a rolling deploy: every answer a 200
+   bit for bit the baseline's, or a shed with Retry-After; the router's
+   requests/s, p50 and p99 and the deploy's seconds.
+42. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -1382,13 +1410,7 @@ def phase_serve(card, seqlen, capacity, request_rows, n_sequential, kernel,
     rng = np.random.RandomState(0)
 
     def rows(n):
-        tokens = rng.randint(0, 30522, (n, seqlen)).astype(np.int32)
-        types = rng.randint(0, 2, (n, seqlen)).astype(np.int32)
-        valid = rng.randint(0, seqlen + 1, (n,)).astype(np.int32)
-        valid[0] = seqlen
-        if n > 2:
-            valid[1] = 0
-        return [tokens, types, valid]
+        return _bert_rows(rng, n, seqlen)
 
     art = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
     rt = None
@@ -5477,6 +5499,370 @@ def phase_train_record(card, resident_step_ms):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# the rest of serving: batch buckets, the chaos gates, the fleet
+# ---------------------------------------------------------------------
+BUCKETS = {T: (1, 2, 4, 8, 16, 32, 64), LONG_T: (1, 2, 4, 8)}
+BUCKET_CAPACITY = {T: BH_BATCH, LONG_T: LONG_CAPACITY}
+BUCKET_KERNEL = {T: "flash_short_fwd", LONG_T: "flash_fwd"}
+# request sizes, sent one at a time: each bucket and the capacity is the
+# pad target of at least one
+BUCKET_REQUESTS = {T: (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128),
+                   LONG_T: (1, 2, 3, 4, 5, 8, 9, 16)}
+BUCKET_LATENCY_REPEATS = 5
+CHAOS_CAPACITY = 8
+SERVE_MODEL = "bert_12_768_12"
+
+
+def _bert_rows(rng, n, seqlen, vocab=30522):
+    tokens = rng.randint(0, vocab, (n, seqlen)).astype(np.int32)
+    types = rng.randint(0, 2, (n, seqlen)).astype(np.int32)
+    valid = rng.randint(0, seqlen + 1, (n,)).astype(np.int32)
+    valid[0] = seqlen
+    if n > 2:
+        valid[1] = 0
+    return [tokens, types, valid]
+
+
+def _bert_artifact(out, seqlen, capacity, seed, buckets=None, net=None):
+    """BERT-base bf16 with seeded Normal(0.02) weights built on the card
+    (or `net` again) and exported at `capacity`; returns (dir, net)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import deploy
+    from incubator_mxnet_torch.models import get_model
+    if net is None:
+        mx.seed(seed)
+        net = get_model("bert_classifier", model_name=SERVE_MODEL,
+                        num_classes=2, dropout=0.0, vocab_size=30522,
+                        max_length=seqlen)
+        net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+        net.cast("bfloat16")
+    rows = _bert_rows(np.random.RandomState(seed), capacity, seqlen)
+    deploy.export_serving(net, rows, out, batch_buckets=buckets)
+    return out, net
+
+
+def _bucket_kernel_check(fa, seqlen, batch, gen):
+    """Row 1 (T = 128) or row 2 (T = 2048) against its plain version at
+    `batch` x 12 batch-heads, bf16, non-causal as BERT's encoder calls
+    it, kv_length random per row (0 and T among them from batch 2 on);
+    returns its record, its bound counting the keys each row keeps."""
+    bh, scale = batch * HEADS, D ** -0.5
+    q, k, v = (torch.randn(bh, seqlen, D, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    per_row = torch.randint(0, seqlen + 1, (batch,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    per_row[0] = seqlen
+    if batch > 1:
+        per_row[1] = 0
+    lengths = per_row.repeat_interleave(HEADS)
+    if seqlen <= fa.MAX_SHORT_LEN:
+        call = lambda: fa.flash_short_fwd(q, k, v, lengths, scale, False)
+        plain = lambda: fa.flash_short_reference(q, k, v, lengths, scale,
+                                                 False)
+        out, ref = call(), plain()
+        err = _max_err(out, ref)
+        extra = ""
+    else:
+        blocks = (fa._fit_block(512, seqlen), fa._fit_block(1024, seqlen))
+        call = lambda: fa.flash_fwd(q, k, v, lengths, scale, False, *blocks)
+        plain = lambda: fa.flash_fwd_reference(q, k, v, lengths, scale,
+                                               False, *blocks)
+        (out, lse), (ref, rlse) = call(), plain()
+        live = lengths > 0
+        err = _max_err(out, ref)
+        lse_err = _max_err(lse[live], rlse[live])
+        if not (lse_err <= LSE_ATOL and torch.all(lse[~live] == -1e30)):
+            raise AssertionError(f"flash_fwd lse disagrees at BH={bh}: "
+                                 f"{lse_err} (atol {LSE_ATOL})")
+        extra = f", lse {lse_err:.3e} (atol {LSE_ATOL})"
+    torch.cuda.synchronize()
+    if not (err <= ATOL[torch.bfloat16]
+            and torch.isfinite(out.float()).all()):
+        raise AssertionError(
+            f"{BUCKET_KERNEL[seqlen]} disagrees with its plain version at "
+            f"BH={bh} T={seqlen}: max|err|={err} > {ATOL[torch.bfloat16]}")
+    ms = time_ms(call, iters=10)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    # the work this run's data needs: each row's queries against the
+    # keys its kv_length keeps
+    nbytes = 4 * q.numel() * 2 + bh * 4
+    work = 4 * seqlen * D * int(lengths.sum().item())
+    bound_ms, bound_by = _bound(nbytes, work, torch.bfloat16)
+    log(f"[serve-buckets] {BUCKET_KERNEL[seqlen]} bf16 BH={bh} (batch "
+        f"{batch}) T={seqlen}: max|err|={err:.3e} (atol "
+        f"{ATOL[torch.bfloat16]}){extra}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return {"batch": batch, "bh": bh, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _pad_rows(arrays, target):
+    return [np.concatenate([a, np.zeros((target - a.shape[0],)
+                                        + a.shape[1:], a.dtype)])
+            if a.shape[0] < target else a for a in arrays]
+
+
+def _p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _pad_histogram():
+    from incubator_mxnet_torch import telemetry
+    snap = telemetry.snapshot().get("serving_batch_pad_rows")
+    vals = (snap or {}).get("values") or [{}]
+    return dict(vals[0].get("buckets") or {}), vals[0].get("count", 0)
+
+
+def _serve_buckets_case(card, seqlen, check_reload):
+    """One bucketed path; returns (launch counts, kernel records)."""
+    from incubator_mxnet_torch.ops import flash_attention as fa
+    from incubator_mxnet_torch.serving import ServeConfig, ServingRuntime
+    cap, buckets = BUCKET_CAPACITY[seqlen], BUCKETS[seqlen]
+    kernel = BUCKET_KERNEL[seqlen]
+    tag = f"[serve-buckets] T={seqlen}"
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    recs = [_bucket_kernel_check(fa, seqlen, b, gen)
+            for b in buckets + (cap,)]
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_buckets_")
+    rts = []
+    try:
+        t0 = time.time()
+        art, net = _bert_artifact(os.path.join(tmp, "art"), seqlen, cap, 0,
+                                  buckets=list(buckets))
+        del net
+        cfg = dict(concurrency=1, queue_limit=64, batch_window_ms=0.0)
+        rt = ServingRuntime(art, config=ServeConfig(**cfg))
+        flat = ServingRuntime(art, config=ServeConfig(batch_buckets=0,
+                                                      **cfg))
+        rts = [rt, flat]
+        port, flat_port = rt.start(0), flat.start(0)
+        log(f"{tag} BERT-base bf16 exported with buckets {list(buckets)} "
+            f"(capacity {cap}) and loaded twice, bucketed and flat, in "
+            f"{time.time() - t0:.1f} s")
+        rng = np.random.RandomState(7)
+        reqs = [_bert_rows(rng, n, seqlen) for n in BUCKET_REQUESTS[seqlen]]
+        hist0, count0 = _pad_histogram()
+        fa.reset_launch_counts()
+        calls0 = rt.model_calls
+        got = []
+        for req in reqs:
+            status, payload, _ = _post(port, req)
+            if status != 200:
+                raise AssertionError(f"{tag} a request answered {status}")
+            got.append(np.asarray(payload["outputs"][0], np.float32))
+        bucketed = dict(fa.launch_counts)
+        batches = rt.model_calls - calls0
+        hist1, count1 = _pad_histogram()
+        layers = len(rt._slot.model.block.bert.encoder.layers)
+        want = {n: layers * batches if n == kernel else 0 for n in bucketed}
+        if batches != len(reqs) or bucketed != want:
+            raise AssertionError(
+                f"{tag} expected {layers} {kernel} launches a batch and no "
+                f"other kernel: {bucketed} for {batches} batches")
+        fa.reset_launch_counts()
+        calls0 = flat.model_calls
+        flat_got = []
+        for req in reqs:
+            status, payload, _ = _post(flat_port, req)
+            if status != 200:
+                raise AssertionError(f"{tag} a flat request answered "
+                                     f"{status}")
+            flat_got.append(np.asarray(payload["outputs"][0], np.float32))
+        flat_counts = dict(fa.launch_counts)
+        flat_batches = flat.model_calls - calls0
+        if flat_counts != {n: layers * flat_batches if n == kernel else 0
+                           for n in flat_counts}:
+            raise AssertionError(f"{tag} flat runtime launched "
+                                 f"{flat_counts} in {flat_batches} batches")
+        counts = {n: bucketed[n] + flat_counts[n] for n in bucketed}
+        log(f"{tag} {len(reqs)} requests ({sum(BUCKET_REQUESTS[seqlen])} "
+            f"rows) one at a time: {batches} bucketed batches launched "
+            f"{bucketed[kernel]} {kernel}, {flat_batches} flat batches "
+            f"{flat_counts[kernel]} ({layers} encoder layers), no other "
+            f"kernel")
+        deltas = {k: hist1.get(k, 0) - hist0.get(k, 0) for k in hist1}
+        log(f"{tag} serving_batch_pad_rows of the bucketed batches "
+            f"(cumulative, le -> count): {deltas} over {count1 - count0} "
+            f"batches")
+
+        # every bucketed row: bit for bit a direct call at its pad
+        # target, close to the flat runtime's row and to einsum attention
+        model = rt._slot.model
+        block = model.block
+        worst_flat = worst_ref = 0.0
+        bitwise_flat = True
+        for req, a, b in zip(reqs, got, flat_got):
+            n = req[0].shape[0]
+            target = next((k for k in buckets if k >= n), cap)
+            direct = model.buckets.get(target, model)(
+                *_pad_rows(req, target))[0][:n]
+            if a.shape != (n, 2) or not np.isfinite(a).all():
+                raise AssertionError(f"{tag} bad output {a.shape}")
+            if a.tobytes() != np.asarray(direct, np.float32).tobytes():
+                raise AssertionError(
+                    f"{tag} a {n}-row request's rows differ from a direct "
+                    f"call at its pad target {target}")
+            worst_flat = max(worst_flat, float(np.abs(a - b).max()))
+            bitwise_flat &= a.tobytes() == b.tobytes()
+        os.environ["MXNET_FLASH_ATTENTION"] = "0"
+        try:
+            for req, a in zip(reqs, got):
+                with torch.inference_mode():
+                    ref = block(*[torch.from_numpy(x).cuda() for x in req])
+                worst_ref = max(worst_ref, float(np.abs(
+                    a - ref.float().cpu().numpy()).max()))
+        finally:
+            del os.environ["MXNET_FLASH_ATTENTION"]
+        # the card gives every row of a batch the same bits at every
+        # batch size (measured on an H100 at every bucket, T = 128 and
+        # 2048), so the bucketed rows are held to the flat runtime's bit
+        # for bit
+        if not (bitwise_flat and worst_ref <= LOGIT_ATOL):
+            raise AssertionError(
+                f"{tag} bucketed logits differ from the flat runtime by "
+                f"{worst_flat} (bitwise required) and from einsum attention "
+                f"by {worst_ref} (atol {LOGIT_ATOL})")
+        log(f"{tag} bucketed rows bit for bit a direct call at their pad "
+            f"target; vs the flat runtime max|diff|={worst_flat:.3e} "
+            f"(bitwise 0: {bitwise_flat}), vs einsum attention "
+            f"{worst_ref:.3e} (atol {LOGIT_ATOL})")
+
+        # per bucket: the device forward, and a request of that size
+        for b in buckets + (cap,):
+            req = _bert_rows(rng, b, seqlen)
+            ts = [torch.from_numpy(x).cuda() for x in req]
+            with torch.inference_mode():
+                fwd_ms = time_ms(lambda: block(*ts), iters=5, warmup=1)
+                kern_ms = device_ms(lambda: block(*ts), iters=5)
+            lat = {}
+            for name, p in (("bucketed", port), ("flat", flat_port)):
+                lat[name] = _p50([_post(p, req)[2] for _ in
+                                  range(BUCKET_LATENCY_REPEATS)]) * 1e3
+            log(f"{tag} bucket {b}: {b}x{seqlen} forward {fwd_ms:.2f} ms "
+                f"back to back on the device ({kern_ms:.2f} ms of it in "
+                f"kernels); p50 of a {b}-row request {lat['bucketed']:.1f} "
+                f"ms bucketed, {lat['flat']:.1f} ms flat (pads to {cap}) "
+                f"({card})")
+
+        if check_reload:
+            from incubator_mxnet_torch.tools.serve_chaos import \
+                corrupt_copy
+            bad = corrupt_copy(art)
+            try:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                res = rt.reload(bad)
+                torch.cuda.synchronize()
+                after = torch.cuda.memory_allocated()
+            finally:
+                shutil.rmtree(os.path.dirname(bad), ignore_errors=True)
+            status, payload, _ = _post(port, reqs[3])
+            again = np.asarray(payload["outputs"][0], np.float32)
+            if res["ok"] or "params.npz" not in res["error"] or \
+                    after != before or status != 200 or \
+                    again.tobytes() != got[3].tobytes():
+                raise AssertionError(
+                    f"{tag} corrupt reload: {res}, allocated {before} -> "
+                    f"{after} bytes, outputs unchanged "
+                    f"{again.tobytes() == got[3].tobytes()}")
+            log(f"{tag} reload to a corrupt artifact rolled back: "
+                f"{res['error'][:80]}...; allocated memory {before} -> "
+                f"{after} bytes, outputs bit for bit unchanged")
+    finally:
+        for r in rts:
+            r.close()
+        del rts
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts, recs
+
+
+def phase_serve_buckets(card):
+    """Both bucketed paths; returns ({kernel: launches}, {kernel:
+    [record per batch]})."""
+    counts, recs = {}, {}
+    for seqlen in (T, LONG_T):
+        c, r = _serve_buckets_case(card, seqlen, check_reload=seqlen == T)
+        kernel = BUCKET_KERNEL[seqlen]
+        counts[kernel], recs[kernel] = c[kernel], r
+    return counts, recs
+
+
+def _run_tool(module, args, tag, timeout):
+    """Run a chaos tool, echo its lines under `tag`; returns the JSON
+    object of its last line."""
+    cmd = [sys.executable, "-m", module, "--ctx", "gpu(0)", *args]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONPATH=HERE))
+    lines = []
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            lines.append(line)
+            log(f"{tag} {line}")
+            if time.time() - t0 > timeout:
+                break
+        proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"{tag} {module} exited {proc.returncode}")
+    return json.loads(lines[-1]), time.time() - t0
+
+
+def _chaos_phase(card, tool, tag, same_weights, describe):
+    """Export BERT-base bf16 at T = 128, capacity `CHAOS_CAPACITY`, twice
+    (the second time from seed 1, or the same weights again), run the
+    port's chaos tool `tool` on the two and log `describe` of its
+    readings; returns them."""
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tool}_")
+    try:
+        art_a, net = _bert_artifact(os.path.join(tmp, "a"), T,
+                                    CHAOS_CAPACITY, 0)
+        art_b, net = _bert_artifact(
+            os.path.join(tmp, "b"), T, CHAOS_CAPACITY,
+            0 if same_weights else 1, net=net if same_weights else None)
+        del net
+        torch.cuda.empty_cache()
+        out, secs = _run_tool(f"incubator_mxnet_torch.tools.{tool}",
+                              ["--artifact", art_a, "--artifact-b", art_b],
+                              tag, 600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r = out[tool]
+    log(f"{tag} BERT-base bf16 T={T} capacity {CHAOS_CAPACITY}: "
+        f"{describe(r)}; the gate took {secs:.1f} s ({card})")
+    return r
+
+
+def phase_serve_chaos(card):
+    return _chaos_phase(
+        card, "serve_chaos", "[serve-chaos]", False, lambda r: (
+            f"reload load+warm {r['reload_seconds']:.3f} s, breaker-open "
+            f"503 in {r['breaker_503_ms']:.2f} ms, mid-flight SIGTERM "
+            f"drained and exited in {r['drain_seconds']:.3f} s"))
+
+
+def phase_fleet(card):
+    return _chaos_phase(
+        card, "fleet_chaos", "[fleet]", True, lambda r: (
+            f"router over 3 replicas, {r['requests']} requests "
+            f"({r['ok']} 200s, {r['shed']} sheds) in "
+            f"{r['load_seconds']:.1f} s, {r['requests_per_s']:.1f} "
+            f"requests/s, p50 {r['p50_ms']:.1f} ms, p99 "
+            f"{r['p99_ms']:.1f} ms; rolling deploy "
+            f"{r['deploy_seconds']:.2f} s"))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5548,9 +5934,13 @@ def main():
     phase_estimator(card)
     phase_image_check(card)
     phase_train_record(card, resident_step_ms)
+    bucket_counts, bucket_recs = phase_serve_buckets(card)
+    phase_serve_chaos(card)
+    phase_fleet(card)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
-        f"[serve], {ia_fwd} [interleaved-attn]")
+        f"[serve], {ia_fwd} [interleaved-attn], "
+        f"{bucket_counts['flash_short_fwd']} [serve-buckets]")
     log(f"[done] flash_short_fwd_train: {train_launches} launches [train], "
         f"{lamb_launches} [train-lamb], {sparse_launches} [train-sparse], "
         f"{ckpt_launches} [checkpoint], {ia_train} [interleaved-attn]")
@@ -5559,20 +5949,27 @@ def main():
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
              "replaces": f"{fa_py}:290"}
     kernels = [{"name": "flash_short_fwd", **short,
-                "launches": serve["flash_short_fwd"] + ia_fwd, **rec},
+                "launches": serve["flash_short_fwd"] + ia_fwd
+                + bucket_counts["flash_short_fwd"], **rec,
+                "buckets": bucket_recs["flash_short_fwd"]},
                {"name": "flash_short_fwd_train", **short,
                 "launches": train_launches + lamb_launches + sparse_launches
                 + ckpt_launches + ia_train, **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),
                             ("flash_bwd_dkv", "flash_bwd.cu", 176)):
-        launches = serve_long[name] + train_long[name]
+        launches = serve_long[name] + train_long[name] + \
+            bucket_counts.get(name, 0)
         log(f"[done] {name}: {serve_long[name]} launches serving at T="
-            f"{LONG_T}, {train_long[name]} training at T={LONG_T}")
+            f"{LONG_T}, {train_long[name]} training at T={LONG_T}"
+            + (f", {bucket_counts[name]} [serve-buckets]"
+               if name in bucket_counts else ""))
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}/{src}",
                         "replaces": f"{fa_py}:{line}", "launches": launches,
                         **stream_recs[name]})
+        if name in bucket_recs:
+            kernels[-1]["buckets"] = bucket_recs[name]
     # row 5 is one kernel in two forms: its entry carries the inference
     # form's numbers (serving) and, under "save_p", the training form's
     fwd_launches = (serve_bthd["flash_short_bthd_fwd"]

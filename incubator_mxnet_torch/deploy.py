@@ -14,12 +14,26 @@ carries what rebuilds the model instead:
 `load_serving` checks every file against the manifest before reading
 any of them, rebuilds the block on the device, loads the weights and
 returns a callable of numpy arrays.
+
+Batch buckets: `export_serving(..., batch_buckets=[1, 2, ...])` records
+the sorted sizes below the capacity in meta.json under
+``"batch_buckets"``, and the loaded model's ``buckets`` maps each size b
+to a callable that runs the same rebuilt block at batch b.  The JAX
+format carries one ``model_b{n}.jaxexp`` file per bucket; the port's
+artifact rebuilds the block, so a bucket needs no file of its own (an
+artifact of the port is not one of the JAX package's either way).
+
+Every call of a loaded model counts ``serving_requests`` and observes
+``serving_request_seconds``, labelled with the artifact directory's
+name (``name#b{n}`` for a bucket).  The JAX package's compile-cache
+path has no counterpart: nothing is compiled.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import time
 
 import numpy as _np
 import torch
@@ -27,6 +41,7 @@ import torch
 from .base import MXNetError, dtype_name, torch_dtype
 from .context import as_device
 from . import ndarray as nd
+from . import telemetry as _telemetry
 
 __all__ = ["export_serving", "load_serving", "validate_artifact"]
 
@@ -45,12 +60,14 @@ def _as_tensor(x, device):
     return x.to(device)
 
 
-def export_serving(block, example_inputs, out_dir):
+def export_serving(block, example_inputs, out_dir, batch_buckets=None):
     """Write a serving artifact for `block` (built with
     `models.get_model`) to `out_dir`.  `example_inputs` (tensors,
     NDArrays or numpy arrays) fix the input shapes and dtypes; their
     leading dimension is the batch capacity the server pads to.
-    Returns out_dir."""
+    `batch_buckets`: extra batch sizes below the capacity that the
+    server may pad a small batch to instead; they require every input
+    and output to lead with the batch dimension.  Returns out_dir."""
     spec = getattr(block, "_model_spec", None)
     if spec is None:
         raise MXNetError("export_serving: build the block with "
@@ -73,6 +90,18 @@ def export_serving(block, example_inputs, out_dir):
         if p._data is None:
             raise MXNetError(f"export_serving: parameter {name} is "
                              "uninitialized")
+    buckets = []
+    if batch_buckets:
+        cap = int(inputs[0].shape[0]) if inputs and inputs[0].dim() else 0
+        rowwise = (cap >= 1
+                   and all(t.dim() and t.shape[0] == cap for t in inputs)
+                   and all(t.dim() and t.shape[0] == cap for t in outs))
+        if not rowwise:
+            raise MXNetError(
+                "export_serving: batch_buckets requires every input "
+                "and output to lead with the same batch dimension")
+        buckets = sorted({int(b) for b in batch_buckets
+                          if 1 <= int(b) < cap})
     dtypes = {p.dtype for p in params.values()}
     os.makedirs(out_dir, exist_ok=True)
     nd.save(os.path.join(out_dir, "params.npz"),
@@ -86,6 +115,8 @@ def export_serving(block, example_inputs, out_dir):
         "outputs": [_spec(t) for t in outs],
         "platforms": ["cuda"],
     }
+    if buckets:
+        meta["batch_buckets"] = buckets
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
     _write_manifest(out_dir, ["meta.json", "params.npz"])
@@ -166,32 +197,53 @@ def validate_artifact(artifact_dir, required=_REQUIRED_SERVING_FILES):
     return manifest
 
 
+_tm_requests = _telemetry.counter(
+    "serving_requests", "Inference requests served", ("model",))
+_tm_request_secs = _telemetry.histogram(
+    "serving_request_seconds", "Inference request latency", ("model",))
+
+
 class ServedModel:
     """A loaded artifact: `model(*numpy_inputs)` returns a list of numpy
-    outputs (bfloat16 outputs come back as float32).  `block`, `device`
-    and `meta` are public."""
+    outputs (bfloat16 outputs come back as float32).  `block`, `device`,
+    `meta`, `label` and `buckets` (batch size -> a `ServedModel` of the
+    same block at that batch) are public."""
 
-    def __init__(self, block, device, meta):
+    def __init__(self, block, device, meta, label="model"):
         self.block = block
         self.device = device
         self.meta = meta
+        self.label = label
+        self.buckets = {}
         self._in_dtypes = [torch_dtype(s["dtype"]) for s in meta["inputs"]]
+        self._requests = _tm_requests.labels(label)
+        self._latency = _tm_request_secs.labels(label)
 
     def __call__(self, *inputs):
         if len(inputs) != len(self._in_dtypes):
             raise MXNetError(f"expected {len(self._in_dtypes)} inputs, got "
                              f"{len(inputs)}")
-        ts = [torch.as_tensor(_np.asarray(x)).to(self.device, dt)
-              for x, dt in zip(inputs, self._in_dtypes)]
-        with torch.inference_mode():
-            out = self.block(*ts)
-        out = list(out) if isinstance(out, (tuple, list)) else [out]
-        return [nd.to_numpy(o) for o in out]
+        t0 = time.perf_counter()
+        try:
+            ts = [torch.as_tensor(_np.asarray(x)).to(self.device, dt)
+                  for x, dt in zip(inputs, self._in_dtypes)]
+            with torch.inference_mode():
+                out = self.block(*ts)
+            out = list(out) if isinstance(out, (tuple, list)) else [out]
+            return [nd.to_numpy(o) for o in out]
+        finally:
+            self._requests.inc()
+            self._latency.observe(time.perf_counter() - t0)
+
+
+def _at_batch(specs, b):
+    return [dict(s, shape=[b] + list(s["shape"][1:])) for s in specs]
 
 
 def load_serving(artifact_dir, ctx=None):
     """Validate, rebuild and load an artifact on `ctx` (default gpu(0));
-    returns a `ServedModel`."""
+    returns a `ServedModel`, with one more per batch bucket the artifact
+    lists (`model.buckets`), all sharing the one block."""
     validate_artifact(artifact_dir)
     device = as_device(ctx)
     with open(os.path.join(artifact_dir, "meta.json")) as f:
@@ -204,4 +256,12 @@ def load_serving(artifact_dir, ctx=None):
                                                 "params.npz")),
                     ctx=device, source=artifact_dir)
     block.eval()
-    return ServedModel(block, device, meta)
+    label = os.path.basename(os.path.normpath(artifact_dir)) or "model"
+    model = ServedModel(block, device, meta, label)
+    for b in meta.get("batch_buckets", ()):
+        b = int(b)
+        model.buckets[b] = ServedModel(
+            block, device, dict(meta, inputs=_at_batch(meta["inputs"], b),
+                                outputs=_at_batch(meta["outputs"], b)),
+            f"{label}#b{b}")
+    return model

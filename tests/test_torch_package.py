@@ -36,7 +36,11 @@ def test_import_pulls_in_no_jax():
             "incubator_mxnet_torch.image, incubator_mxnet_torch._native, "
             "incubator_mxnet_torch.io.native_image, "
             "incubator_mxnet_torch.tools.im2rec, "
-            "incubator_mxnet_torch.tools.io_bench\n"
+            "incubator_mxnet_torch.tools.io_bench, "
+            "incubator_mxnet_torch.telemetry, incubator_mxnet_torch.tracing, "
+            "incubator_mxnet_torch.introspect, incubator_mxnet_torch.router, "
+            "incubator_mxnet_torch.tools.serve_chaos, "
+            "incubator_mxnet_torch.tools.fleet_chaos\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\n"
