@@ -6149,6 +6149,452 @@ def phase_native_train(card, native, train_step_ms):
     shutil.rmtree(out, ignore_errors=True)
     return counts
 
+# ---------------------------------------------------------------------
+# the symbolic and legacy API: export / SymbolBlock / Module at full
+# width, a symbolic attention graph on rows 1 and 1b, the mxnet alias
+# ---------------------------------------------------------------------
+SYM_STEPS = 3
+SYM_LOSS_RTOL = 2e-2       # the first step's loss against ParallelTrainer's
+SYM_UPDATE_MIN_COS = 0.9   # the weights' update, Module against trainer
+SYM_UPDATE_NORM_RTOL = 0.05
+SC_RTOL = 2e-2             # card vs CPU, of the largest value (bf16)
+SC_MIN_COS = 0.999
+SC_FP32_RTOL = 1e-4        # card vs CPU in float32 (TF32 off)
+SC_BUCKETS = (24, 32)
+MNIST_ACC_MARGIN = 0.02    # card vs CPU: the two shuffles differ
+
+
+def _flat(params):
+    return torch.cat([t.detach().double().flatten() for t in params])
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 products in float32 (TF32 off) within the scope, as the
+    CPU computes them; the earlier settings come back after it."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def phase_symbol_resnet(card, resident_step_ms):
+    """ResNet-50 v1b at `bench_resnet50`'s set-up, from the weights
+    [train-resnet] starts from: `HybridBlock.export`, then
+    `SymbolBlock.imports` on gpu(0), whose predict-mode forward must be
+    the block's bit for bit; then `mx.mod.Module` over the graph and a
+    SoftmaxOutput head, bound on gpu(0) in bf16, takes `SYM_STEPS`
+    forward_backward + update steps, held to ParallelTrainer.step's
+    losses and weight updates from the same weights and batch."""
+    from collections import Counter
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import gluon, sym
+    t0 = time.time()
+    net, _loss, tr, x, y = _resnet50_bench()
+    _reset_all_counts()
+    ref = net(x)            # the first forward also finishes deferred init
+    prefix = os.path.join(HERE, "build", "symbol_resnet", "resnet50_v1b")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    sf, pf = net.export(prefix)
+    graph = sym.load(sf)
+    ops = Counter(n._op for n in graph._topo() if n._op)
+    blk = gluon.SymbolBlock.imports(sf, ["data"], pf, ctx=mx.gpu(0))
+    got = blk(x)
+    torch.cuda.synchronize()
+    same = torch.equal(ref._data, got._data)
+    fwd_ms = time_ms(lambda: blk(x), iters=3, warmup=1)
+    log(f"[symbol-resnet] export + SymbolBlock.imports(ctx=gpu(0)) in "
+        f"{time.time() - t0:.1f} s with the build; graph "
+        + ", ".join(f"{k} {v}" for k, v in sorted(ops.items()))
+        + f"; predict-mode forward {RESNET_BATCH}x3x{RESNET_SIZE}x"
+        f"{RESNET_SIZE} bf16 equal to the block's bit for bit: {same}; "
+        f"{fwd_ms:.2f} ms (CUDA events) ({card})")
+    if not same or ops["Convolution"] != 53 or ops["BatchNorm"] != 53:
+        raise AssertionError(f"[symbol-resnet] SymbolBlock forward equal "
+                             f"{same}; graph {dict(ops)}")
+    del blk, ref, got
+    # the Module from the exported graph and weights
+    head = sym.SoftmaxOutput(graph, name="softmax")
+    loaded = mx.nd.load(pf)
+    aux_names = set(head.list_auxiliary_states())
+    arg_p = {k: v for k, v in loaded.items() if k not in aux_names}
+    aux_p = {k: v for k, v in loaded.items() if k in aux_names}
+    mod = mx.mod.Module(head, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", tuple(x.shape))],
+             label_shapes=[("softmax_label", (RESNET_BATCH,))])
+    mod.init_params(arg_params=arg_p, aux_params=aux_p)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SGD)
+    batch = mx.io.DataBatch([x], [y])
+    names = sorted(arg_p)
+    w0 = _flat(mod._arg_params[n]._data for n in names)
+    aux0 = _flat(mod._aux_params[n]._data for n in sorted(aux_p))
+    lbl = y._data.long()
+    mod_losses = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for i in range(SYM_STEPS):
+        if i == 1:
+            w1_mod = _flat(mod._arg_params[n]._data for n in names)
+            start.record()
+        mod.forward_backward(batch)
+        mod.update()
+        p = mod.get_outputs()[0]._data.float()
+        mod_losses.append(-torch.log(p.gather(1, lbl[:, None]).clamp_min(
+            1e-30)).mean().item())
+    end.record()
+    torch.cuda.synchronize()
+    mod_ms = start.elapsed_time(end) / (SYM_STEPS - 1)
+    counts = _all_counts()
+    w_mod = _flat(mod._arg_params[n]._data for n in names)
+    aux_moved = not torch.equal(
+        _flat(mod._aux_params[n]._data for n in sorted(aux_p)), aux0)
+    out_dtype = str(mod.get_outputs()[0].dtype)
+    del mod
+    torch.cuda.empty_cache()
+    # ParallelTrainer from the same weights and batch
+    params = net._collect_params_with_prefix()
+    tr_losses = [tr.step(x, y).asscalar()]
+    w1_tr = _flat(params[n].data()._data for n in names)
+    tr_losses += [tr.step(x, y).asscalar() for _ in range(SYM_STEPS - 1)]
+    w_tr = _flat(params[n].data()._data for n in names)
+
+    def agree(a, b):
+        """(cosine, norm ratio) of two updates."""
+        return (a @ b / (a.norm() * b.norm())).item(), \
+            (a.norm() / b.norm()).item()
+    cos, ratio = agree(w1_mod - w0, w1_tr - w0)
+    cos3, ratio3 = agree(w_mod - w0, w_tr - w0)
+    log(f"[symbol-resnet] Module(SoftmaxOutput) bound on gpu(0), bf16 "
+        f"(outputs {out_dtype}), SGD {SGD}: losses "
+        + ", ".join(f"{v:.4f}" for v in mod_losses)
+        + "; ParallelTrainer.step from the same weights and batch: "
+        + ", ".join(f"{v:.4f}" for v in tr_losses)
+        + f" (the first, from the same weights, within rtol "
+        f"{SYM_LOSS_RTOL}); the first step's weight update against the "
+        f"trainer's: cosine {cos:.4f} (min {SYM_UPDATE_MIN_COS}), norm "
+        f"ratio {ratio:.4f} (within {SYM_UPDATE_NORM_RTOL}); over the "
+        f"{SYM_STEPS} steps: cosine {cos3:.4f}, norm ratio {ratio3:.4f}; "
+        f"running stats moved: {aux_moved}")
+    log(f"[symbol-resnet] Module step {mod_ms:.2f} ms (CUDA events over "
+        f"{SYM_STEPS - 1} steps, forward_backward + update), against "
+        f"[train-resnet]'s resident ParallelTrainer step "
+        f"{resident_step_ms:.2f} ms ({card})")
+    # the first step starts from the same weights; the later ones from
+    # weights that bf16's rounding has already moved apart, so they are
+    # held by the update's direction and size, and by a falling loss
+    bad = abs(mod_losses[0] - tr_losses[0]) > SYM_LOSS_RTOL * abs(
+        tr_losses[0]) or not mod_losses[-1] < mod_losses[0]
+    if bad or not np.all(np.isfinite(mod_losses)) \
+            or out_dtype != "bfloat16" or not aux_moved \
+            or cos < SYM_UPDATE_MIN_COS \
+            or abs(ratio - 1) > SYM_UPDATE_NORM_RTOL:
+        raise AssertionError(f"[symbol-resnet] Module steps disagree with "
+                             f"ParallelTrainer (losses {mod_losses} against "
+                             f"{tr_losses}, cos {cos}, "
+                             f"ratio {ratio}, aux moved {aux_moved})")
+    if any(counts.values()):
+        raise AssertionError(f"[symbol-resnet] launched hand kernels "
+                             f"{counts}: ResNet has none on its path")
+    return mod_ms
+
+
+def _sc_attention(sym):
+    """BERT-base self-attention as a graph: a fused q/k/v projection,
+    `multi_head_attention` (12 heads, d = 64), the output projection."""
+    data = sym.var("data")
+    qkv = sym.FullyConnected(data, num_hidden=3 * IA_UNITS, flatten=False,
+                             name="qkv")
+    q, k, v = sym.split(qkv, num_outputs=3, axis=-1, name="cut")
+    att = sym.multi_head_attention(q, k, v, num_heads=HEADS, name="att")
+    return sym.FullyConnected(att, num_hidden=IA_UNITS, flatten=False,
+                              name="proj")
+
+
+def _sc_bind(graph, dev_ctx, values):
+    from incubator_mxnet_torch import nd
+    args = {n: nd.array(v.float().numpy(), ctx=dev_ctx).astype("bfloat16")
+            for n, v in values.items()}
+    grads = {n: nd.zeros(a.shape, ctx=dev_ctx, dtype="bfloat16")
+             for n, a in args.items()}
+    return graph.bind(ctx=dev_ctx, args=args, args_grad=grads), grads
+
+
+def _sc_attention_check(card):
+    """The attention graph bound on the card and on the CPU: predict
+    mode (row 1), then train mode and backward (row 1b)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    graph = _sc_attention(mx.sym)
+    shapes = graph.infer_shape(data=(TRAIN_BATCH, T, IA_UNITS))[0]
+    g = torch.Generator().manual_seed(0)
+    values = {n: torch.randn(s, generator=g) * (1.0 if n == "data"
+                                                 else 0.02)
+              for n, s in zip(graph.list_arguments(), shapes)}
+    cot = torch.randn(TRAIN_BATCH, T, IA_UNITS, generator=g)
+    res = {}
+    for where, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+        ex, grads = _sc_bind(graph, ctx, values)
+        _reset_all_counts()
+        out = ex.forward(is_train=False)[0]._data.float().cpu()
+        torch.cuda.synchronize()
+        fwd = {k: v for k, v in _all_counts().items() if v}
+        _reset_all_counts()
+        ex.forward(is_train=True)
+        ex.backward(nd.array(cot.numpy(), ctx=ctx).astype("bfloat16"))
+        torch.cuda.synchronize()
+        train = {k: v for k, v in _all_counts().items() if v}
+        res[where] = (out, {n: g_._data.float().cpu()
+                            for n, g_ in grads.items()}, fwd, train)
+    out, grads, fwd, train = res["cuda"]
+    rel, cos = _rel_cos(out, res["cpu"][0])
+    worst = min((_rel_cos(grads[n], res["cpu"][1][n]) + (n,)
+                 for n in grads), key=lambda r: r[1])
+    n_fwd, n_train = fwd.get("flash_short_fwd", 0), \
+        train.get("flash_short_fwd_train", 0)
+    log(f"[symbol-check] mx.sym multi_head_attention graph, BERT-base "
+        f"self-attention {TRAIN_BATCH}x{T}x{IA_UNITS} bf16 (12 heads, d = "
+        f"{D}), bound on gpu(0) against cpu(0): output err {rel:.4f} of the "
+        f"largest, cos {cos:.6f}; worst gradient ({worst[2]}) err "
+        f"{worst[0]:.4f}, cos {worst[1]:.6f} (rtol {SC_RTOL}, min cos "
+        f"{SC_MIN_COS}); launches: predict forward {fwd}, train forward + "
+        f"backward {train}; the CPU binding launched "
+        f"{res['cpu'][2]} / {res['cpu'][3]}")
+    if n_fwd != 1 or n_train != 1 or set(fwd) - {"flash_short_fwd"} \
+            or set(train) - {"flash_short_fwd_train"}:
+        raise AssertionError(f"[symbol-check] launches {fwd} {train}: "
+                             f"want one row-1 and one row-1b launch")
+    if res["cpu"][2] or res["cpu"][3]:
+        raise AssertionError("[symbol-check] the CPU binding launched")
+    if not (rel <= SC_RTOL and cos >= SC_MIN_COS and worst[0] <= SC_RTOL
+            and worst[1] >= SC_MIN_COS):
+        raise AssertionError("[symbol-check] the card disagrees with the "
+                             "CPU")
+    return n_fwd, n_train
+
+
+def _sc_foreach(card):
+    """`nd.contrib.foreach` over a Gluon LSTM cell at PTB width, float32,
+    card against CPU (TF32 off)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import gluon, nd
+    B = 32
+    rng = np.random.RandomState(0)
+    xs = rng.randn(LSTM_SEQ, B, LSTM_WIDTH).astype(np.float32)
+    outs = {}
+    for where, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            mx.random.seed(0)
+            cell = gluon.rnn.LSTMCell(LSTM_WIDTH, input_size=LSTM_WIDTH,
+                                      prefix="lstm_")
+            cell.initialize(mx.init.Xavier(), ctx=ctx)
+            if where == "cpu":
+                for k, p in cell.collect_params().items():
+                    p.set_data(outs["params"][k])
+            else:
+                outs["params"] = {k: p.data().asnumpy()
+                                  for k, p in cell.collect_params().items()}
+            x = nd.array(xs)
+
+            def body(xt, states):
+                out, new = cell(xt, states)
+                return out, new
+            t0 = time.time()
+            seq, (h, c) = nd.contrib.foreach(
+                body, x, [nd.zeros((B, LSTM_WIDTH)),
+                          nd.zeros((B, LSTM_WIDTH))])
+            torch.cuda.synchronize()
+            outs[where] = (seq._data.cpu(), c._data.cpu(), time.time() - t0)
+    rel, cos = _rel_cos(outs["cuda"][0], outs["cpu"][0])
+    crel, _ = _rel_cos(outs["cuda"][1], outs["cpu"][1])
+    log(f"[symbol-check] nd.contrib.foreach of an LSTMCell({LSTM_WIDTH}) "
+        f"over {LSTM_SEQ} steps at batch {B}, float32: card vs CPU output "
+        f"err {rel:.2e} of the largest (cos {cos:.8f}), final cell err "
+        f"{crel:.2e} (rtol {SC_FP32_RTOL}); {outs['cuda'][2] * 1e3:.1f} ms "
+        f"on the card (host clock, {LSTM_SEQ} Python steps)")
+    if not (rel <= SC_FP32_RTOL and crel <= SC_FP32_RTOL):
+        raise AssertionError("[symbol-check] foreach: the card disagrees "
+                             "with the CPU")
+
+
+def _sc_amp(card):
+    """`amp.init("bfloat16")`: FullyConnected runs in bf16 and softmax is
+    forced to float32 on the card, as on the CPU."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    rng = np.random.RandomState(1)
+    a = rng.randn(TRAIN_BATCH * T, IA_UNITS).astype(np.float32)
+    w = (rng.randn(IA_UNITS, IA_UNITS) * 0.02).astype(np.float32)
+    res = {}
+    mx.amp.init("bfloat16")
+    try:
+        for where, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+            out = nd.FullyConnected(nd.array(a, ctx=ctx),
+                                    nd.array(w, ctx=ctx), num_hidden=IA_UNITS,
+                                    no_bias=True)
+            sm = out.softmax()
+            res[where] = (str(out.dtype), str(sm.dtype),
+                          sm._data.float().cpu())
+    finally:
+        mx.amp.disable()
+    plain = nd.FullyConnected(nd.array(a, ctx=mx.gpu(0)),
+                              nd.array(w, ctx=mx.gpu(0)),
+                              num_hidden=IA_UNITS, no_bias=True)
+    rel, cos = _rel_cos(res["cuda"][2], res["cpu"][2])
+    log(f"[symbol-check] amp.init('bfloat16'): FullyConnected "
+        f"{TRAIN_BATCH * T}x{IA_UNITS} gives {res['cuda'][0]}, softmax "
+        f"{res['cuda'][1]} on the card ({res['cpu'][0]}, {res['cpu'][1]} on "
+        f"the CPU), softmax err {rel:.2e} of the largest (cos {cos:.6f}); "
+        f"after amp.disable() {plain.dtype}")
+    if res["cuda"][:2] != ("bfloat16", "float32") \
+            or res["cpu"][:2] != res["cuda"][:2] \
+            or str(plain.dtype) != "float32" or rel > SC_RTOL:
+        raise AssertionError(f"[symbol-check] amp policy {res['cuda'][:2]}"
+                             f", {res['cpu'][:2]}, {plain.dtype}, {rel}")
+
+
+def _sc_sym_gen(sym, vocab, width):
+    def sym_gen(seq_len):
+        data = sym.var("data")
+        label = sym.var("softmax_label")
+        embed = sym.Embedding(data, input_dim=vocab, output_dim=width,
+                              name="embed")
+        rnn = sym.RNN(sym.swapaxes(embed, dim1=0, dim2=1), state_size=width,
+                      num_layers=1, mode="lstm", name="lstm")
+        out = sym.reshape(sym.swapaxes(rnn[0], dim1=0, dim2=1),
+                          shape=(-1, width))
+        pred = sym.FullyConnected(out, num_hidden=vocab, name="fc")
+        return sym.SoftmaxOutput(pred, sym.reshape(label, shape=(-1,)),
+                                 name="softmax"), ("data",), \
+            ("softmax_label",)
+    return sym_gen
+
+
+def _sc_bucketing(card):
+    """`BucketingModule` over two bucket lengths at the bucketing
+    example's widths, float32: the card's outputs and weights after the
+    steps against the CPU's from the same weights and batches."""
+    import incubator_mxnet_torch as mx
+    vocab, width, batch = 64, 128, 32
+    rng = np.random.RandomState(0)
+    batches = [(T_, rng.randint(1, vocab, (batch, T_ + 1)))
+               for T_ in SC_BUCKETS + SC_BUCKETS]
+    res = {}
+    init = None
+    for where, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            mod = mx.mod.BucketingModule(
+                _sc_sym_gen(mx.sym, vocab, width),
+                default_bucket_key=max(SC_BUCKETS), context=ctx)
+            mod.bind(data_shapes=[("data", (batch, max(SC_BUCKETS)))],
+                     label_shapes=[("softmax_label",
+                                    (batch, max(SC_BUCKETS)))])
+            if init is None:
+                mx.random.seed(0)
+                mod.init_params(initializer=mx.init.Uniform(0.1))
+                init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            else:
+                mod.init_params(arg_params={k: mx.nd.array(v) for k, v in
+                                            init.items()})
+            mod.init_optimizer(optimizer="adam",
+                               optimizer_params={"learning_rate": 3e-3})
+            outs = []
+            for T_, seq in batches:
+                d = mx.nd.array(seq[:, :-1].astype(np.float32))
+                lb = mx.nd.array(seq[:, 1:].astype(np.float32))
+                b = mx.io.DataBatch(
+                    [d], [lb], bucket_key=T_,
+                    provide_data=[("data", d.shape)],
+                    provide_label=[("softmax_label", lb.shape)])
+                mod.forward_backward(b)
+                mod.update()
+                outs.append(mod.get_outputs()[0]._data.cpu())
+            res[where] = (outs, {k: v._data.cpu() for k, v in
+                                 mod.get_params()[0].items()},
+                          sorted(mod._buckets))
+    worst_out = max(_rel_cos(g, r)[0] for g, r in zip(res["cuda"][0],
+                                                      res["cpu"][0]))
+    worst_w = max(_rel_cos(res["cuda"][1][k], res["cpu"][1][k])[0]
+                  for k in res["cpu"][1])
+    log(f"[symbol-check] BucketingModule over buckets {res['cuda'][2]} "
+        f"(vocab {vocab}, LSTM {width}, batch {batch}, Adam), "
+        f"{len(batches)} steps, float32: card vs CPU worst output err "
+        f"{worst_out:.2e}, worst weight err {worst_w:.2e} of the largest "
+        f"(rtol {SC_FP32_RTOL})")
+    if res["cuda"][2] != sorted(SC_BUCKETS) or worst_out > SC_FP32_RTOL \
+            or worst_w > SC_FP32_RTOL:
+        raise AssertionError("[symbol-check] BucketingModule: the card "
+                             "disagrees with the CPU")
+
+
+def phase_symbol_check(card):
+    """The symbolic layer on the card against the CPU: a BERT-base
+    attention graph through rows 1 and 1b, foreach of an LSTM cell, the
+    amp policy and a BucketingModule.  Returns the row-1 and row-1b
+    launches of the attention graph."""
+    n_fwd, n_train = _sc_attention_check(card)
+    with _no_tf32():
+        _sc_foreach(card)
+        _sc_bucketing(card)
+    _sc_amp(card)
+    return n_fwd, n_train
+
+
+def phase_mnist_alias(card):
+    """The unchanged `train_mnist.py --synthetic --network lenet` through
+    `python -m incubator_mxnet_torch.run`: on the card (the default
+    context; `mx.tpu() if mx.num_tpus()` picks gpu(0)) and on the CPU
+    (`--ctx cpu`), both from `--seed 0`, at once in two processes."""
+    script = os.path.join(HERE, "example", "image-classification",
+                          "train_mnist.py")
+    args = ["--synthetic", "--network", "lenet", "--num-epochs", "1"]
+    procs = {}
+    for where, extra in (("cuda", []), ("cpu", ["--ctx", "cpu"])):
+        env = dict(os.environ, PYTHONPATH=HERE)
+        if where == "cpu":
+            env.update(OMP_NUM_THREADS="4", CUDA_VISIBLE_DEVICES="")
+        procs[where] = (time.time(), subprocess.Popen(
+            [sys.executable, "-m", "incubator_mxnet_torch.run", *extra,
+             "--seed", "0", script, *args], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    acc, secs = {}, {}
+    for where, (t0, proc) in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        secs[where] = time.time() - t0
+        lines = out.strip().splitlines()
+        for line in lines[-4:]:
+            log(f"[mnist-alias] {where}: {line}")
+        found = [l for l in lines if l.startswith("final validation")]
+        if proc.returncode != 0 or not found:
+            raise AssertionError(f"[mnist-alias] {where} run exited "
+                                 f"{proc.returncode}")
+        acc[where] = float(found[-1].split()[-1])
+    log(f"[mnist-alias] train_mnist.py --synthetic --network lenet, one "
+        f"epoch, unchanged through the alias: accuracy {acc['cuda']:.4f} "
+        f"on the card ({secs['cuda']:.1f} s with the process start), "
+        f"{acc['cpu']:.4f} on the CPU ({secs['cpu']:.1f} s); margin "
+        f"{MNIST_ACC_MARGIN} ({card})")
+    if abs(acc["cuda"] - acc["cpu"]) > MNIST_ACC_MARGIN \
+            or acc["cuda"] < 0.9:
+        raise AssertionError(f"[mnist-alias] accuracies {acc}")
+    return acc
+
+
+def phase_seconds(tag, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds logged under `tag`."""
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    log(f"[seconds] {tag} {time.time() - t0:.1f} s")
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -6160,80 +6606,95 @@ def main():
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}: {card}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    native = phase_build()
-    rec = phase_kernels()
-    train_rec = phase_train_kernels()
-    stream_recs = phase_stream_kernels()
-    bthd_recs = phase_bthd_kernels()
+    P = phase_seconds
+    native = P("[build]", phase_build)
+    rec = P("[kernel]", phase_kernels)
+    train_rec = P("[train-kernel]", phase_train_kernels)
+    stream_recs = P("[stream-kernels]", phase_stream_kernels)
+    bthd_recs = P("[bthd-kernels]", phase_bthd_kernels)
     # each path runs with the counts set to 0 just before it and is read
     # just after it
-    serve, serve_ms = phase_serve(card, T, BH_BATCH, REQUEST_ROWS,
-                                  N_SEQUENTIAL, "flash_short_fwd", "[serve]")
-    serve_long, _ = phase_serve(card, LONG_T, LONG_CAPACITY,
-                                LONG_REQUEST_ROWS, 2, "flash_fwd",
-                                "[serve-long]")
-    serve_bthd, serve_bthd_ms = _with_bthd(lambda: phase_serve(
-        card, T, BH_BATCH, REQUEST_ROWS, N_SEQUENTIAL,
-        "flash_short_bthd_fwd", "[serve-bthd]"))
+    serve, serve_ms = P("[serve]", phase_serve, card, T, BH_BATCH,
+                        REQUEST_ROWS, N_SEQUENTIAL, "flash_short_fwd",
+                        "[serve]")
+    serve_long, _ = P("[serve-long]", phase_serve, card, LONG_T,
+                      LONG_CAPACITY, LONG_REQUEST_ROWS, 2, "flash_fwd",
+                      "[serve-long]")
+    serve_bthd, serve_bthd_ms = P("[serve-bthd]", _with_bthd,
+                                  lambda: phase_serve(
+                                      card, T, BH_BATCH, REQUEST_ROWS,
+                                      N_SEQUENTIAL, "flash_short_bthd_fwd",
+                                      "[serve-bthd]"))
     log(f"[serve-bthd] {BH_BATCH}x{T} forward {serve_bthd_ms:.2f} ms on the "
         f"BTHD route, {serve_ms:.2f} ms on the default route ([serve]) "
         f"({card})")
-    train, train_ms = phase_train(card, TRAIN_BATCH, T, 10, 2,
-                                  ("flash_short_fwd_train",), "[train]")
-    train_long, _ = phase_train(card, LONG_TRAIN_BATCH, LONG_T, 5, 1,
-                                ("flash_fwd", "flash_bwd_dq",
-                                 "flash_bwd_dkv"), "[train-long]")
-    train_bthd, train_bthd_ms = _with_bthd(lambda: phase_train(
-        card, TRAIN_BATCH, T, 5, 1,
-        ("flash_short_bthd_fwd_train", "flash_short_bthd_bwd"),
-        "[train-bthd]"))
+    train, train_ms = P("[train]", phase_train, card, TRAIN_BATCH, T, 10, 2,
+                        ("flash_short_fwd_train",), "[train]")
+    train_long, _ = P("[train-long]", phase_train, card, LONG_TRAIN_BATCH,
+                      LONG_T, 5, 1, ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"), "[train-long]")
+    train_bthd, train_bthd_ms = P("[train-bthd]", _with_bthd,
+                                  lambda: phase_train(
+                                      card, TRAIN_BATCH, T, 5, 1,
+                                      ("flash_short_bthd_fwd_train",
+                                       "flash_short_bthd_bwd"),
+                                      "[train-bthd]"))
     log(f"[train-bthd] {TRAIN_BATCH}x{T} step {train_bthd_ms:.2f} ms on the "
         f"BTHD route, {train_ms:.2f} ms on the default route ([train]) "
         f"({card})")
-    bnb_recs, bnb_counts = phase_bottleneck(card)
-    net, x, resident_step_ms = phase_train_resnet(card)
-    phase_infer_resnet(card, net, x)
+    bnb_recs, bnb_counts = P("[bottleneck]", phase_bottleneck, card)
+    net, x, resident_step_ms = P("[train-resnet]", phase_train_resnet, card)
+    P("[infer-resnet]", phase_infer_resnet, card, net, x)
     del net, x
     torch.cuda.empty_cache()
-    phase_resnet_check(card)
-    rtc_recs, rtc_drive = phase_rtc(card)
-    mlp_counts = phase_train_rtc(card)
-    lenet_counts = phase_train_lenet(card)
-    phase_rnn_check(card)
-    phase_train_lstm(card)
-    phase_lstm_example(card)
-    phase_zoo_check(card)
-    phase_infer_zoo(card)
-    phase_train_zoo(card)
-    phase_optim_check(card)
-    phase_loss_check(card)
-    lamb_launches, _ = phase_train_lamb(card)
-    sparse_tr, sparse_batch, sparse_launches, _ = phase_train_sparse(card)
-    ckpt_launches = phase_checkpoint(card, sparse_tr, sparse_batch)
+    P("[resnet-check]", phase_resnet_check, card)
+    P("[symbol-resnet]", phase_symbol_resnet, card, resident_step_ms)
+    torch.cuda.empty_cache()
+    sc_fwd, sc_train = P("[symbol-check]", phase_symbol_check, card)
+    P("[mnist-alias]", phase_mnist_alias, card)
+    rtc_recs, rtc_drive = P("[rtc]", phase_rtc, card)
+    mlp_counts = P("[train-rtc]", phase_train_rtc, card)
+    lenet_counts = P("[train-lenet]", phase_train_lenet, card)
+    P("[rnn-check]", phase_rnn_check, card)
+    P("[train-lstm]", phase_train_lstm, card)
+    P("[lstm-example]", phase_lstm_example, card)
+    P("[zoo-check]", phase_zoo_check, card)
+    P("[infer-zoo]", phase_infer_zoo, card)
+    P("[train-zoo]", phase_train_zoo, card)
+    P("[optim-check]", phase_optim_check, card)
+    P("[loss-check]", phase_loss_check, card)
+    lamb_launches, _ = P("[train-lamb]", phase_train_lamb, card)
+    sparse_tr, sparse_batch, sparse_launches, _ = P(
+        "[train-sparse]", phase_train_sparse, card)
+    ckpt_launches = P("[checkpoint]", phase_checkpoint, card, sparse_tr,
+                      sparse_batch)
     del sparse_tr, sparse_batch
     torch.cuda.empty_cache()
-    ia_fwd, ia_train = phase_interleaved_attn(card)
-    phase_ops_check(card)
-    phase_detect_check(card)
-    phase_train_ssd(card)
-    phase_io_check(card)
-    phase_train_loader(card, resident_step_ms)
-    phase_estimator(card)
-    phase_image_check(card)
-    phase_train_record(card, resident_step_ms)
-    bucket_counts, bucket_recs = phase_serve_buckets(card)
-    phase_serve_chaos(card)
-    phase_fleet(card)
-    native_serve = phase_native_serve(card, native)
-    native_train = phase_native_train(card, native, train_ms)
+    ia_fwd, ia_train = P("[interleaved-attn]", phase_interleaved_attn, card)
+    P("[ops-check]", phase_ops_check, card)
+    P("[detect-check]", phase_detect_check, card)
+    P("[train-ssd]", phase_train_ssd, card)
+    P("[io-check]", phase_io_check, card)
+    P("[train-loader]", phase_train_loader, card, resident_step_ms)
+    P("[estimator]", phase_estimator, card)
+    P("[image-check]", phase_image_check, card)
+    P("[train-record]", phase_train_record, card, resident_step_ms)
+    bucket_counts, bucket_recs = P("[serve-buckets]", phase_serve_buckets,
+                                   card)
+    P("[serve-chaos]", phase_serve_chaos, card)
+    P("[fleet]", phase_fleet, card)
+    native_serve = P("[native-serve]", phase_native_serve, card, native)
+    native_train = P("[native-train]", phase_native_train, card, native,
+                     train_ms)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
-        f"[serve], {ia_fwd} [interleaved-attn], "
+        f"[serve], {ia_fwd} [interleaved-attn], {sc_fwd} [symbol-check], "
         f"{bucket_counts['flash_short_fwd']} [serve-buckets], "
         f"{native_serve['flash_short_fwd']} [native-serve] (C process)")
     log(f"[done] flash_short_fwd_train: {train_launches} launches [train], "
         f"{lamb_launches} [train-lamb], {sparse_launches} [train-sparse], "
         f"{ckpt_launches} [checkpoint], {ia_train} [interleaved-attn], "
+        f"{sc_train} [symbol-check], "
         f"{native_train['flash_short_fwd_train']} [native-train] (C "
         f"process)")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
@@ -6241,13 +6702,13 @@ def main():
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
              "replaces": f"{fa_py}:290"}
     kernels = [{"name": "flash_short_fwd", **short,
-                "launches": serve["flash_short_fwd"] + ia_fwd
+                "launches": serve["flash_short_fwd"] + ia_fwd + sc_fwd
                 + bucket_counts["flash_short_fwd"]
                 + native_serve["flash_short_fwd"], **rec,
                 "buckets": bucket_recs["flash_short_fwd"]},
                {"name": "flash_short_fwd_train", **short,
                 "launches": train_launches + lamb_launches + sparse_launches
-                + ckpt_launches + ia_train
+                + ckpt_launches + ia_train + sc_train
                 + native_train["flash_short_fwd_train"], **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),

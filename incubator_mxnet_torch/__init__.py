@@ -17,6 +17,13 @@ host-to-card staging ring), `gluon.data` (datasets, the DataLoader with
 thread or process workers) and `recordio`; `metric`, `callback` and
 `gluon.contrib.estimator` are the training-loop helpers, and `image`
 holds the array helpers of the transforms.
+The symbolic and legacy API: `sym` (Symbol graphs over the same op
+registry, `-symbol.json` files), `executor`, `mod` (Module,
+BucketingModule), `model` (FeedForward), `rnn` (the symbolic cells),
+`amp`, `monitor`, `viz`, `subgraph` and `contrib` (control flow);
+`HybridBlock.export` and `gluon.SymbolBlock`.  `mxnet_alias` puts the
+package under the name `mxnet` (`python -m incubator_mxnet_torch.run
+SCRIPT` runs a stock example on it).
 Attention runs in the CUDA kernels of `ops/flash_attention.py`;
 `tools.bottleneck_bwd` is the ResNet bottleneck's fused BN backward in
 two CUDA kernels (`python -m incubator_mxnet_torch.tools.bottleneck_bwd`).
@@ -43,5 +50,25 @@ from . import recordio
 from . import metric
 from . import callback
 from . import image
+from . import telemetry
+from . import tracing
+from . import introspect
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol
+from . import executor
+from . import module
+from . import module as mod
+from .module import Module
+from . import model
+from . import rnn
+from . import amp
+from . import monitor
+from . import visualization
+from . import visualization as viz
+from . import subgraph
+from . import contrib
+
+ndarray._install_control_flow()
 
 __version__ = "0.1.0"

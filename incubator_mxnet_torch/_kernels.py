@@ -99,8 +99,9 @@ def entry(name, fn_name, argtypes, restype=ctypes.c_int):
 
 
 def route(name, t, launch, plain, traceable=False):
-    """launch() for a CUDA tensor or device `t`, plain() for a CPU one;
-    any other device raises.  The wrappers' one dispatch rule: a CUDA
+    """launch() for a CUDA tensor or device `t`, plain() for a CPU one
+    or a meta one (symbolic shape inference: the plain version only
+    computes shapes there); any other device raises.  The wrappers' one dispatch rule: a CUDA
     tensor never reaches a plain version.  A traced CUDA tensor
     (`torch.export`, `make_fx`) raises unless `traceable`: only a launch
     behind a registered custom op can be recorded in a graph."""
@@ -111,7 +112,7 @@ def route(name, t, launch, plain, traceable=False):
                 f"{name}: its kernel is not a registered custom op, so a "
                 f"torch.export graph cannot hold it")
         return launch()
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return plain()
     raise MXNetError(f"{name}: no kernel for device {device}")
 

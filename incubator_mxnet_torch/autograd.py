@@ -32,7 +32,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "grad", "grad_scope", "mark_variables", "Function"]
+           "grad", "grad_scope", "mark_variables", "Function", "get_symbol"]
 
 
 class _State(threading.local):
@@ -175,6 +175,14 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                 leaf.grad = torch.zeros_like(leaf)    # accumulate densely
     with torch.enable_grad():
         torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+
+
+def get_symbol(_arr):
+    """Raises, as the JAX package's does (JAX `autograd.py:426`): the
+    graph of a recorded computation is not kept as a Symbol; trace a
+    block with `HybridBlock.export` instead."""
+    raise MXNetError("get_symbol: use HybridBlock.export on a hybridized "
+                     "block to obtain the traced graph in this framework")
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

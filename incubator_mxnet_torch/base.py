@@ -52,7 +52,8 @@ _DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
     "int8": torch.int8, "uint8": torch.uint8, "int32": torch.int32,
-    "int64": torch.int64, "bool": torch.bool,
+    "int64": torch.int64, "bool": torch.bool, "int16": torch.int16,
+    "uint16": torch.uint16, "uint32": torch.uint32, "uint64": torch.uint64,
 }
 
 
@@ -68,11 +69,13 @@ def torch_dtype(dtype):
         raise MXNetError(f"unsupported dtype {dtype!r}") from None
 
 
-_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
+           torch.uint64: torch.uint32}
 
 
 def torch_dtype_32(dtype):
-    """`torch_dtype`, with float64 and int64 as float32 and int32: the
+    """`torch_dtype`, with float64, int64 and uint64 as float32, int32
+    and uint32: the
     dtype the JAX package stores for a requested one (JAX runs without
     x64)."""
     t = torch_dtype(dtype)

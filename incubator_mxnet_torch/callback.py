@@ -1,8 +1,8 @@
 """Training callbacks (counterpart of `incubator_mxnet_tpu/callback.py`):
-`Speedometer`, `log_train_metric` and `ProgressBar`.  A callback takes
-one argument with `epoch`, `nbatch` and `eval_metric`, as the JAX
-package's fit loops pass it.  `do_checkpoint` and `module_checkpoint`
-need the Module API and are not ported yet (ROADMAP.md)."""
+`Speedometer`, `log_train_metric` and `ProgressBar`, whose one argument
+has `epoch`, `nbatch` and `eval_metric`, as the JAX package's fit loops
+pass it; and the epoch-end `do_checkpoint`/`module_checkpoint`, which
+take (epoch, symbol, arg_params, aux_params)."""
 from __future__ import annotations
 
 import json
@@ -14,7 +14,8 @@ import time
 
 from .base import get_env
 
-__all__ = ["Speedometer", "log_train_metric", "ProgressBar"]
+__all__ = ["Speedometer", "log_train_metric", "ProgressBar",
+           "do_checkpoint", "module_checkpoint"]
 
 
 class Speedometer:
@@ -91,6 +92,23 @@ class Speedometer:
         else:
             self.init = True
             self.tic = time.time()
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback that writes prefix-symbol.json and
+    prefix-NNNN.params every `period` epochs (`Module.fit`'s
+    `epoch_end_callback`)."""
+    from .module.module import save_checkpoint
+
+    def _callback(epoch, sym, arg_params, aux_params):
+        if (epoch + 1) % period == 0:
+            save_checkpoint(prefix, epoch + 1, sym, arg_params, aux_params)
+            logging.info("Saved checkpoint to \"%s-%04d.params\"",
+                         prefix, epoch + 1)
+    return _callback
+
+
+module_checkpoint = do_checkpoint
 
 
 def log_train_metric(period, auto_reset=False):

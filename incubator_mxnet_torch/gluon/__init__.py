@@ -4,7 +4,7 @@ contrib layers and Estimator, losses, utilities and the Trainer on
 vision datasets and transforms)."""
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from . import nn
 from . import loss
 from .trainer import Trainer

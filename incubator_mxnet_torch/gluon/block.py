@@ -12,13 +12,17 @@ torch tensors it follows torch's grad mode.
 
 `hybridize()` is accepted and does nothing yet: PyTorch runs eagerly,
 and the CachedOp counterpart (a CUDA graph of the forward) is later
-work.  It is not `torch.compile`.
+work.  It is not `torch.compile`.  `HybridBlock.export` traces the
+block into a `Symbol` (its parameters as variables of their structural
+names) and writes `prefix-symbol.json` and `prefix-0000.params` in the
+JAX package's formats; `SymbolBlock` runs such a graph as a block.
 """
 from __future__ import annotations
 
 import contextlib
 import re
 import threading
+from collections import OrderedDict
 
 import torch
 
@@ -28,7 +32,7 @@ from ..ndarray import NDArray
 from .. import ndarray as F
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock", "record_rows"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "record_rows"]
 
 _naming = threading.local()
 
@@ -243,6 +247,76 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError
+
+    def export(self, path, epoch=0):
+        """Write the graph and the parameters for deployment:
+        `path-symbol.json` (the block traced on a variable `data`) and
+        `path-NNNN.params` keyed by the parameters' structural names,
+        both readable by either package; returns the two file names."""
+        from ..symbol import trace_block_to_symbol
+        sym = trace_block_to_symbol(self)
+        with open(f"{path}-symbol.json", "w") as f:
+            f.write(sym.tojson())
+        params = self._collect_params_with_prefix()
+        F.save(f"{path}-{epoch:04d}.params",
+               {k: v._data for k, v in params.items()
+                if v._data is not None})
+        return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
+
+
+class SymbolBlock(HybridBlock):
+    """Run a loaded symbolic graph as a block: its arguments other than
+    the inputs, and its auxiliary states, become parameters named as in
+    the graph."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        self._out_sym = outputs
+        self._in_syms = inputs if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        arg_names = set(s.name for s in self._in_syms)
+        aux = set(outputs.list_auxiliary_states())
+        for name in (outputs.list_arguments()
+                     + outputs.list_auxiliary_states()):
+            if name not in arg_names:
+                self.params.get(name, allow_deferred_init=True,
+                                grad_req="null" if name in aux else "write")
+        self._graph_params = OrderedDict(
+            (name, p) for name, p in self.params.items())
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of `symbol_file`'s graph with inputs
+        `input_names`, its parameters loaded from `param_file` onto
+        `ctx` (default: the current context, gpu(0))."""
+        from ..symbol import load as sym_load
+        from ..symbol import Symbol
+        sym = sym_load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [Symbol.var(n) for n in input_names]
+        block = SymbolBlock(sym, inputs)
+        if param_file:
+            block.collect_params().load(param_file, ctx)
+        return block
+
+    def collect_params(self, select=None):
+        ret = super().collect_params(select)
+        pattern = re.compile(select) if select is not None else None
+        ret.update({n: p for n, p in self._graph_params.items()
+                    if pattern is None or pattern.match(n)})
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        return {prefix + k: v for k, v in self._graph_params.items()}
+
+    def _eager_forward(self, *args):
+        bindings = {s.name: a for s, a in zip(self._in_syms, args)}
+        for name, p in self._graph_params.items():
+            bindings[name] = p.data()
+        return self._out_sym.eval_with(bindings)
 
 
 @contextlib.contextmanager

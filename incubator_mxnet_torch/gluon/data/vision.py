@@ -25,7 +25,7 @@ from ...image import (center_crop, fixed_crop, imdecode, imresize,
                       resize_short)
 from ...ndarray import NDArray, array
 from ...random import np_rng as _frng
-from .dataset import Dataset, RecordFileDataset
+from .dataset import Dataset, ArrayDataset, RecordFileDataset  # noqa: F401
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "SyntheticImageDataset",
            "ImageRecordDataset", "ImageFolderDataset", "transforms"]

@@ -87,6 +87,7 @@ class Parameter:
         self._rows_sink = None      # (rows dict, index) while a step
         self._trace_reads = 0       # records the rows it looks up
         self._rows_lookups = 0
+        self._trace_override = None  # a Symbol while a block is traced
 
     @property
     def shape(self):
@@ -179,6 +180,8 @@ class Parameter:
 
     # ------------------------------------------------------------------
     def data(self, ctx=None):
+        if self._trace_override is not None:
+            return self._trace_override
         self._check_initialized()
         self._trace_reads += 1
         return NDArray(self._data)
@@ -259,6 +262,12 @@ class Parameter:
         self.dtype = dtype_name(dtype)
         if self._data is not None:
             self._set_tensor(self._data.to(torch_dtype(dtype)))
+
+    def var(self):
+        """A symbol variable of this parameter's name, shape and dtype
+        (JAX `gluon/parameter.py:226`)."""
+        from ..symbol import Symbol
+        return Symbol.var(self.name, shape=self._shape, dtype=self.dtype)
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"

@@ -27,6 +27,7 @@ from ..context import Context, as_device, cpu, current_context
 from ..ndarray import NDArray, array
 from ..ndarray.ndarray import _numpy_dtype_32
 from ..ndarray.sparse import BaseSparseNDArray
+from ..random import np_rng as _frng
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "LibSVMIter", "DevicePrefetcher"]
@@ -111,7 +112,9 @@ class DataIter:
 
 
 class NDArrayIter(DataIter):
-    """Iterate numpy arrays or NDArrays (or dicts or lists of them)."""
+    """Iterate numpy arrays or NDArrays (or dicts or lists of them).
+    With `shuffle` and no `shuffle_seed`, the order follows
+    `mx.random.seed` (the JAX package's draws fresh entropy there)."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  shuffle_seed=None, last_batch_handle="pad",
@@ -122,7 +125,11 @@ class NDArrayIter(DataIter):
         self._label = _init_data(label, allow_empty=True,
                                  default_name=label_name)
         self._shuffle = shuffle
-        self._rng = _np.random.RandomState(shuffle_seed)
+        # without a shuffle_seed the order's seed comes from the
+        # framework's numpy RNG: fresh entropy, or `mx.random.seed`'s
+        self._rng = _np.random.RandomState(
+            shuffle_seed if shuffle_seed is not None
+            else _frng().randint(2 ** 31))
         self._last_batch_handle = last_batch_handle
         self.num_data = self._data[0][1].shape[0]
         if self.num_data < batch_size:

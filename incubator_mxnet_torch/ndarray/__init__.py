@@ -29,6 +29,18 @@ for _name in _registry.list_ops():
         setattr(contrib, _name[len("_contrib_"):], getattr(_this, _name))
 _sys.modules[contrib.__name__] = contrib
 
+
+
+def _install_control_flow():
+    """Put `foreach`, `while_loop` and `cond` in `nd.contrib` (called by
+    the package once `contrib` is imported: its module imports NDArray
+    from here)."""
+    from ..contrib.control_flow import foreach, while_loop, cond
+    contrib.foreach = foreach
+    contrib.while_loop = while_loop
+    contrib.cond = cond
+
+
 # nd.random: the sampling ops with `ctx=` and `out=`, positional
 # parameters in MXNet's order, and the framework seed
 random = _types.ModuleType(__name__ + ".random")

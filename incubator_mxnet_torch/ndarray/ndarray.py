@@ -346,7 +346,8 @@ class NDArray:
     def __setitem__(self, key, value):
         """Assignment, outside any recorded graph (inside `record()` it
         raises, as in the JAX package).  Numbers and numpy values are
-        cast to this array's dtype."""
+        cast to this array's dtype; a Python integer out of an integer
+        dtype's range raises `OverflowError`, as there."""
         if is_recording():
             raise MXNetError("in-place assignment on an array is not "
                              "allowed inside autograd.record()")
@@ -365,6 +366,10 @@ class NDArray:
                     _storage(value) == _storage(t):
                 value = value.clone()
         else:
+            if isinstance(value, int) and not isinstance(value, bool) \
+                    and not t.is_floating_point() and t.dtype != torch.bool:
+                from ..ops.math import scalar_of
+                scalar_of(value, t.dtype)       # out of range: raises
             value = torch.as_tensor(_np.asarray(value)).to(device=t.device,
                                                            dtype=t.dtype)
         with torch.no_grad():

@@ -58,7 +58,8 @@ def attention_route(is_cuda, Tq, Tk, d, has_mask, train_dropout):
     return "einsum"
 
 
-@register("multi_head_attention")
+@register("multi_head_attention", needs_rng=True, needs_mode=True,
+          amp_exclude=("kv_length",))
 def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
                          num_heads, causal=False, dropout=0.0, scale=None):
     """Fused MHA on batch-major (N, T, E) tensors.  `dropout` drops

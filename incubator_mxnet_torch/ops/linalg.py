@@ -15,6 +15,7 @@ run in float32 and round once (torch's solvers take neither type).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as _np
@@ -31,13 +32,12 @@ def _t(x, flag):
 def _in_float32(fn):
     """`fn` run in float32 on half-precision inputs, its result rounded
     back to their dtype."""
+    @functools.wraps(fn)        # the signature the registry reads
     def impl(*args, **kwargs):
         dt = args[0].dtype
         if dt not in (torch.bfloat16, torch.float16):
             return fn(*args, **kwargs)
         return fn(*[a.to(torch.float32) for a in args], **kwargs).to(dt)
-    impl.__name__ = impl.__qualname__ = fn.__name__
-    impl.__doc__ = fn.__doc__
     return impl
 
 

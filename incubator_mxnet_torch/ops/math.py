@@ -28,6 +28,22 @@ def _abs(x):
     return torch.where(x >= 0, x, -x) + 0.0
 
 
+def _float_of_bool(x):
+    """Bool data as float32, where `jnp` promotes it for a float
+    function (torch's raise)."""
+    return x.to(torch.float32) if x.dtype == torch.bool else x
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+def _bool_kept(fn):
+    """`fn`, with bool data returned as it is (`jnp.floor` and the other
+    roundings of bool data are the identity; torch's raise)."""
+    return lambda x: x.clone() if x.dtype == torch.bool else fn(x)
+
+
 # the JAX op's functions: dtypes follow torch's promotion, which for
 # these is jnp's (integer data to float32 for the transcendental ones)
 _UNARY = {
@@ -42,8 +58,10 @@ _UNARY = {
     "log1p": torch.log1p,
     "sqrt": torch.sqrt,
     "rsqrt": torch.rsqrt,
-    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
-    "square": torch.square,
+    "cbrt": lambda x: _cbrt(_float_of_bool(x)),
+    # bool squares to int32, as in jnp (torch's gives int64)
+    "square": lambda x: torch.square(x.to(torch.int32) if x.dtype == torch.bool
+                                     else x),
     "reciprocal": torch.reciprocal,
     "sin": torch.sin,
     "cos": torch.cos,
@@ -63,7 +81,7 @@ _UNARY = {
     "gamma": lambda x: torch.exp(torch.lgamma(x)),
     "gammaln": torch.lgamma,
     "sigmoid": torch.sigmoid,
-    "softsign": F.softsign,
+    "softsign": lambda x: F.softsign(_float_of_bool(x)),
     # x + 0: bool becomes an integer, as in jnp (int32 there)
     "_copy": lambda x: x.to(torch.int32) if x.dtype == torch.bool
     else x.clone(),
@@ -77,10 +95,10 @@ _UNARY_INT = {
     "round": torch.round,
     "rint": lambda x: torch.round(x if x.is_floating_point()
                                   else x.to(torch.float32)),
-    "ceil": torch.ceil,
-    "floor": torch.floor,
-    "trunc": torch.trunc,
-    "fix": torch.trunc,
+    "ceil": _bool_kept(torch.ceil),
+    "floor": _bool_kept(torch.floor),
+    "trunc": _bool_kept(torch.trunc),
+    "fix": _bool_kept(torch.trunc),
     "logical_not": lambda x: torch.logical_not(x).to(x.dtype),
     "isnan": lambda x: torch.isnan(x).to(torch.float32),
     "isinf": lambda x: torch.isinf(x).to(torch.float32),
@@ -102,7 +120,9 @@ for _name, _fn in _UNARY_INT.items():
 
 @register("relu")
 def relu(data):
-    return torch.relu(data)
+    """Bool data gives int32, as `jnp.maximum(x, 0)` promotes it."""
+    return torch.relu(data.to(torch.int32) if data.dtype == torch.bool
+                      else data)
 
 
 # SELU's constants, as the JAX op has them
@@ -186,22 +206,42 @@ def _mod(a, b):
 
 
 def _hypot(a, b):
-    """`jnp.hypot`: integer operands give float32."""
+    """`jnp.hypot`: an integer operand takes the other's float dtype
+    (float16 with int32 is float16), two integers give float32."""
     if not a.is_floating_point():
-        a = a.to(torch.float32)
+        a = a.to(b.dtype if b.is_floating_point() else torch.float32)
     if not b.is_floating_point():
-        b = b.to(torch.float32)
+        b = b.to(a.dtype)
     return torch.hypot(a, b)
+
+
+def _bool_promoted(fn, both_int32):
+    """`fn` with `jnp`'s promotion of bool operands: a bool tensor takes
+    the other operand's dtype, and with `both_int32` two bools compute
+    in int32 (`power`, `mod`; torch's raise for bool)."""
+    def run(a, b):
+        ab, bb = a.dtype == torch.bool, b.dtype == torch.bool
+        if ab and bb:
+            if both_int32:
+                a, b = a.to(torch.int32), b.to(torch.int32)
+        elif ab:
+            a = a.to(b.dtype)
+        elif bb:
+            b = b.to(a.dtype)
+        return fn(a, b)
+    return run
 
 
 _BINARY = {
     "broadcast_add": (torch.add, ("elemwise_add", "_plus", "add")),
-    "broadcast_sub": (torch.sub, ("elemwise_sub", "_minus", "subtract")),
+    "broadcast_sub": (_bool_promoted(torch.sub, False),
+                      ("elemwise_sub", "_minus", "subtract")),
     "broadcast_mul": (torch.mul, ("elemwise_mul", "_mul", "multiply")),
     "broadcast_div": (torch.div, ("elemwise_div", "_div", "divide")),
-    "broadcast_power": (torch.pow, ("_power", "power", "pow")),
+    "broadcast_power": (_bool_promoted(torch.pow, True),
+                        ("_power", "power", "pow")),
     # Python's sign rule, as `jnp.mod`
-    "broadcast_mod": (_mod, ("_mod", "mod")),
+    "broadcast_mod": (_bool_promoted(_mod, True), ("_mod", "mod")),
     "broadcast_maximum": (torch.maximum, ("maximum",)),
     "broadcast_minimum": (torch.minimum, ("minimum",)),
     "broadcast_hypot": (_hypot, ()),
@@ -247,15 +287,25 @@ for _name, _fn in _CMP.items():
 def scalar_of(value, dtype):
     """Python scalar `value` cast to tensor dtype `dtype` as
     `jnp.asarray(value, dtype)` casts it: towards zero for integers,
-    rounded to the nearest value of a float type."""
+    rounded to the nearest value of a float type.  A Python integer out
+    of an integer dtype's range raises `OverflowError`, as there."""
     if dtype == torch.bool:
         return bool(value)
     if not dtype.is_floating_point:
+        if isinstance(value, int) and not in_range(value, dtype):
+            raise OverflowError(f"Python integer {value} out of bounds "
+                                f"for {str(dtype).replace('torch.', '')}")
         return int(value)
     if dtype == torch.float64:
         return float(value)
     with outside_trace():
         return torch.tensor(float(value), dtype=dtype).item()
+
+
+def in_range(value, dtype):
+    """Whether integer `value` is a value of integer dtype `dtype`."""
+    info = torch.iinfo(dtype)
+    return info.min <= value <= info.max
 
 
 _SCALAR = {
@@ -274,8 +324,14 @@ _SCALAR = {
 
 
 def _make_scalar(name, fn, rfn):
+    # bool data and the scalar cast to bool: `jnp.power`/`jnp.mod` of
+    # two bools compute in int32
+    bool_int32 = name in ("_scalar_power", "_scalar_mod")
+
     def impl(data, *, scalar, reverse=False):
         s = scalar_of(scalar, data.dtype)
+        if bool_int32 and data.dtype == torch.bool:
+            data, s = data.to(torch.int32), int(s)
         return rfn(s, data) if reverse else fn(data, s)
     impl.__name__ = impl.__qualname__ = name
     return impl
@@ -299,6 +355,13 @@ _SCALAR_CMP = {
 def _make_scalar_cmp(name, fn, rfn):
     def impl(data, *, scalar, reverse=False):
         x = data.detach()
+        if isinstance(scalar, int) and not isinstance(scalar, bool) \
+                and not x.is_floating_point() and x.dtype != torch.bool \
+                and not in_range(scalar, x.dtype):
+            # compared by value, as `jnp`'s comparisons (torch's would
+            # wrap the scalar into the data's dtype)
+            x = x.to(torch.int64) if in_range(scalar, torch.int64) \
+                else x.to(torch.float64)
         return (rfn(x, scalar) if reverse else fn(x, scalar)).to(data.dtype)
     impl.__name__ = impl.__qualname__ = name
     return impl

@@ -197,7 +197,7 @@ def _int_pooling(data, pool_type, kernel, stride, flat, count_include_pad):
         .sum(dim=dims).float()
 
 
-@register("BatchNorm")
+@register("BatchNorm", needs_mode=True)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False):
@@ -258,7 +258,7 @@ def instance_norm(data, gamma, beta, *, eps=1e-3):
         + beta.reshape(shape)
 
 
-@register("Dropout")
+@register("Dropout", needs_rng=True, needs_mode=True)
 def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False):
     """In train mode (`autograd.is_training()`, or `mode="always"`) each
     element is kept with probability 1 - p and scaled by 1 / (1 - p);

@@ -29,7 +29,8 @@ def _place(ctx):
     return dev, generator(dev)
 
 
-@register("_random_uniform", aliases=("random_uniform", "uniform"))
+@register("_random_uniform", aliases=("random_uniform", "uniform"),
+          needs_rng=True)
 def random_uniform(*, low=0.0, high=1.0, shape=(), dtype="float32",
                    ctx=None):
     dev, gen = _place(ctx)
@@ -37,7 +38,8 @@ def random_uniform(*, low=0.0, high=1.0, shape=(), dtype="float32",
     return (low + (high - low) * u).to(torch_dtype_32(dtype))
 
 
-@register("_random_normal", aliases=("random_normal", "normal", "randn"))
+@register("_random_normal", aliases=("random_normal", "normal", "randn"),
+          needs_rng=True)
 def random_normal(*, loc=0.0, scale=1.0, shape=(), dtype="float32",
                   ctx=None):
     dev, gen = _place(ctx)
@@ -45,7 +47,7 @@ def random_normal(*, loc=0.0, scale=1.0, shape=(), dtype="float32",
     return (loc + scale * z).to(torch_dtype_32(dtype))
 
 
-@register("_random_gamma", aliases=("random_gamma",))
+@register("_random_gamma", aliases=("random_gamma",), needs_rng=True)
 def random_gamma(*, alpha=1.0, beta=1.0, shape=(), dtype="float32",
                  ctx=None):
     """Gamma(alpha) scaled by `beta`."""
@@ -55,7 +57,8 @@ def random_gamma(*, alpha=1.0, beta=1.0, shape=(), dtype="float32",
         torch_dtype_32(dtype))
 
 
-@register("_random_exponential", aliases=("random_exponential",))
+@register("_random_exponential", aliases=("random_exponential",),
+          needs_rng=True)
 def random_exponential(*, lam=1.0, shape=(), dtype="float32", ctx=None):
     dev, gen = _place(ctx)
     e = torch.empty(_shape(shape), device=dev, dtype=_F32).exponential_(
@@ -63,14 +66,15 @@ def random_exponential(*, lam=1.0, shape=(), dtype="float32", ctx=None):
     return (e / lam).to(torch_dtype_32(dtype))
 
 
-@register("_random_poisson", aliases=("random_poisson",))
+@register("_random_poisson", aliases=("random_poisson",), needs_rng=True)
 def random_poisson(*, lam=1.0, shape=(), dtype="float32", ctx=None):
     dev, gen = _place(ctx)
     rate = torch.full(_shape(shape), float(lam), device=dev, dtype=_F32)
     return torch.poisson(rate, generator=gen).to(torch_dtype_32(dtype))
 
 
-@register("_random_randint", aliases=("random_randint", "randint"))
+@register("_random_randint", aliases=("random_randint", "randint"),
+          needs_rng=True)
 def random_randint(*, low=0, high=1, shape=(), dtype="int32", ctx=None):
     """Integers uniform in [low, high)."""
     dev, gen = _place(ctx)
@@ -78,7 +82,8 @@ def random_randint(*, low=0, high=1, shape=(), dtype="int32", ctx=None):
                          device=dev, dtype=torch_dtype_32(dtype))
 
 
-@register("_sample_multinomial", aliases=("sample_multinomial",))
+@register("_sample_multinomial", aliases=("sample_multinomial",),
+          needs_rng=True)
 def sample_multinomial(data, *, shape=(), get_prob=False, dtype="int32"):
     """Class ids drawn from the distributions in the last axis of `data`
     (weights max(p, 1e-30), as the JAX op's logits log(max(p, 1e-30))):
@@ -97,7 +102,7 @@ def sample_multinomial(data, *, shape=(), get_prob=False, dtype="int32"):
     return out.to(torch_dtype_32(dtype))
 
 
-@register("_shuffle", aliases=("shuffle",))
+@register("_shuffle", aliases=("shuffle",), needs_rng=True)
 def shuffle(data):
     """The rows of `data` (axis 0) in a random order."""
     perm = torch.randperm(data.shape[0], generator=generator(data.device),
@@ -105,7 +110,7 @@ def shuffle(data):
     return data.detach()[perm]
 
 
-@register("_sample_bernoulli")
+@register("_sample_bernoulli", needs_rng=True)
 def sample_bernoulli(*, p=0.5, shape=(), dtype="float32", ctx=None):
     dev, gen = _place(ctx)
     u = torch.rand(_shape(shape), generator=gen, device=dev, dtype=_F32)

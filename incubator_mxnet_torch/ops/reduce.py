@@ -4,8 +4,9 @@
 `MXNET_SAFE_ACCUMULATION` (default on) keeps the JAX `_safe_acc` rule:
 bfloat16 and float16 data are summed (`sum`, `mean`, `nansum`) in
 float32 and the result rounded back.  Integer sums, products and cumsums
-keep the data's dtype (int32 stays int32, as `jnp` without x64; torch
-would widen to int64), bool sums give int32.  `argmax`/`argmin` and the
+give int32, unsigned ones uint32, as `jnp` without x64 (narrow integers
+are widened, int32 wraps as there; torch would give int64); bool sums
+give int32.  `argmax`/`argmin` and the
 index outputs of `argsort`/`topk` are float32 by default, as in MXNet.
 Ties: `argsort`, `sort` and `topk` order equal values by index, as the
 stable `jnp.argsort` and `lax.top_k` do (descending order reverses the
@@ -50,11 +51,16 @@ def _safe_acc(data):
     return data, False
 
 
-def _int_keep(data):
-    """The dtype an integer or bool reduction keeps (None: torch's)."""
-    if data.dtype == torch.bool:
-        return torch.int32
-    return data.dtype if data.dtype in _INTS else None
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def _int_out(data):
+    """The dtype of an integer or bool sum or product, as `jnp`'s
+    without x64: uint32 for unsigned data, int32 for the rest (None for
+    float data)."""
+    if data.is_floating_point():
+        return None
+    return torch.uint32 if data.dtype in _UNSIGNED else torch.int32
 
 
 def _make_safe(name, fn):
@@ -70,7 +76,12 @@ def _make_safe(name, fn):
 
 
 def _sum(t, dims, keepdims):
-    return t.sum(dim=dims, keepdim=keepdims, dtype=_int_keep(t))
+    """Integer data are summed in int64 and wrapped to the 32-bit result
+    dtype, which gives `jnp`'s wrapped 32-bit sum."""
+    out = _int_out(t)
+    if out is None:
+        return t.sum(dim=dims, keepdim=keepdims)
+    return t.sum(dim=dims, keepdim=keepdims, dtype=torch.int64).to(out)
 
 
 def _nansum(t, dims, keepdims):
@@ -85,10 +96,11 @@ def _mean(t, dims, keepdims):
 
 def _prod(t, dims, keepdims):
     """torch's `prod` takes one dim: the dims are folded one at a time."""
-    keep = _int_keep(t)
+    out = _int_out(t)
     for d in sorted(dims, reverse=True):
-        t = t.prod(dim=d, keepdim=keepdims, dtype=keep)
-    return t
+        t = t.prod(dim=d, keepdim=keepdims,
+                   dtype=None if out is None else torch.int64)
+    return t if out is None else t.to(out)
 
 
 def _nanprod(t, dims, keepdims):
@@ -130,6 +142,12 @@ def norm(data, *, ord=2, axis=None, keepdims=False):
 
     def total(t):
         return t.sum(dim=dims, keepdim=keepdims) if dims else t
+    if ord == 1 and not data.is_floating_point():
+        # integer data sum as `jnp.sum` sums them (int32, or uint32 for
+        # unsigned data); the absolute value of bool data is itself
+        return _reduce(lambda t, d: _sum(t, d, keepdims),
+                       data if data.dtype == torch.bool else data.abs(),
+                       axis, False)
     if ord == 1:
         out = total(data.abs())
     elif ord == 2:
@@ -140,8 +158,11 @@ def norm(data, *, ord=2, axis=None, keepdims=False):
 
 
 def _arg(fn, data, axis, keepdims):
-    """`jnp.argmax`/`argmin` (first of equal values), as float32."""
+    """`jnp.argmax`/`argmin` (first of equal values), as float32; bool
+    data order as 0 and 1."""
     data = data.detach()
+    if data.dtype == torch.bool:
+        data = data.to(torch.uint8)
     if axis is None:
         out = fn(data.reshape(-1))
         if keepdims:
@@ -202,5 +223,7 @@ def cumsum(data, *, axis=None, dtype=None):
     keeps its dtype unless `dtype` says otherwise."""
     if axis is None:
         data, axis = data.reshape(-1), 0
-    dt = torch_dtype(dtype) if dtype is not None else _int_keep(data)
+    dt = torch_dtype(dtype) if dtype is not None else (
+        torch.int32 if data.dtype == torch.bool
+        else data.dtype if data.dtype in _INTS else None)
     return torch.cumsum(data, dim=axis, dtype=dt)

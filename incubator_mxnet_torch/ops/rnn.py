@@ -161,7 +161,7 @@ def _run_single_direction(x, w, r, bw, br, mode, h0, c0, compute_dtype):
     return torch.stack(outs), h.to(torch.float32), None
 
 
-@register("RNN")
+@register("RNN", needs_rng=True, needs_mode=True)
 def rnn(data, parameters, state, state_cell=None, *, state_size, num_layers,
         mode="lstm", bidirectional=False, p=0.0, state_outputs=True,
         projection_size=None, lstm_state_clip_min=None,

@@ -375,10 +375,20 @@ def _reversed(t):
     return t.permute(*reversed(range(t.ndim)))
 
 
+def _promoted(lhs, rhs):
+    """Both operands in their promoted dtype, as `jnp.dot`/`matmul`
+    promote before the product (torch's raise on mixed dtypes)."""
+    if lhs.dtype == rhs.dtype:
+        return lhs, rhs
+    dt = torch.promote_types(lhs.dtype, rhs.dtype)
+    return lhs.to(dt), rhs.to(dt)
+
+
 @register("dot")
 def dot(lhs, rhs, *, transpose_a=False, transpose_b=False):
     """MXNet's dot: the last axis of lhs against the FIRST axis of rhs
     (unlike numpy's for ndim > 2); `transpose_a`/`_b` reverse all axes."""
+    lhs, rhs = _promoted(lhs, rhs)
     if transpose_a:
         lhs = _reversed(lhs)
     if transpose_b:
@@ -390,6 +400,7 @@ def dot(lhs, rhs, *, transpose_a=False, transpose_b=False):
 
 @register("batch_dot")
 def batch_dot(lhs, rhs, *, transpose_a=False, transpose_b=False):
+    lhs, rhs = _promoted(lhs, rhs)
     if transpose_a:
         lhs = lhs.transpose(-1, -2)
     if transpose_b:

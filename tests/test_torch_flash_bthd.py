@@ -267,10 +267,18 @@ def test_entry_point_rejects_what_the_jax_one_rejects():
 
 
 def test_wrappers_raise_on_other_devices():
+    """A device other than cuda, cpu or meta raises; meta tensors (the
+    symbolic layer's shape inference) take the plain version, which
+    gives the output's shape only."""
+    from incubator_mxnet_torch import _kernels
+    with pytest.raises(mx.MXNetError, match="no kernel for device xpu"):
+        _kernels.route("flash_short_bthd_fwd", torch.device("xpu"),
+                       lambda: None, lambda: None)
     q = torch.zeros(1, 16, 1, 8, device="meta")
-    with pytest.raises(mx.MXNetError, match="no kernel for device meta"):
-        flash_short_bthd_fwd(q, q, q, torch.zeros(1, dtype=torch.int32,
-                                                  device="meta"), 1.0)
+    out = flash_short_bthd_fwd(q, q, q, torch.zeros(1, dtype=torch.int32,
+                                                    device="meta"), 1.0)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 def _strided(shape, strides):

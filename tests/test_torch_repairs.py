@@ -1291,3 +1291,210 @@ def test_port_imports_no_pil_cv2_or_jax():
                        text=True, timeout=300, cwd=root, env=env)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "OK" in r.stdout
+
+
+# ------------------------------------- F1-F7: the re-anchor's seven faults
+# Each case runs in both packages on the CPU; the port must give the JAX
+# package's values and dtype exactly, or raise where it raises.
+def _both(fn):
+    """fn(nd, pkg) in each package: (values as a list, dtype name) or
+    the exception's type."""
+    out = []
+    for pkg in (mxj, mx):
+        try:
+            with pkg.cpu():
+                r = fn(pkg.nd, pkg)
+            out.append((np.asarray(r.asnumpy()).tolist(), str(r.dtype)))
+        except Exception as e:      # noqa: BLE001 — compared below
+            out.append(type(e))
+    return out
+
+
+def _u8(nd):
+    return nd.array(np.array([0, 1, 200], np.uint8), dtype="uint8")
+
+
+def _setitem(x, key, value):
+    x[key] = value
+    return x
+
+
+F1_CASES = {
+    "u8>-1": lambda nd, _: _u8(nd) > -1,
+    "u8==256": lambda nd, _: _u8(nd) == 256,
+    "u8>=300": lambda nd, _: _u8(nd) >= 300,
+    "u8!=256": lambda nd, _: _u8(nd) != 256,
+    "-1<u8": lambda nd, _: -1 < _u8(nd),
+    "i8>200": lambda nd, _: nd.array(np.array([0, 1, 100], np.int8),
+                                     dtype="int8") > 200,
+    "u8+-1": lambda nd, _: _u8(nd) + -1,
+    "u8+300": lambda nd, _: _u8(nd) + 300,
+    "300-u8": lambda nd, _: 300 - _u8(nd),
+    "u8[1:3]=-1": lambda nd, _: _setitem(_u8(nd), slice(1, 3), -1),
+    "u8+1.5": lambda nd, _: _u8(nd) + 1.5,
+}
+
+
+@pytest.mark.parametrize("case", sorted(F1_CASES))
+def test_f1_integer_against_out_of_range_scalar(case):
+    """F1: a comparison of integer data with a Python integer out of its
+    dtype's range compares by value; arithmetic and slice writes with
+    one raise OverflowError (`jnp.asarray(scalar, dtype)`)."""
+    ref, got = _both(F1_CASES[case])
+    assert got == ref
+
+
+F2_CASES = {
+    "sum_u8": lambda nd, _: nd.sum(nd.array(np.full(300, 200, np.uint8),
+                                            dtype="uint8")),
+    "prod_i8": lambda nd, _: nd.prod(nd.array(np.full(5, 10, np.int8),
+                                              dtype="int8")),
+    "nansum_u8": lambda nd, _: nd.nansum(nd.array(
+        np.full(300, 200, np.uint8), dtype="uint8")),
+    "nanprod_i8": lambda nd, _: nd.nanprod(nd.array(
+        np.full(5, 10, np.int8), dtype="int8")),
+    "sum_keepdims": lambda nd, _: nd.sum(nd.array(
+        np.full((2, 300), 200, np.uint8), dtype="uint8"), axis=1,
+        keepdims=True),
+    "prod_axis_u8": lambda nd, _: nd.prod(nd.array(
+        np.full((2, 4), 30, np.uint8), dtype="uint8"), axis=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F2_CASES))
+def test_f2_narrow_integer_sums_widen(case):
+    """F2: sums and products of int8/uint8 give int32/uint32, as
+    `jnp.sum`/`jnp.prod` do, instead of wrapping in the data's dtype."""
+    ref, got = _both(F2_CASES[case])
+    assert got == ref
+
+
+F3_CASES = {
+    "norm1_i32": lambda nd, _: nd.norm(nd.array(
+        np.array([[1, -2], [3, 4]], np.int32), dtype="int32"), ord=1, axis=1),
+    "norm1_u8": lambda nd, _: nd.norm(nd.array(
+        np.array([[1, 2], [3, 4]], np.uint8), dtype="uint8"), ord=1, axis=1),
+    "norm1_i8": lambda nd, _: nd.norm(nd.array(
+        np.array([[1, -2], [3, 4]], np.int8), dtype="int8"), ord=1, axis=1),
+    "square_bool": lambda nd, _: nd.square(nd.array(
+        np.array([True, False]), dtype="bool")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F3_CASES))
+def test_f3_no_64bit_integers(case):
+    """F3: `norm(ord=1)` of integer data and `square` of bool give
+    int32 (uint32 for uint8), not torch's int64."""
+    ref, got = _both(F3_CASES[case])
+    assert got == ref
+
+
+def _b(nd):
+    return nd.array(np.array([True, False, True]), dtype="bool")
+
+
+def _f32(nd):
+    return nd.array(np.array([1.5, -2.5, 3.0], np.float32))
+
+
+def _isub(x, y):
+    x -= y
+    return x
+
+
+F4_CASES = {
+    "f32-bool": lambda nd, _: _f32(nd) - _b(nd),
+    "bool-i32": lambda nd, _: _b(nd) - nd.array(
+        np.array([1, 2, 3], np.int32), dtype="int32"),
+    "subtract": lambda nd, _: nd.subtract(_f32(nd), _b(nd)),
+    "isub": lambda nd, _: _isub(_f32(nd), _b(nd)),
+    "bool**bool": lambda nd, _: nd.power(_b(nd), _b(nd)),
+    "bool**2": lambda nd, _: _b(nd) ** 2,
+    "2**bool": lambda nd, _: 2 ** _b(nd),
+    "bool%2": lambda nd, _: _b(nd) % 2,
+    "bool%bool": lambda nd, _: nd.broadcast_mod(_b(nd), _b(nd)),
+    "argmax": lambda nd, _: nd.argmax(_b(nd), axis=0),
+    "argmin": lambda nd, _: nd.argmin(_b(nd), axis=0),
+    "norm1": lambda nd, _: nd.norm(nd.array(
+        np.array([[1, 0], [1, 1]], bool), dtype="bool"), ord=1, axis=1),
+    **{f"{u}": (lambda u: lambda nd, _: getattr(nd, u)(_b(nd)))(u)
+       for u in ("floor", "ceil", "trunc", "fix", "relu", "cbrt",
+                 "softsign")},
+}
+
+
+@pytest.mark.parametrize("case", sorted(F4_CASES))
+def test_f4_bool_operands_promote(case):
+    """F4: bool operands promote as in JAX (float32 − bool is float32,
+    bool ** 2 and bool % 2 are int32, floor of bool is bool, relu of
+    bool is int32, argmax of bool is computed)."""
+    ref, got = _both(F4_CASES[case])
+    assert got == ref
+
+
+def _ones(nd, shape, dt):
+    return nd.ones(shape, dtype=dt)
+
+
+F5_CASES = {
+    **{f"dot_{a}_{b}": (lambda a, b: lambda nd, _: nd.dot(
+        _ones(nd, (2, 3), a), _ones(nd, (3, 2), b)))(a, b)
+       for a, b in (("float32", "float16"), ("float32", "int32"),
+                    ("int32", "int8"), ("uint8", "int8"),
+                    ("float16", "int32"), ("bfloat16", "float32"))},
+    **{f"batch_dot_{a}_{b}": (lambda a, b: lambda nd, _: nd.batch_dot(
+        _ones(nd, (2, 2, 3), a), _ones(nd, (2, 3, 2), b)))(a, b)
+       for a, b in (("float32", "float16"), ("int32", "uint8"))},
+    **{f"hypot_{a}_{b}": (lambda a, b: lambda nd, _: nd.broadcast_hypot(
+        _ones(nd, (2,), a), _ones(nd, (2,), b)))(a, b)
+       for a, b in (("float16", "int32"), ("bfloat16", "int32"),
+                    ("int32", "int32"))},
+}
+
+
+@pytest.mark.parametrize("case", sorted(F5_CASES))
+def test_f5_products_promote(case):
+    """F5: `dot`/`batch_dot` promote mixed dtypes first, as `jnp.dot`
+    and `matmul` do; `broadcast_hypot` of a float with an integer keeps
+    the float's dtype."""
+    ref, got = _both(F5_CASES[case])
+    assert got == ref
+
+
+F6_CASES = {
+    f"{how}_{dt}": (lambda how, dt: {
+        "array": lambda nd, _: nd.array([1, 2, 70000], dtype=dt),
+        "zeros": lambda nd, _: nd.zeros((2,), dtype=dt),
+        "astype": lambda nd, _: nd.array([1.0, -2.0, 3.7]).astype(dt),
+        "cast": lambda nd, _: nd.cast(nd.array([1.0, 2.0, 3.7]), dtype=dt),
+    }[how])(how, dt)
+    for how in ("array", "zeros", "astype", "cast")
+    for dt in ("int16", "uint16", "uint32", "uint64")}
+
+
+@pytest.mark.parametrize("case", sorted(F6_CASES))
+def test_f6_dtype_names(case):
+    """F6: "int16", "uint16", "uint32" and "uint64" are dtype names of
+    `nd.array`, `nd.zeros`, `astype` and `cast`; uint64 is stored as
+    uint32, as in JAX."""
+    ref, got = _both(F6_CASES[case])
+    assert got == ref
+
+
+def test_f7_exports():
+    """F7: `telemetry`, `tracing` and `introspect` are attributes of the
+    package once it is imported, and `gluon.data.vision.ArrayDataset` is
+    re-exported, as in the JAX package."""
+    import subprocess
+    import sys
+    code = ("import {p} as m\n"
+            "print(all(hasattr(m, n) for n in "
+            "('telemetry', 'tracing', 'introspect')), "
+            "m.gluon.data.vision.ArrayDataset is "
+            "m.gluon.data.ArrayDataset)\n")
+    for pkg in ("incubator_mxnet_tpu", "incubator_mxnet_torch"):
+        r = subprocess.run([sys.executable, "-c", code.format(p=pkg)],
+                           capture_output=True, text=True, timeout=120,
+                           env=dict(__import__("os").environ,
+                                    JAX_PLATFORMS="cpu"))
+        assert r.stdout.split() == ["True", "True"], r.stdout + r.stderr
