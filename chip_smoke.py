@@ -231,9 +231,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    through the interleaved ops against `multi_head_attention` (the
    kernel route): the worst error of 12 layers' outputs and gradients,
    12 launches of rows 1 and 1b, each route's device and wall times.
-31. `[ops-check]`: every registered op name but the quantized ones
-   (`tools/op_cases.py`: the core names and those of `extended.py`,
-   `contrib.py` and `linalg.py`) on the card against the CPU in float32
+31. `[ops-check]`: every registered op name (`tools/op_cases.py`: the
+   core names and those of `extended.py`, `contrib.py`, `linalg.py` and
+   `quantized.py`, whose int8 products and quantization launch the int8
+   kernels) on the card against the CPU in float32
    with TF32 off, gradients where the op has them, within 1e-5 of the
    largest value, the sweeps' and matchings' kept sets equal, gelqf and
    syevd by their invariants (A = L·Q, Q·Qᵀ = I; Uᵀ·diag(Λ)·U = A) and
@@ -326,23 +327,29 @@ Phases (each prints its own lines; any failure exits non-zero):
    on the serving port): the reload's seconds, the breaker-open 503's
    latency and the drain seconds.
 41. `[fleet]`: `incubator_mxnet_torch.tools.fleet_chaos`: a router
-   process over three replica processes, each serving BERT-base bf16 at
-   T = 128, capacity 8 without buckets, under client load through a
-   SIGKILL, a wedged replica and a rolling deploy: every answer a 200
+   process over three replica processes (started together), each
+   serving BERT-base bf16 at T = 128, capacity 8 without buckets, under
+   client load through a SIGKILL, a wedged replica and a rolling deploy: every answer a 200
    bit for bit the baseline's, or a shed with Retry-After; the router's
    requests/s, p50 and p99 and the deploy's seconds.
 42. `[native-serve]`: the C ABI built in phase 1.  BERT-base bf16
    exported with `export_serving(..., platforms=("cuda",))` at T = 128,
-   capacity 128 (an AOTInductor package), run by `serve_native` in a
-   process with no Python: its logits bit for bit those of the same
-   package run in this process (`deploy.Model`, rows 1 and 1b through
-   the Python wrappers' ops, so the C++ ops are held to them), and
-   against `load_serving`'s on the same rows within `NATIVE_LOGIT_ATOL`,
-   `libpython_mapped=0`, 12 `flash_short_fwd` launches a forward in that
-   process and no training form; `MXTpuPredRun`'s wall ms a call over
-   20 calls beside the Python runtime's and the in-process package's.
+   capacity 128 (an AOTInductor package; this export and the next
+   phase's compile run in a background process, `python3 chip_smoke.py
+   --native-exports` at the lowest CPU priority, started after `[rtc]`,
+   the last phase before `[int8-kernels]` that times a kernel; each of
+   the two phases waits for it and logs how long), run by
+   `serve_native` in a process with no Python: its logits bit for bit
+   those of the same package run in this process (`deploy.Model`, rows
+   1 and 1b through the Python wrappers' ops, so the C++ ops are held
+   to them), and against `load_serving`'s on the same rows within
+   `NATIVE_LOGIT_ATOL`, `libpython_mapped=0`, 12 `flash_short_fwd`
+   launches a forward in that process and no training form;
+   `MXTpuPredRun`'s wall ms a call over 20 calls beside the Python
+   runtime's and the in-process package's.
 43. `[native-train]`: `export_training` of `bench_bert` (BERT-base bf16,
-   60 x 128, Adam at lr 2e-5, dropout 0) run by `train_test` for
+   60 x 128, Adam at lr 2e-5, dropout 0; exported in the background
+   process, whose weights this process loads) run by `train_test` for
    `NATIVE_STEPS` steps from the exported weights: each step's loss
    and the trained weights bit for bit those of the same (deterministic)
    package stepped in this process through the Python wrappers' ops;
@@ -353,12 +360,45 @@ Phases (each prints its own lines; any failure exits non-zero):
    `flash_short_fwd_train` launches a step in that process and no
    inference form, `libpython_mapped=0`; the export's seconds and the C
    step's wall ms beside `[train]`'s step.
-44. A JSON line describing each kernel, then the card line, then the
+44. `[int8-kernels]`: `int8_igemm` and `int8_quantize`
+   (`csrc/int8_gemm.cu`) against their plain versions on the card, bit
+   for bit (int32 accumulators and the fused bf16/f32 epilogues, q,
+   scale and amax, static and dynamic), at BERT-base's four Dense
+   products (M = 128 x 128: qkv, proj, ffn_1, ffn_2), ResNet-50 v1b's
+   stem, a stage-1 3x3 and 1x1 and a grouped 3x3 at batch 32, and the
+   ragged M = 1, N = 4, K = 147 dense and convolution; each time beside
+   its bound (1,979 TOP/s int8, 3.35 TB/s), the plain version's, and as
+   yardsticks that the port never calls `torch._int_mm` where it takes
+   the shape and bf16 `F.linear`/`F.conv2d`.
+45. `[int8-bert]`: bert_12_768_12 bf16 at T = 128 fine-tuned on
+   `tools/bert_task.py`'s task (60 + 240 Adam steps at batch 32, 12
+   row-1b launches a step), quantized by `quantize_net` from 32 held-out
+   rows: bf16 accuracy on 256 held-out rows at least 0.9 and int8 within
+   0.01 of it; one int8 forward launches `int8_igemm` and
+   `int8_quantize` 50 times each (4 a layer, the pooler, the
+   classifier) and row 1 12 times; the quantized net exported
+   (`int8.npz`) and served by `ServingRuntime` over HTTP, the launches
+   from its load to its last answer counted (the same a forward, for
+   the warm-up and each batch), then each answer against a lone
+   forward; int8 and bf16 forwards timed at 128 x 128.
+46. `[int8-resnet]`: resnet50_v1b bf16 at batch 256, `quantize_net`
+   with dynamic scales (54 int8 layers, one launch of each kernel a
+   layer): two images against the plain versions on the CPU, int8
+   against bf16, both rates.
+47. `[quantize-example]`: `example/quantization/quantize_model.py`
+   through `python -m incubator_mxnet_torch.run --seed 0` (a copy of it
+   in a temporary directory of its own, where it writes its graph): its
+   three accuracies at least 0.9.
+48. `[onnx]`: resnet50_v1b float32 exported to ONNX by the port and
+   read back with `import_to_gluon` onto the card, logits within 1e-4
+   of the float net's.
+49. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
 of the repository.
 """
+import atexit
 import concurrent.futures
 import contextlib
 import http.client
@@ -368,6 +408,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1807,17 +1848,21 @@ def _resnet50_bench():
 def _all_counts():
     from incubator_mxnet_torch import rtc
     from incubator_mxnet_torch.ops import flash_attention as fa
+    from incubator_mxnet_torch.ops import quantized as qops
     from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
-    return {**fa.launch_counts, **bnb.launch_counts, **rtc.launch_counts}
+    return {**fa.launch_counts, **bnb.launch_counts, **rtc.launch_counts,
+            **qops.launch_counts}
 
 
 def _reset_all_counts():
     from incubator_mxnet_torch import rtc
     from incubator_mxnet_torch.ops import flash_attention as fa
+    from incubator_mxnet_torch.ops import quantized as qops
     from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
     fa.reset_launch_counts()
     bnb.reset_launch_counts()
     rtc.reset_launch_counts()
+    qops.reset_launch_counts()
 
 
 def _bn_states(net):
@@ -4235,7 +4280,7 @@ def phase_ops_check(card):
         bad = (_ops_names(card, dev, op_cases.core_names(),
                           "core (math, reduce, shape, nn, attention)")
                + _ops_names(card, dev, op_cases.rest_names(),
-                            "extended, contrib and linalg")
+                            "extended, contrib, linalg and quantized")
                + _ops_random(dev) + _ops_repairs(dev) + _ops_repairs16(dev)
                + _ops_csr(card, dev))
     finally:
@@ -5956,18 +6001,100 @@ def _ms_text(ms):
             f"max {max(ms):.3f})")
 
 
-def phase_native_serve(card, native):
+NATIVE_SERVE_DIR = os.path.join(HERE, "build", "native_serve")
+NATIVE_TRAIN_DIR = os.path.join(HERE, "build", "native_train")
+NATIVE_EXPORTS_JSON = os.path.join(HERE, "build", "native_exports.json")
+NATIVE_ADAM = {"learning_rate": 2e-5}
+NATIVE_EXPORTS_TIMEOUT = 900
+
+
+def native_exports():
+    """`chip_smoke.py --native-exports`: the two AOTInductor exports of
+    `[native-serve]` and `[native-train]` (module docstring, 42 and 43)
+    into `NATIVE_SERVE_DIR` and `NATIVE_TRAIN_DIR`, at the lowest CPU
+    priority, and their seconds into `NATIVE_EXPORTS_JSON`."""
+    from incubator_mxnet_torch import deploy
+    os.nice(19)
+    for d in (NATIVE_SERVE_DIR, NATIVE_TRAIN_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    _, net = _bert_artifact(NATIVE_SERVE_DIR, T, BH_BATCH, 0,
+                            platforms=("cuda",))
+    secs = {"serve_s": time.time() - t0}
+    del net
+    torch.cuda.empty_cache()
+    net, batch = _bench_bert()
+    t0 = time.time()
+    deploy.export_training(net, _bert_loss(), batch[:2], batch[2],
+                           NATIVE_TRAIN_DIR, optimizer="adam",
+                           optimizer_params=NATIVE_ADAM, platforms=("cuda",))
+    secs["train_s"] = time.time() - t0
+    with open(NATIVE_EXPORTS_JSON, "w") as f:
+        json.dump(secs, f)
+    return 0
+
+
+class NativeExports:
+    """`native_exports` in a process of its own, started after the timed
+    kernel phases so that its ~250 s of compiling overlap the host-bound
+    phases up to `[native-serve]`; in a session of its own, so that
+    `stop` also ends Inductor's compile workers."""
+
+    def __init__(self):
+        self.log_path = os.path.join(HERE, "build", "native_exports.log")
+        if os.path.exists(NATIVE_EXPORTS_JSON):
+            os.remove(NATIVE_EXPORTS_JSON)
+        self.t0 = time.time()
+        with open(self.log_path, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--native-exports"], cwd=HERE, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, PYTHONPATH=HERE))
+        self.seconds = None
+        atexit.register(self.stop)
+        log(f"[native-exports] started in process {self.proc.pid}")
+
+    def wait(self, tag):
+        """{"serve_s", "train_s"}: the exports' seconds; raises with the
+        process's last lines if it failed."""
+        if self.seconds is None:
+            t0 = time.time()
+            try:
+                rc = self.proc.wait(timeout=NATIVE_EXPORTS_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                self.stop()
+                rc = "killed at its time limit"
+            if rc != 0 or not os.path.exists(NATIVE_EXPORTS_JSON):
+                with open(self.log_path, errors="replace") as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"{tag} the background exports ended "
+                                     f"with {rc}:\n{tail}")
+            with open(NATIVE_EXPORTS_JSON) as f:
+                self.seconds = json.load(f)
+            log(f"{tag} the background exports took "
+                f"{self.seconds['serve_s']:.1f} s (serving) and "
+                f"{self.seconds['train_s']:.1f} s (training); this phase, "
+                f"{t0 - self.t0:.1f} s after their start, waited "
+                f"{time.time() - t0:.1f} s for them")
+        return self.seconds
+
+    def stop(self):
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+
+
+def phase_native_serve(card, native, exports):
     """`[native-serve]` (module docstring, 42).  Returns the C process's
     launch counts."""
     from incubator_mxnet_torch import deploy
     tag = "[native-serve]"
-    out = os.path.join(HERE, "build", "native_serve")
-    shutil.rmtree(out, ignore_errors=True)
-    t0 = time.time()
-    _, net = _bert_artifact(out, T, BH_BATCH, 0, platforms=("cuda",))
-    export_s = time.time() - t0
-    del net
-    torch.cuda.empty_cache()
+    out = NATIVE_SERVE_DIR
+    export_s = exports.wait(tag)["serve_s"]
     rows = _bert_rows(np.random.RandomState(1), BH_BATCH, T)
     for i, a in enumerate(rows):
         a.tofile(os.path.join(out, f"in{i}.bin"))
@@ -6050,20 +6177,34 @@ def _train_package_steps(out, steps):
     return losses, raw
 
 
-def phase_native_train(card, native, train_step_ms):
+def phase_native_train(card, native, train_step_ms, exports):
     """`[native-train]` (module docstring, 43).  Returns the C process's
     launch counts."""
-    from incubator_mxnet_torch import deploy, parallel
+    from incubator_mxnet_torch import deploy_serve, parallel
     tag = "[native-train]"
-    out = os.path.join(HERE, "build", "native_train")
-    shutil.rmtree(out, ignore_errors=True)
+    out = NATIVE_TRAIN_DIR
+    export_s = exports.wait(tag)["train_s"]
     net, batch = _bench_bert()
-    adam = {"learning_rate": 2e-5}
-    t0 = time.time()
-    deploy.export_training(net, _bert_loss(), batch[:2], batch[2], out,
-                           optimizer="adam", optimizer_params=adam,
-                           platforms=("cuda",))
-    export_s = time.time() - t0
+    adam = NATIVE_ADAM
+    # the Python step starts from the exported weights: the same seeded
+    # build in the exporting process
+    meta = deploy_serve.read_sidecar(os.path.join(out,
+                                                  "native_train_meta.txt"))
+    exported = deploy_serve.load_params(os.path.join(out, "params.npz"),
+                                        meta["param"], torch.device("cuda", 0))
+    params = list(net.collect_params().values())
+    # in `collect_params` order (the names carry each process's own
+    # block counters)
+    if [tuple(p._data.shape) for p in params] != \
+            [shape for _, _, shape in meta["param"]]:
+        raise AssertionError(f"{tag} the exported parameters are not this "
+                             f"net's")
+    same = all(torch.equal(p._data, e) for p, e in zip(params, exported))
+    for p, e in zip(params, exported):
+        p.set_data(e)
+    log(f"{tag} the exporting process's seeded weights are this one's bit "
+        f"for bit: {same}; this process steps from the exported ones")
+    del exported
     for i, a in enumerate(batch):
         a.asnumpy().astype(np.float32).tofile(os.path.join(out, f"in{i}.bin"))
     dump = os.path.join(out, "trained")
@@ -6077,7 +6218,6 @@ def phase_native_train(card, native, train_step_ms):
     steps = re.findall(r"^STEP \d+ loss (\S+) ms ([\d.]+)$", stdout, re.M)
     c_loss = [float(l) for l, _ in steps]
     c_ms = [float(m) for _, m in steps]
-    params = list(net.collect_params().values())
     c_bytes = [np.fromfile(os.path.join(dump, f"param{i}.bin"), np.uint8)
                for i in range(len(params))]
     # the same package stepped in this process, its rows 1 and 1b through
@@ -6089,7 +6229,7 @@ def phase_native_train(card, native, train_step_ms):
     log(f"{tag} C vs the package in this process over {NATIVE_STEPS} "
         f"steps: losses bit for bit {loss_bitwise}; trained weights "
         f"that differ in any bit: {bits_off} of {len(c_bytes)}")
-    # the Python step from the same weights (the export changed none)
+    # the Python step from the same weights
     w0 = [p._data.detach().float().cpu() for p in params]
     tr = parallel.ParallelTrainer(net, _bert_loss(), "adam", adam,
                                   mesh=parallel.default_mesh(1))
@@ -6588,6 +6728,559 @@ def phase_mnist_alias(card):
     return acc
 
 
+# ---------------------------------------------------------------------
+# the int8 inference path: int8_igemm and int8_quantize
+# (csrc/int8_gemm.cu; no Pallas kernel: XLA's int8 lowering of
+# incubator_mxnet_tpu/ops/quantized.py:106/:130/:240/:262)
+# ---------------------------------------------------------------------
+# H100 SXM's dense int8 tensor-core peak (NVIDIA data sheet)
+INT8_PEAK_OPS_PER_S = 1979e12
+INT8_M = 128 * 128              # bench_bert_int8's 128 x 128 tokens
+# BERT-base's four Dense products: (name, K, N)
+INT8_DENSE = (("qkv", 768, 2304), ("proj", 768, 768),
+              ("ffn_1", 768, 3072), ("ffn_2", 3072, 768))
+INT8_CONV_BATCH = 32
+# (name, C, H = W, O, kernel, stride, pad, groups): ResNet-50 v1b's stem,
+# a 3x3 and a 1x1 of stage 1, and a grouped 3x3 (ResNeXt's 32 groups)
+INT8_CONVS = (("stem 7x7/2", 3, 224, 64, 7, 2, 3, 1),
+              ("stage-1 3x3", 64, 56, 64, 3, 1, 1, 1),
+              ("stage-1 1x1", 64, 56, 256, 1, 1, 0, 1),
+              ("grouped 3x3 g32", 128, 56, 128, 3, 1, 1, 32))
+# BERT-base int8 gate (tests/test_quantization_bert_base.py's recipe)
+INT8_VOCAB = 30522
+INT8_FT_BATCH, INT8_FT_STEPS = 32, 240       # after 60 warm-up steps
+INT8_TEST_ROWS, INT8_CALIB_ROWS = 256, 32
+INT8_MIN_ACC, INT8_MAX_DROP = 0.9, 0.01
+INT8_SERVE_CAPACITY = 8
+INT8_SERVE_ROWS = (1, 3, 8, 5, 2, 8)
+INT8_SPEED_BATCH = 128                       # bench_bert_int8's batch
+INT8_RESNET_BATCH = 256                      # bench_resnet50_int8's batch
+INT8_RESNET_CHECK = 2                        # images held to the CPU
+# ResNet-50 v1b int8 on the card against the plain versions on the CPU,
+# on the same int8 arrays: of the largest logit, and the cosine of the
+# two logit vectors.  Every reading on the card so far was exactly 0 and
+# 1.000000 (PERF.md): the int8 products are exact and the epilogues
+# round as the plain versions do.  The bound is 4 bfloat16 ulps of the
+# largest logit, for the one sum whose order differs on the two devices
+# (the global average pool's float32 sums), where a changed bfloat16
+# value moves one int8 step of the classifier's input
+INT8_RESNET_RTOL = 2.0 ** -6
+INT8_RESNET_MIN_COS = 0.99999
+ONNX_BATCH = 8
+ONNX_RTOL = 1e-4        # float32 both ways, TF32 off, of the largest logit
+
+
+def _int8_bound(nbytes, ops):
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / INT8_PEAK_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _int8_check(what, got, ref):
+    """Kernel against plain version, bit for bit; returns max|err|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"[int8-kernels] {what}: {got.shape} "
+                             f"{got.dtype} against {ref.shape} {ref.dtype}")
+    if not torch.equal(got, ref):
+        err = (got.double() - ref.double()).abs().max().item()
+        raise AssertionError(f"[int8-kernels] {what}: the kernel differs "
+                             f"from its plain version by {err}")
+    return 0.0
+
+
+def _int8_quantize_case(what, x, thr, timed):
+    from incubator_mxnet_torch.ops import quantized as qops
+    rec = None
+    for t in (None, thr):
+        q, s, a = qops.int8_quantize(x, t)
+        rq, rs, ra = qops.quantize_plain(x, t)
+        torch.cuda.synchronize()
+        for part, g, r in (("q", q, rq), ("scale", s, rs), ("amax", a, ra)):
+            _int8_check(f"int8_quantize {what} "
+                        f"{'dynamic' if t is None else 'static'} {part}",
+                        g.reshape(r.shape), r)
+        if timed:
+            ms = time_ms(lambda: qops.int8_quantize(x, t))
+            plain_ms = time_ms(lambda: qops.quantize_plain(x, t))
+            nbytes = x.numel() * (x.element_size() * (2 if t is None else 1)
+                                  + 1)
+            bound_ms, bound_by = _int8_bound(nbytes, 0)
+            mode = "dynamic" if t is None else "static"
+            log(f"[int8-kernels] int8_quantize {what} {mode}: equal, kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.1f}% of bound")
+            if t is not None:
+                rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None}
+    return rec
+
+
+def _int8_product_case(what, x, w, conv, timed, gen):
+    """One product: the int32 epilogue with a bias, the fused one in
+    bfloat16 with relu and in float32 without, each bit for bit its
+    plain version; the bfloat16 form timed when `timed`."""
+    import torch.nn.functional as F
+    from incubator_mxnet_torch.ops import quantized as qops
+    n_out = w.shape[0]
+    dev = x.device
+    q, xs, _ = qops.int8_quantize(x, None)
+    if conv is not None and qops.conv_nhwc(x.shape[1], conv[3]):
+        # the main path's form: q channels-last for the NHWC convolution
+        q_cl, xs_cl, _ = qops.int8_quantize(x, None, channels_last=True)
+        _int8_check(f"int8_quantize {what} channels-last", q_cl.contiguous(),
+                    q)
+        _int8_check(f"int8_quantize {what} channels-last scale", xs_cl, xs)
+        q = q_cl
+    b32 = torch.randint(-2 ** 20, 2 ** 20, (n_out,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ws = torch.rand(n_out, generator=gen, device=dev) * 0.01 + 1e-3
+    bias = torch.randn(n_out, generator=gen, device=dev)
+
+    def run(kernel, **kw):
+        if conv is None:
+            f = qops.int8_dense if kernel else \
+                lambda *a, **k: qops.igemm_plain(a[0], a[1], None, **k)
+            return f(q, w, **kw)
+        if kernel:
+            return qops.int8_conv(q, w, *conv, **kw)
+        return qops.igemm_plain(q, w, conv, **kw)
+    fused = dict(x_scale=xs, w_scale=ws, bias=bias, out_dtype=torch.bfloat16)
+    for label, kw in (("int32 + bias", dict(bias_i32=b32)),
+                      ("bf16 fused relu", dict(fused, relu=True)),
+                      ("f32 fused", dict(fused, out_dtype=torch.float32))):
+        got, ref = run(True, **kw), run(False, **kw)
+        torch.cuda.synchronize()
+        _int8_check(f"int8_igemm {what} {label}", got, ref)
+    if not timed:
+        log(f"[int8-kernels] int8_igemm {what}: the three epilogues equal "
+            f"their plain versions")
+        return None
+    out = run(True, **fused)
+    if conv is None:
+        M, K = q.numel() // q.shape[-1], q.shape[-1]
+        ops = 2 * M * n_out * K
+    else:
+        ops = 2 * out.numel() * w[0].numel()
+    nbytes = q.numel() + w.numel() + out.numel() * 2 + n_out * 8 + 4
+    bound_ms, bound_by = _int8_bound(nbytes, ops)
+    ms = time_ms(lambda: run(True, **fused))
+    plain_ms = time_ms(lambda: run(False, **fused), iters=5, warmup=1)
+    lib_ms, lib_note = None, "no int8 convolution in PyTorch"
+    if conv is None:
+        try:
+            wt = w.t()
+            torch._int_mm(q.reshape(-1, K), wt)
+            lib_ms = time_ms(lambda: torch._int_mm(q.reshape(-1, K), wt))
+            lib_note = f"torch._int_mm {lib_ms:.4f} ms"
+        except RuntimeError as e:
+            lib_note = f"torch._int_mm refuses: {str(e).splitlines()[0]}"
+    xb = x.to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    if conv is None:
+        bf16_ms = time_ms(lambda: F.linear(xb, wb))
+    else:
+        stride, pad, dilate, groups = conv
+        bf16_ms = time_ms(lambda: F.conv2d(xb, wb, None, stride, pad,
+                                           dilate, groups))
+    log(f"[int8-kernels] int8_igemm {what}: equal (3 epilogues), kernel "
+        f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain (float64) "
+        f"{plain_ms:.4f} ms, {lib_note}, bf16 "
+        f"{'F.linear' if conv is None else 'F.conv2d'} {bf16_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "bf16_ms": bf16_ms}
+
+
+def phase_int8_kernels(card):
+    """Both int8 kernels against their plain versions on the card, bit
+    for bit, at BERT-base's Dense shapes (M = 128 x 128), ResNet-50's
+    stem, stage-1 3x3 and 1x1 and a grouped 3x3 at batch 32, and the
+    ragged M = 1, N = 4, K = 147 dense and convolution; times beside the
+    bound, the plain versions and the library yardsticks.  Returns
+    {kernel name: the record at the main path's shape, with "shapes"}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    recs = {"int8_igemm": {}, "int8_quantize": {}}
+
+    def w8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+    for name, K, N in INT8_DENSE:
+        x = (torch.randn(INT8_M, K, generator=gen, device="cuda") * 2) \
+            .to(torch.bfloat16)
+        q_rec = _int8_quantize_case(f"{name} {INT8_M}x{K}", x, 5.0,
+                                    name == "qkv")
+        if q_rec:
+            recs["int8_quantize"]["main"] = q_rec
+        recs["int8_igemm"][name] = _int8_product_case(
+            f"{name} {INT8_M}x{K}x{N}", x, w8(N, K), None, True, gen)
+    for name, C, H, O, k, s, p, g in INT8_CONVS:
+        x = (torch.randn(INT8_CONV_BATCH, C, H, H, generator=gen,
+                         device="cuda") * 2).to(torch.bfloat16)
+        recs["int8_igemm"][name] = _int8_product_case(
+            f"{name} {INT8_CONV_BATCH}x{C}x{H}x{H} -> {O}", x,
+            w8(O, C // g, k, k), ((s, s), (p, p), (1, 1), g), True, gen)
+    xr = torch.randn(1, 147, generator=gen, device="cuda")
+    _int8_quantize_case("ragged 1x147", xr, 3.0, False)
+    _int8_product_case("ragged dense 1x147x4", xr, w8(4, 147), None, False,
+                       gen)
+    _int8_product_case("ragged conv 1x3x7x7 -> 4 (K = 147)",
+                       torch.randn(1, 3, 7, 7, generator=gen, device="cuda"),
+                       w8(4, 3, 7, 7), ((1, 1), (0, 0), (1, 1), 1), False,
+                       gen)
+    main = dict(recs["int8_igemm"]["qkv"])
+    main["shapes"] = {n: {k: v for k, v in r.items()}
+                      for n, r in recs["int8_igemm"].items()}
+    return {"int8_igemm": main, "int8_quantize": recs["int8_quantize"]["main"]}
+
+
+def _int8_acc(net, x, types, y):
+    with torch.inference_mode():
+        out = net(x, types).asnumpy().astype(np.float32)
+    return float(np.mean(np.argmax(out, -1) == y))
+
+
+def phase_int8_bert(card):
+    """BERT-base bf16 fine-tuned on `tools/bert_task.py`'s task (60 + 240
+    Adam steps at batch 32), quantized with `quantize_net` from 32
+    held-out rows, held to the accuracy gate, counted, served and timed.
+    Returns the int8 kernels' launches on the path."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import deploy, nd
+    from incubator_mxnet_torch.contrib import quantization as q
+    from incubator_mxnet_torch.models import get_model
+    from incubator_mxnet_torch.serving import ServeConfig, ServingRuntime
+    from incubator_mxnet_torch.tools.bert_task import make_task, finetune
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    mx.seed(0)
+    net = get_model("bert_classifier", model_name="bert_12_768_12",
+                    num_classes=2, dropout=0.0, vocab_size=INT8_VOCAB,
+                    max_length=T)
+    net.initialize(mx.init.Normal(0.02), ctx=ctx)
+    net.cast("bfloat16")
+    with ctx:
+        zeros = nd.array(np.zeros((INT8_FT_BATCH, T), np.float32))
+    with torch.no_grad():     # the classifier's deferred shape (weights
+        net(zeros, zeros)     # made here must stay trainable)
+
+    _reset_all_counts()
+    t0 = time.time()
+    finetune(net, rng, T, INT8_FT_STEPS, batch=INT8_FT_BATCH, ctx=ctx)
+    torch.cuda.synchronize()
+    ft_s = time.time() - t0
+    steps = 60 + INT8_FT_STEPS
+    ft = _all_counts()
+    want = {n: LAYERS * steps if n == "flash_short_fwd_train" else 0
+            for n in ft}
+    if ft != want:
+        raise AssertionError(f"[int8-bert] fine-tune launches {ft}, "
+                             f"expected {want}")
+    log(f"[int8-bert] bert_12_768_12 bf16 fine-tuned {steps} steps at "
+        f"{INT8_FT_BATCH}x{T} in {ft_s:.1f} s, {ft['flash_short_fwd_train']}"
+        f" flash_short_fwd_train launches (row 1b)")
+
+    xte, yte = make_task(rng, INT8_TEST_ROWS, T)
+    with ctx:
+        x_nd = nd.array(xte)
+        types = nd.array(np.zeros((INT8_TEST_ROWS, T), np.float32))
+        calib = nd.array(xte[:INT8_CALIB_ROWS])
+        xs = nd.array(rng.randint(0, 1000, (INT8_SPEED_BATCH, T))
+                      .astype(np.float32))
+        ts = nd.array(np.zeros((INT8_SPEED_BATCH, T), np.float32))
+    a_bf16 = _int8_acc(net, x_nd, types, yte)
+    with torch.inference_mode():
+        bf16_ms = time_ms(lambda: net(xs, ts), iters=10, warmup=2)
+
+    t0 = time.time()
+    q.quantize_net(net, calib_data=[calib], num_calib_batches=1)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    layers = [c for c in _walk_blocks(net)
+              if type(c).__name__ == "_QuantizedLayer"]
+    if len(layers) != 4 * LAYERS + 2 or \
+            any(c.act_threshold is None for c in layers):
+        raise AssertionError(f"[int8-bert] {len(layers)} int8 layers, "
+                             f"expected {4 * LAYERS + 2} calibrated")
+
+    _reset_all_counts()
+    a_int8 = _int8_acc(net, x_nd, types, yte)
+    torch.cuda.synchronize()
+    fwd = _all_counts()
+    per_fwd = 4 * LAYERS + 2
+    want = {n: 0 for n in fwd}
+    want.update(flash_short_fwd=LAYERS, int8_igemm=per_fwd,
+                int8_quantize=per_fwd)
+    if fwd != want:
+        raise AssertionError(f"[int8-bert] int8 forward launches {fwd}, "
+                             f"expected {want}")
+    log(f"[int8-bert] quantize_net (naive calibration on "
+        f"{INT8_CALIB_ROWS} held-out rows) in {quant_s:.1f} s: one int8 "
+        f"forward of {INT8_TEST_ROWS} rows launched int8_igemm "
+        f"{fwd['int8_igemm']} times ({LAYERS} layers x 4 + pooler + "
+        f"classifier), int8_quantize {fwd['int8_quantize']}, "
+        f"flash_short_fwd {fwd['flash_short_fwd']}")
+    log(f"[int8-bert] held-out accuracy on {INT8_TEST_ROWS} rows: bf16 "
+        f"{a_bf16:.4f}, int8 {a_int8:.4f} (gate: bf16 >= {INT8_MIN_ACC}, "
+        f"drop < {INT8_MAX_DROP})")
+    if not a_bf16 >= INT8_MIN_ACC:
+        raise AssertionError(f"[int8-bert] the task was not learned: bf16 "
+                             f"accuracy {a_bf16}")
+    if not a_bf16 - a_int8 < INT8_MAX_DROP:
+        raise AssertionError(f"[int8-bert] int8 accuracy {a_int8} is "
+                             f"{a_bf16 - a_int8:.4f} below bf16's {a_bf16}")
+    with torch.inference_mode():
+        int8_ms = time_ms(lambda: net(xs, ts), iters=10, warmup=2)
+    toks = INT8_SPEED_BATCH * T
+    log(f"[int8-bert] {INT8_SPEED_BATCH}x{T} forward: int8 {int8_ms:.2f} "
+        f"ms ({toks / int8_ms * 1e3:.0f} tokens/s), bf16 {bf16_ms:.2f} ms "
+        f"({toks / bf16_ms * 1e3:.0f} tokens/s), int8/bf16 time "
+        f"{int8_ms / bf16_ms:.3f} ({card})")
+    log_forward_profile(net, [xs._data, ts._data],
+                        f"int8 {INT8_SPEED_BATCH}x{T}")
+
+    # served through the artifact path, the counts set to 0 just before
+    # the server loads and read just after its answers; then each answer
+    # against a lone forward of the same rows
+    art = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    rt = None
+    answers = []
+    try:
+        cap = INT8_SERVE_CAPACITY
+        deploy.export_serving(net, [xte[:cap],
+                                    np.zeros((cap, T), np.float32)], art)
+        _reset_all_counts()
+        rt = ServingRuntime(art, config=ServeConfig(concurrency=1))
+        port = rt.start(0, "127.0.0.1")
+        calls0 = rt.model_calls
+        for n in INT8_SERVE_ROWS:
+            rows = [make_task(rng, n, T)[0], np.zeros((n, T), np.float32)]
+            status, payload, _dt = _post(port, rows)
+            if status != 200:
+                raise AssertionError(f"[int8-bert] request answered {status}")
+            answers.append((rows, np.asarray(payload["outputs"][0],
+                                             np.float32)))
+        torch.cuda.synchronize()
+        served = _all_counts()
+        batches = rt.model_calls - calls0
+    finally:
+        if rt is not None:
+            rt.close()
+        shutil.rmtree(art, ignore_errors=True)
+    worst = 0.0
+    for rows, got in answers:
+        with ctx:
+            lone = [nd.array(a) for a in rows]
+        with torch.inference_mode():
+            ref = net(*lone).asnumpy().astype(np.float32)
+        if got.shape != (len(rows[0]), 2) or not np.isfinite(got).all():
+            raise AssertionError(f"[int8-bert] bad output {got.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+    # the load's warm-up forward and one forward a batch
+    want = {n: 0 for n in served}
+    want.update(flash_short_fwd=LAYERS * (batches + 1),
+                int8_igemm=per_fwd * (batches + 1),
+                int8_quantize=per_fwd * (batches + 1))
+    log(f"[int8-bert] served {len(INT8_SERVE_ROWS)} requests of "
+        f"{min(INT8_SERVE_ROWS)}-{max(INT8_SERVE_ROWS)} rows over HTTP "
+        f"(capacity {INT8_SERVE_CAPACITY}, {batches} batches): launches "
+        f"from the server's load to its last answer "
+        f"{ {k: v for k, v in served.items() if v} } (expected "
+        f"{ {k: v for k, v in want.items() if v} }, no other); answers vs "
+        f"lone forwards max|err| {worst:.3e} (atol {LOGIT_ATOL})")
+    if served != want:
+        raise AssertionError(f"[int8-bert] serving launches {served}, "
+                             f"expected {want}")
+    if not worst <= LOGIT_ATOL:
+        raise AssertionError(f"[int8-bert] served answers differ from lone "
+                             f"forwards by {worst}")
+    return {k: fwd[k] + served[k] for k in ("int8_igemm", "int8_quantize")}
+
+
+def _walk_blocks(block):
+    for c in block._children.values():
+        yield c
+        yield from _walk_blocks(c)
+
+
+def _resnet_to_cpu(qnet):
+    """A CPU copy of a quantized ResNet-50 v1b: its int8 layers and
+    float weights moved over (`int8_state` / `restore_int8`)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch.contrib.quantization import (int8_state,
+                                                            restore_int8)
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_torch.ndarray import NDArray
+    arrays, layers = int8_state(qnet)
+    with mx.cpu():
+        net = get_model("resnet50_v1b", classes=RESNET_CLASSES)
+    restore_int8(net, {k: NDArray(v._data.cpu()) for k, v in
+                       arrays.items()}, layers)
+    net.cast("bfloat16")
+    net.load_dict({k: p.data()._data.cpu() for k, p in
+                   qnet._collect_params_with_prefix().items()},
+                  ctx=mx.cpu())
+    return net
+
+
+def phase_int8_resnet(card):
+    """ResNet-50 v1b bf16 at batch 256 (`bench_resnet50_int8`), then
+    `quantize_net` with dynamic scales: its int8 forward against the plain
+    versions on the CPU on a slice, int8 against bf16, and both rates."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.contrib import quantization as q
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    mx.random.seed(0)
+    net = get_model("resnet50_v1b", classes=RESNET_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    rng = np.random.RandomState(0)
+    with mx.gpu(0):
+        x = nd.array(rng.uniform(size=(INT8_RESNET_BATCH, 3, RESNET_SIZE,
+                                       RESNET_SIZE)).astype(np.float32)) \
+            .astype("bfloat16")
+    with torch.inference_mode():
+        ref_bf16 = net(x).asnumpy().astype(np.float32)
+        bf16_ms = time_ms(lambda: net(x), iters=5, warmup=1)
+    q.quantize_net(net)
+    _reset_all_counts()
+    with torch.inference_mode():
+        got = net(x).asnumpy().astype(np.float32)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts().items() if v}
+    convs = sum(1 for c in _walk_blocks(net)
+                if type(c).__name__ == "_QuantizedLayer")
+    if counts != {"int8_igemm": convs, "int8_quantize": convs} or \
+            convs != 54:
+        raise AssertionError(f"[int8-resnet] launches {counts} for {convs} "
+                             f"int8 layers (53 convolutions + the Dense)")
+    with torch.inference_mode():
+        int8_ms = time_ms(lambda: net(x), iters=5, warmup=1)
+    log_forward_profile(net, [x._data],
+                        f"int8 resnet50_v1b {INT8_RESNET_BATCH}")
+    if not np.isfinite(got).all():
+        raise AssertionError("[int8-resnet] int8 logits not finite")
+    agree = float(np.mean(got.argmax(1) == ref_bf16.argmax(1)))
+    rel = float(np.abs(got - ref_bf16).max() / np.abs(ref_bf16).max())
+
+    n = INT8_RESNET_CHECK
+    with torch.inference_mode():
+        card_slice = net(x[:n]).asnumpy().astype(np.float64)
+    cpu_net = _resnet_to_cpu(net)
+    with torch.inference_mode(), mx.cpu():
+        plain = cpu_net(nd.array(x[:n].asnumpy()).astype("bfloat16")) \
+            .asnumpy().astype(np.float64)
+    err = float(np.abs(card_slice - plain).max() / np.abs(plain).max())
+    cos = float((card_slice * plain).sum() / np.linalg.norm(card_slice)
+                / np.linalg.norm(plain))
+    imgs = INT8_RESNET_BATCH
+    log(f"[int8-resnet] resnet50_v1b int8 (dynamic scales, {convs} int8 "
+        f"layers, {counts['int8_igemm']} int8_igemm launches a forward): "
+        f"{imgs}x3x{RESNET_SIZE}^2 forward int8 {int8_ms:.2f} ms "
+        f"({imgs / int8_ms * 1e3:.0f} img/s), bf16 {bf16_ms:.2f} ms "
+        f"({imgs / bf16_ms * 1e3:.0f} img/s), int8/bf16 time "
+        f"{int8_ms / bf16_ms:.3f}; int8 vs bf16 top-1 agreement {agree:.4f},"
+        f" max|diff| {rel:.3e} of the largest logit ({card})")
+    log(f"[int8-resnet] {n} images on the card against the plain versions "
+        f"on the CPU: {err:.3e} of the largest logit (bound "
+        f"{INT8_RESNET_RTOL}), cosine {cos:.6f} (>= {INT8_RESNET_MIN_COS})")
+    if not (err <= INT8_RESNET_RTOL and cos >= INT8_RESNET_MIN_COS):
+        raise AssertionError("[int8-resnet] the card's int8 forward "
+                             "disagrees with the plain versions")
+    return counts
+
+
+QUANT_PREFIX = '"/tmp/quantize_example"'
+
+
+def phase_quantize_example(card):
+    """`example/quantization/quantize_model.py` through
+    `python -m incubator_mxnet_torch.run --seed 0` on the card: a copy of
+    it in a directory of its own, where it writes its graph instead of
+    at its fixed path in /tmp."""
+    with open(os.path.join(HERE, "example", "quantization",
+                           "quantize_model.py")) as f:
+        text = f.read()
+    if text.count(QUANT_PREFIX) != 1:
+        raise AssertionError("[quantize-example] the example's graph path "
+                             "is not where this phase redirects it")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quantize_")
+    try:
+        script = os.path.join(tmp, "quantize_model.py")
+        with open(script, "w") as f:
+            f.write(text.replace(QUANT_PREFIX, repr(
+                os.path.join(tmp, "quantize_example"))))
+        r = subprocess.run(
+            [sys.executable, "-m", "incubator_mxnet_torch.run", "--seed",
+             "0", script], cwd=HERE, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = r.stdout + r.stderr
+    for line in r.stdout.splitlines():
+        log(f"[quantize-example] {line}")
+    accs = [float(a) for a in re.findall(r"acc=([0-9.]+)", r.stdout)]
+    if r.returncode != 0 or len(accs) != 3 or min(accs) < 0.9:
+        raise AssertionError(f"[quantize-example] exit {r.returncode}, "
+                             f"accuracies {accs}: {out[-2000:]}")
+    return accs
+
+
+def phase_onnx(card):
+    """resnet50_v1b (float32, Xavier) exported to ONNX by the port, read
+    back with `import_to_gluon` onto the card, its logits against the
+    float net's."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.contrib import onnx as onnx_mx
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mx.random.seed(0)
+    net = get_model("resnet50_v1b", classes=RESNET_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rng = np.random.RandomState(1)
+    with mx.gpu(0):
+        x = nd.array(rng.uniform(size=(ONNX_BATCH, 3, RESNET_SIZE,
+                                       RESNET_SIZE)).astype(np.float32))
+    with torch.inference_mode():
+        want = net(x).asnumpy()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_onnx_")
+    try:
+        t0 = time.time()
+        sym_file, params_file = net.export(os.path.join(tmp, "r50"))
+        path = onnx_mx.export_model(sym_file, params_file,
+                                    [(ONNX_BATCH, 3, RESNET_SIZE,
+                                      RESNET_SIZE)], np.float32,
+                                    os.path.join(tmp, "r50.onnx"))
+        export_s, size = time.time() - t0, os.path.getsize(path)
+        t0 = time.time()
+        block = onnx_mx.import_to_gluon(path, ctx=mx.gpu(0))
+        import_s = time.time() - t0
+        meta = onnx_mx.get_model_metadata(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_params = len(block.collect_params())
+    with torch.inference_mode():
+        got = block(x).asnumpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[onnx] resnet50_v1b exported ({size / 1e6:.1f} MB, "
+        f"{export_s:.1f} s) and imported onto the card ({import_s:.1f} s, "
+        f"{n_params} parameters, inputs {meta['input_tensor_data']}): "
+        f"logits against the float net {err:.3e} of the largest (bound "
+        f"{ONNX_RTOL})")
+    if not err <= ONNX_RTOL:
+        raise AssertionError(f"[onnx] imported net differs by {err}")
+    return err
+
+
 def phase_seconds(tag, fn, *args, **kwargs):
     """fn(*args, **kwargs), its wall seconds logged under `tag`."""
     t0 = time.time()
@@ -6602,6 +7295,8 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import incubator_mxnet_torch  # noqa: F401 — fails outside a checkout
+    if sys.argv[1:] == ["--native-exports"]:
+        return native_exports()
     t_start = time.time()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}: {card}; torch "
@@ -6653,6 +7348,10 @@ def main():
     sc_fwd, sc_train = P("[symbol-check]", phase_symbol_check, card)
     P("[mnist-alias]", phase_mnist_alias, card)
     rtc_recs, rtc_drive = P("[rtc]", phase_rtc, card)
+    # the last phase that times a kernel of the kernels line before
+    # [int8-kernels]: the exports of [native-serve] and [native-train]
+    # compile in the background from here on
+    exports = NativeExports()
     mlp_counts = P("[train-rtc]", phase_train_rtc, card)
     lenet_counts = P("[train-lenet]", phase_train_lenet, card)
     P("[rnn-check]", phase_rnn_check, card)
@@ -6683,9 +7382,18 @@ def main():
                                    card)
     P("[serve-chaos]", phase_serve_chaos, card)
     P("[fleet]", phase_fleet, card)
-    native_serve = P("[native-serve]", phase_native_serve, card, native)
+    native_serve = P("[native-serve]", phase_native_serve, card, native,
+                     exports)
     native_train = P("[native-train]", phase_native_train, card, native,
-                     train_ms)
+                     train_ms, exports)
+    torch.cuda.empty_cache()
+    int8_recs = P("[int8-kernels]", phase_int8_kernels, card)
+    int8_bert = P("[int8-bert]", phase_int8_bert, card)
+    torch.cuda.empty_cache()
+    int8_resnet = P("[int8-resnet]", phase_int8_resnet, card)
+    torch.cuda.empty_cache()
+    P("[quantize-example]", phase_quantize_example, card)
+    P("[onnx]", phase_onnx, card)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn], {sc_fwd} [symbol-check], "
@@ -6765,6 +7473,17 @@ def main():
                         "source": "incubator_mxnet_torch/softmax_rtc.py",
                         "replaces": "incubator_mxnet_tpu/rtc.py:42",
                         "launches": launches, **rec})
+    # the int8 path's kernels: no Pallas kernel, XLA's int8 lowering of
+    # the JAX ops (`_quantized_dense_pc`'s product, `_quantize_act`)
+    q_py = "incubator_mxnet_tpu/ops/quantized.py"
+    for name, line in (("int8_igemm", 262), ("int8_quantize", 212)):
+        log(f"[done] {name}: {int8_bert[name]} launches [int8-bert], "
+            f"{int8_resnet[name]} [int8-resnet]")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"{csrc}/int8_gemm.cu",
+                        "replaces": f"{q_py}:{line}",
+                        "launches": int8_bert[name] + int8_resnet[name],
+                        **int8_recs[name]})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,6 +8,11 @@ carries what rebuilds the model instead:
                    kwargs), the dtype, the input/output specs and the
                    parameter specs in the JAX package's meta schema
     params.npz     weights by structural name (`ndarray.save` format)
+    int8.npz       for a net after `contrib.quantization.quantize_net`:
+                   each fused int8 layer's int8 weight, scales and float32
+                   bias by layer path (meta.json's "int8" lists the paths
+                   and the calibrated activation thresholds); the loader
+                   rebuilds the float net and swaps those layers back in
     manifest.json  size and sha256 of each file, written last by atomic
                    rename
 
@@ -134,6 +139,12 @@ def export_serving(block, example_inputs, out_dir, batch_buckets=None,
                 "and output to lead with the same batch dimension")
         buckets = sorted({int(b) for b in batch_buckets
                           if 1 <= int(b) < cap})
+    from .contrib.quantization import int8_state
+    int8_arrays, int8_layers = int8_state(block)
+    if int8_layers and platforms:
+        raise MXNetError("export_serving: a quantized net has no "
+                         "framework-free form (its int8 kernels are not "
+                         "registered custom ops)")
     dtypes = {p.dtype for p in params.values()}
     os.makedirs(out_dir, exist_ok=True)
     nd.save(os.path.join(out_dir, "params.npz"),
@@ -149,9 +160,14 @@ def export_serving(block, example_inputs, out_dir, batch_buckets=None,
     }
     if buckets:
         meta["batch_buckets"] = buckets
+    files = ["meta.json", "params.npz"]
+    if int8_layers:
+        meta["int8"] = int8_layers
+        nd.save(os.path.join(out_dir, "int8.npz"),
+                {k: v._data for k, v in int8_arrays.items()})
+        files.append("int8.npz")
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
-    files = ["meta.json", "params.npz"]
     if platforms:
         plist = list(params.values())
 
@@ -447,6 +463,11 @@ def load_serving(artifact_dir, ctx=None):
     block = get_model(meta["model"]["name"], **meta["model"]["kwargs"])
     if meta.get("dtype"):
         block.cast(meta["dtype"])
+    if meta.get("int8"):
+        from .contrib.quantization import restore_int8
+        stored = nd.load_tensors(os.path.join(artifact_dir, "int8.npz"))
+        restore_int8(block, {k: nd.NDArray(t.to(device))
+                             for k, t in stored.items()}, meta["int8"])
     block.load_dict(nd.load_tensors(os.path.join(artifact_dir,
                                                 "params.npz")),
                     ctx=device, source=artifact_dir)

@@ -2,4 +2,4 @@
 `F` namespace of `hybrid_forward` is generated from the table)."""
 from . import (registry, shape, nn, math, reduce, attention,  # noqa: F401
                random_ops, flash_attention, optim, sequence, rnn,
-               extended, contrib, linalg)
+               extended, contrib, linalg, quantized)

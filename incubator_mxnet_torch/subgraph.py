@@ -7,7 +7,8 @@ single-consumer chains of them become one `_subgraph` node whose
 attribute holds the inner Symbol, which the interpreter inlines, so a
 partitioned graph computes what the original does.
 `SubgraphProperty.rewrite` lets a backend replace the inner graph
-wholesale.  The int8 backend comes with quantization (ROADMAP item 12).
+wholesale, as the int8 backend (`contrib.quantization.
+INT8SubgraphProperty`) does.
 """
 from __future__ import annotations
 

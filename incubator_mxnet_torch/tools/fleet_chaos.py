@@ -38,6 +38,7 @@ router's requests/s, p50 and p99 latency, the deploy's seconds).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -128,7 +129,17 @@ def run(art_a, art_b, ctx):
         {"inputs": request_inputs(art_a, ROWS, 100 + i)}).encode()
         for i in range(N_PAYLOADS)}
 
-    replicas = [_replica(art_a, ctx, name=f"replica-{i}") for i in range(3)]
+    # the three replicas start together: each is a process that imports
+    # torch and loads the model before it answers
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        starts = [pool.submit(_replica, art_a, ctx, name=f"replica-{i}")
+                  for i in range(3)]
+    failed = [f.exception() for f in starts if f.exception() is not None]
+    replicas = [f.result() for f in starts if f.exception() is None]
+    if failed:
+        for r in replicas:
+            r.kill()
+        raise failed[0]
     router = _router([r.addr for r in replicas])
 
     results = []        # (phase, model_id, status, body, headers, secs,

@@ -2,7 +2,8 @@
 input builder (`tests/test_op_sweep.py`'s `_build_case` and `SPEC`), in
 numpy, for the core ops (`ops/math.py`, `ops/reduce.py`,
 `ops/shape.py`, `ops/nn.py`, `ops/attention.py`) and the rest of the
-registry (`ops/extended.py`, `ops/contrib.py`, `ops/linalg.py`).
+registry (`ops/extended.py`, `ops/contrib.py`, `ops/linalg.py`,
+`ops/quantized.py`).
 
 `build_case(name)` seeds one RandomState with the crc32 of the op's
 first registered name and draws the inputs in the sweep's order, so the
@@ -24,20 +25,37 @@ __all__ = ["CORE_MODULES", "REST_MODULES", "core_names", "rest_names",
            "canonical_name", "build_case", "BF16_SKIP"]
 
 CORE_MODULES = ("math", "reduce", "shape", "nn", "attention")
-REST_MODULES = ("extended", "contrib", "linalg")
+REST_MODULES = ("extended", "contrib", "linalg", "quantized")
 
 # ops the sweep runs in float32 only (its `bf16=False`): the
 # factorizations (upstream registers them for float32 and float64
-# only), CTC, the SSD decode and boolean_mask
+# only), CTC, the SSD decode, boolean_mask and the int8 family's
+# per-tensor ops (int8 inputs with float32 ranges)
 BF16_SKIP = frozenset({"linalg_gelqf", "linalg_inverse", "linalg_potrf",
                        "linalg_slogdet", "linalg_syevd", "CTCLoss",
-                       "_contrib_MultiBoxDetection", "_contrib_boolean_mask"})
+                       "_contrib_MultiBoxDetection", "_contrib_boolean_mask",
+                       "_contrib_quantized_conv",
+                       "_contrib_quantized_fully_connected",
+                       "_contrib_quantized_pooling"})
 
 _RNG = np.random.RandomState(7)
 
 
 def X(shape, lo=0.5, hi=1.5, dtype=np.float32):
     return _RNG.uniform(lo, hi, shape).astype(dtype)
+
+
+def Q8(shape):
+    """An int8 array (the quantized ops' inputs)."""
+    return _RNG.randint(-127, 128, shape).astype(np.int8)
+
+
+def _ranges(n):
+    """n (min, max) pairs of shape (1,), as the sweep draws them."""
+    out = []
+    for _ in range(n):
+        out += [X((1,), -1.0, -0.5), X((1,), 0.5, 1.0)]
+    return out
 
 
 def I(shape, hi, dtype=np.float32):
@@ -204,6 +222,22 @@ SPEC.update({
     "unravel_index": (lambda: [I((3,), 12)], {"shape": (3, 4)}),
     "amp_multicast": (lambda: [X((2, 3)), X((2, 3))], {"num_outputs": 2}),
     "SVMOutput": (lambda: [X((4, 5)), I((4,), 5)], {}),
+    "_contrib_quantized_conv": (
+        lambda: [Q8((2, 3, 6, 6)), Q8((4, 3, 3, 3)), Q8((4,)), *_ranges(3)],
+        {"kernel": (3, 3), "num_filter": 4, "no_bias": False}),
+    "_contrib_quantized_fully_connected": (
+        lambda: [Q8((4, 16)), Q8((8, 16)), Q8((8,)), *_ranges(3)],
+        {"num_hidden": 8, "no_bias": False}),
+    "_contrib_quantized_pooling": (
+        lambda: [Q8((2, 3, 6, 6)), *_ranges(1)],
+        {"kernel": (2, 2), "pool_type": "max", "stride": (2, 2)}),
+    "_quantized_conv_pc": (
+        lambda: [X((2, 3, 6, 6)), Q8((4, 3, 3, 3)), X((4,), 0.005, 0.02),
+                 X((4,))],
+        {"kernel": (3, 3), "act_threshold": 3.0, "relu": True}),
+    "_quantized_dense_pc": (
+        lambda: [X((4, 16)), Q8((8, 16)), X((8,), 0.005, 0.02), X((8,))],
+        {"act_threshold": 3.0}),
 })
 for _s in ("_scalar_add", "_scalar_sub", "_scalar_mul", "_scalar_div",
            "_scalar_mod", "_scalar_power", "_scalar_maximum",

@@ -35,7 +35,9 @@ tolerances, stated where they are defined below.  Row 6's persistent
 kernel (bf16, T = 128, d = 64) is tried below its grid and off a
 multiple of it, and rows 8a's and 8b's (ResNet-50 stage 1's two
 widths) at a ragged M, fewer row tiles than SMs and one tile a block, each twice on
-the same inputs, which must give the same bits.
+the same inputs, which must give the same bits.  The int8 kernels
+(`int8_igemm`, `int8_quantize`) equal their plain versions bit for bit
+in every form, at ragged and served shapes.
 """
 import numpy as np
 import pytest
@@ -1164,3 +1166,102 @@ def test_rtc_softmax_head_gradients_match_the_loss(card):
         grads.append(xa.grad.data)
     top = grads[1].abs().max().item()
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * top
+
+
+# ---------------------------------------------------------------------
+# the int8 kernels (`csrc/int8_gemm.cu`): every output bit for bit its
+# plain version (int32 products are exact; the fused epilogue is the
+# plain version's float32 operations in its order, without FMA)
+# ---------------------------------------------------------------------
+# (M, K, N): one row (a served request) against the classifier's two
+# columns, ragged M and N past the 128-wide tiles, K of 147 and 40 (the
+# byte-gather form) and BERT-base's qkv
+INT8_DENSE_SHAPES = [(1, 768, 2), (3, 768, 768), (130, 64, 10),
+                     (257, 3072, 1000), (5, 147, 4), (33, 40, 7),
+                     (16384, 768, 2304)]
+# (B, C, H, O, kernel, stride, pad, dilate, groups): the stem's gather,
+# NHWC 3 x 3, pointwise (the wgmma form) and strided pointwise, dilated,
+# 16 and 4 channels a group
+INT8_CONV_SHAPES = [(2, 3, 30, 8, 7, 2, 3, 1, 1),
+                    (2, 32, 13, 48, 3, 1, 1, 1, 1),
+                    (3, 64, 9, 130, 1, 1, 0, 1, 1),
+                    (2, 32, 9, 16, 1, 2, 0, 1, 1),
+                    (1, 16, 12, 16, 3, 1, 2, 2, 1),
+                    (2, 64, 10, 64, 3, 1, 1, 1, 4),
+                    (2, 32, 8, 32, 3, 1, 1, 1, 8)]
+
+
+def _int8_epilogue(kind, n, gen, dev):
+    if kind == "int32":
+        return dict(bias_i32=torch.randint(-2 ** 20, 2 ** 20, (n,),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32))
+    return dict(x_scale=torch.tensor(0.0123, device=dev),
+                w_scale=torch.rand(n, generator=gen, device=dev) * 0.01,
+                bias=torch.randn(n, generator=gen, device=dev),
+                relu=kind == "bfloat16",
+                out_dtype=getattr(torch, kind))
+
+
+@pytest.mark.parametrize("kind", ["int32", "bfloat16", "float32"])
+@pytest.mark.parametrize("shape", INT8_DENSE_SHAPES, ids=[
+    "x".join(map(str, s)) for s in INT8_DENSE_SHAPES])
+def test_int8_dense_matches_plain_version(card, shape, kind):
+    from incubator_mxnet_torch.ops import quantized as qops
+    M, K, N = shape
+    gen = torch.Generator(device=card).manual_seed(M * 7 + N)
+    q = torch.randint(-127, 128, (M, K), generator=gen, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=card,
+                      dtype=torch.int8)
+    kw = _int8_epilogue(kind, N, gen, card)
+    before = qops.launch_counts["int8_igemm"]
+    got = qops.int8_dense(q, w, **kw)
+    ref = qops.igemm_plain(q, w, None, **kw)
+    torch.cuda.synchronize()
+    assert qops.launch_counts["int8_igemm"] == before + 1
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["int32", "bfloat16"])
+@pytest.mark.parametrize("shape", INT8_CONV_SHAPES, ids=[
+    "x".join(map(str, s)) for s in INT8_CONV_SHAPES])
+def test_int8_conv_matches_plain_version(card, shape, kind):
+    """The activation quantized as the fused op does (channels-last where
+    a group has a multiple of 16 channels), then each form of the
+    convolution."""
+    from incubator_mxnet_torch.ops import quantized as qops
+    B, C, H, O, k, s, p, d, g = shape
+    gen = torch.Generator(device=card).manual_seed(B * 31 + O)
+    x = (torch.randn(B, C, H, H, generator=gen, device=card) * 2) \
+        .to(torch.bfloat16)
+    q, xs, amax = qops.int8_quantize(x, None,
+                                     channels_last=qops.conv_nhwc(C, g))
+    rq, rxs, ramax = qops.quantize_plain(x, None)
+    assert torch.equal(q.contiguous(), rq) and torch.equal(xs, rxs)
+    assert torch.equal(amax, ramax)
+    w = torch.randint(-127, 128, (O, C // g, k, k), generator=gen,
+                      device=card, dtype=torch.int8)
+    conv = ((s, s), (p, p), (d, d), g)
+    kw = _int8_epilogue(kind, O, gen, card)
+    got = qops.int8_conv(q, w, *conv, **kw)
+    ref = qops.igemm_plain(rq, w, conv, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5, 7), (16384, 768),
+                                   (2, 32, 7, 7), (2, 48, 16, 16)])
+def test_int8_quantize_matches_plain_version(card, shape, dtype):
+    """Static and dynamic scales, the flat form and (4-D) channels-last."""
+    from incubator_mxnet_torch.ops import quantized as qops
+    gen = torch.Generator(device=card).manual_seed(len(shape) * 5 + 1)
+    x = (torch.randn(shape, generator=gen, device=card) * 3).to(dtype)
+    for threshold in (None, 2.5):
+        for cl in (False, True):
+            q, s, a = qops.int8_quantize(x, threshold, channels_last=cl)
+            rq, rs, ra = qops.quantize_plain(x, threshold)
+            torch.cuda.synchronize()
+            assert torch.equal(q.contiguous(), rq), (threshold, cl)
+            assert torch.equal(s, rs) and torch.equal(a, ra)

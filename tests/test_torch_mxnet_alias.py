@@ -11,7 +11,12 @@ and shuffles draw from different random streams:
   least 0.9;
 - `lstm_bucketing.py --num-epochs 1 --num-sentences 200`: the epoch's
   training perplexity within 2% of the JAX package's (both near the
-  64-word uniform, 64, after this short epoch).
+  64-word uniform, 64, after this short epoch);
+- `quantization/quantize_model.py` (both `quantize_net` with entropy
+  calibration and `quantize_model`): each of its three accuracies
+  within 0.02 of the JAX package's and at least 0.9.  The example
+  writes its graph under one fixed path in /tmp, so each run takes a
+  copy of it that writes into a directory of its own.
 The port runs with `--seed 0`, which fixes its weights and its
 shuffle (the port's generators and `NDArrayIter`'s order draw fresh
 entropy unless seeded; the JAX package's weights start from a fixed key,
@@ -29,6 +34,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MNIST = os.path.join(ROOT, "example", "image-classification",
                      "train_mnist.py")
+QUANT = os.path.join(ROOT, "example", "quantization", "quantize_model.py")
 LSTM = os.path.join(ROOT, "example", "rnn", "bucketing",
                     "lstm_bucketing.py")
 
@@ -139,3 +145,39 @@ def test_lstm_bucketing_matches_jax():
            for o in (port, jax)]
     assert abs(ppl[0] - ppl[1]) <= 0.02 * ppl[1], (ppl, port)
     assert "buckets compiled: [16, 24, 32]" in port
+
+
+def _quant_accuracies(out):
+    return [float(a) for a in re.findall(r"acc=([0-9.]+)", out)]
+
+
+QUANT_PREFIX = '"/tmp/quantize_example"'
+
+
+def _private_quant(dir_):
+    """A copy of the quantization example in `dir_` that writes its
+    graph there instead of at its fixed path in /tmp."""
+    with open(QUANT) as f:
+        text = f.read()
+    assert text.count(QUANT_PREFIX) == 1
+    dir_.mkdir()
+    script = dir_ / "quantize_model.py"
+    script.write_text(text.replace(
+        QUANT_PREFIX, repr(str(dir_ / "quantize_example"))))
+    return str(script)
+
+
+def test_quantization_example_matches_jax(tmp_path):
+    procs = [_start(["-m", "incubator_mxnet_torch.run", "--ctx", "cpu",
+                     "--seed", "0", _private_quant(tmp_path / "port")]),
+             _start([_private_quant(tmp_path / "jax")])]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=180)
+        assert p.returncode == 0, out + err
+        outs.append(out + err)
+    port, jax = (_quant_accuracies(o) for o in outs)
+    assert len(port) == len(jax) == 3, outs
+    assert min(port) >= 0.9, outs[0]
+    assert all(abs(a - b) <= 0.02 for a, b in zip(port, jax)), (port, jax)
+    assert "3 layers quantized" in outs[0]

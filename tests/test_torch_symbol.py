@@ -45,11 +45,10 @@ def test_opdef_record_matches_jax(name):
 
 
 def test_registry_covers_jax_but_quantized():
-    """The port registers every JAX op name but the 18 quantized ones
-    (ROADMAP item 12), and `sym.X` exists for every `nd.X` op."""
+    """The port registers every JAX op name, the 18 quantized ones
+    among them, and `sym.X` and `nd.X` exist for every one."""
     missing = set(jreg.list_ops()) - set(treg.list_ops())
-    assert all("quantiz" in n or n.endswith("requantize") for n in missing)
-    assert len(missing) == 18
+    assert missing == set()
     for n in treg.list_ops():
         assert callable(getattr(mx.sym, n)), n
         assert callable(getattr(mx.nd, n)), n
