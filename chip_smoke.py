@@ -278,7 +278,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 36. `[estimator]`: `Estimator.fit` of `train_dist.py`'s net
    (resnet18_v1, thumbnail, 10 classes) for 3 epochs of
    `SyntheticImageDataset(2048, 3 x 32 x 32)` at batch 64 with
-   RandomFlipLeftRight and Normalize, `LoggingHandler`,
+   left-right flips (each drawn from a generator seeded by the sample's
+   index and the epoch, so the 4 loader threads give the same epochs in
+   every run) and Normalize, deterministic cuDNN, `LoggingHandler`,
    `CheckpointHandler` and `EarlyStoppingHandler`; held-out accuracy
    over `EST_MIN_ACC`; the last checkpoint loaded into a fresh net gives
    its outputs; then `train_dist.py`'s loop body on one card
@@ -360,7 +362,43 @@ Phases (each prints its own lines; any failure exits non-zero):
    `flash_short_fwd_train` launches a step in that process and no
    inference form, `libpython_mapped=0`; the export's seconds and the C
    step's wall ms beside `[train]`'s step.
-44. `[int8-kernels]`: `int8_igemm` and `int8_quantize`
+44. `[planes]`: the runtime planes, in a process of its own
+   (`python3 chip_smoke.py --planes`) whose environment turns them on
+   (``MXNET_HEALTH=1``, ``MXNET_TRACE=1``, ``MXNET_PROFILE_STEPS=31:2``,
+   ``MXNET_HEALTH_FAULT_PLAN=nan_grad:3``, the compile cache of the
+   background exports): the counted FLOPs of a 2-layer BERT step at
+   4 x 16 on the card equal to the CPU's and to `bert_step_flops`; one
+   launch of each hand kernel of rows 1-6 and 8 counted (rows 1 and 1b
+   by their registered formula, the others by their wrappers) equal to
+   torch's count of its plain version on the same inputs; BERT-
+   base bf16 at 60 x 128 through `ParallelTrainer` (3 steps, then
+   windows of 5 with the planes off, goodput alone, goodput and tracing,
+   goodput and health, all three on, each window's mean step ms printed
+   with the card line), the counted FLOPs a step within 2% of
+   `bert_step_flops`, every traced step's buckets (the goodput and
+   tracing window, the on window) summing to its wall within 1%, its
+   compute bucket within 1% of the trainer's own "compute" span of that
+   step's trace, its MFU the counted FLOPs over the wall and the card's
+   named peak, in (0, 1], the "other" bucket under 5% of the wall in
+   the goodput and tracing window past its first step (no host sync in
+   those steps), and no nonfinite gradient in the on window; the profile window's report,
+   holding row 1b's kernel as many times as its wrapper counted (a
+   window whose kernel events torch.profiler lost is taken again, up
+   to 3 times), its class split naming all but under 5% of the device
+   time (row 1b in custom-call, the products in matmul); `run_steps(3)`;
+   the weights' digest on the card equal to the CPU copy's; the
+   imperative `gluon.Trainer` loop with a Speedometer (the plane
+   columns in its records), nonfinite 0 until the `nan_grad` step, then
+   counted, with the anomaly recorded; `export_serving(...,
+   platforms=("cuda",))` of the background export's block again, a
+   cache hit that compiles nothing and writes the same bytes; a
+   `ServingRuntime` reading its batch window from a `tuned.json`,
+   answering two requests and serving `/-/goodputz`, `/-/numericz`,
+   `/-/profilez` and `/-/tunerz`; each training path's launches
+   exactly 12 a step of row 1b and no other kernel, the serving path's
+   (counted from the runtime's load to its last answer) exactly 12 of
+   row 1 for the warm-up forward and for each batch it ran.
+45. `[int8-kernels]`: `int8_igemm` and `int8_quantize`
    (`csrc/int8_gemm.cu`) against their plain versions on the card, bit
    for bit (int32 accumulators and the fused bf16/f32 epilogues, q,
    scale and amax, static and dynamic), at BERT-base's four Dense
@@ -370,7 +408,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    its bound (1,979 TOP/s int8, 3.35 TB/s), the plain version's, and as
    yardsticks that the port never calls `torch._int_mm` where it takes
    the shape and bf16 `F.linear`/`F.conv2d`.
-45. `[int8-bert]`: bert_12_768_12 bf16 at T = 128 fine-tuned on
+46. `[int8-bert]`: bert_12_768_12 bf16 at T = 128 fine-tuned on
    `tools/bert_task.py`'s task (60 + 240 Adam steps at batch 32, 12
    row-1b launches a step), quantized by `quantize_net` from 32 held-out
    rows: bf16 accuracy on 256 held-out rows at least 0.9 and int8 within
@@ -381,18 +419,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    from its load to its last answer counted (the same a forward, for
    the warm-up and each batch), then each answer against a lone
    forward; int8 and bf16 forwards timed at 128 x 128.
-46. `[int8-resnet]`: resnet50_v1b bf16 at batch 256, `quantize_net`
+47. `[int8-resnet]`: resnet50_v1b bf16 at batch 256, `quantize_net`
    with dynamic scales (54 int8 layers, one launch of each kernel a
    layer): two images against the plain versions on the CPU, int8
    against bf16, both rates.
-47. `[quantize-example]`: `example/quantization/quantize_model.py`
+48. `[quantize-example]`: `example/quantization/quantize_model.py`
    through `python -m incubator_mxnet_torch.run --seed 0` (a copy of it
    in a temporary directory of its own, where it writes its graph): its
    three accuracies at least 0.9.
-48. `[onnx]`: resnet50_v1b float32 exported to ONNX by the port and
+49. `[onnx]`: resnet50_v1b float32 exported to ONNX by the port and
    read back with `import_to_gluon` onto the card, logits within 1e-4
    of the float net's.
-49. A JSON line describing each kernel, then the card line, then the
+50. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -401,6 +439,7 @@ of the repository.
 import atexit
 import concurrent.futures
 import contextlib
+import hashlib
 import http.client
 import json
 import logging
@@ -3103,7 +3142,8 @@ def phase_train_zoo(card):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train-zoo] imperative record/backward/gluon.Trainer.step x2: "
         f"mean losses {losses[-2]:.4f}, {losses[-1]:.4f}; peak memory "
-        f"{peak:.2f} GiB")
+        f"{peak:.2f} GiB over the 3 steps, run_steps({k}), the profiled "
+        f"step and these 2 iterations")
     if any(_all_counts().values()):
         raise AssertionError(f"[train-zoo] launched hand kernels "
                              f"{_all_counts()}: the zoo has none")
@@ -4666,6 +4706,11 @@ IO_LIBSVM_ROWS = 2 * CSR_ROWS - 1000            # the second batch pads
 IO_DOT_RTOL = 1e-5       # of the largest value: 39 products a row added
 #                          in another order than the dense product's
 EST_SAMPLES, EST_BATCH, EST_EPOCHS = 2048, 64, 3
+# the runtime planes' Speedometer columns, each there when its plane has
+# a reading (the card's memory peak always; the others with tracing,
+# counted FLOPs or MXNET_HEALTH)
+SPEEDOMETER_PLANES = {"trace_id", "goodput", "mfu", "hbm_peak_bytes",
+                      "loss_bucket", "grad_norm", "nonfinite", "audit_ok"}
 EST_SGD = {"learning_rate": 0.05, "momentum": 0.9}   # train_dist.py's
 EST_MIN_ACC = 0.9        # held-out accuracy after the 3 epochs
 EST_OUT_RTOL = 1e-5      # a loaded checkpoint's outputs, of the largest
@@ -5090,18 +5135,43 @@ class BatchEndParam:
             eval_metric
 
 
+class SeededFlips:
+    """`RandomFlipLeftRight` (p = 0.5, the transform's own flip of axis
+    1) with each sample's draw from a generator seeded by (seed, epoch,
+    index): the 4 loader threads then flip the same samples whatever
+    order they run in, where the transform draws from one shared
+    generator in thread order.  `epoch` is set at each epoch's start."""
+
+    def __init__(self, base, seed=0, p=0.5):
+        self._base, self._seed, self._p = base, seed, p
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self._base)
+
+    def __getitem__(self, idx):
+        x, y = self._base[idx]
+        rng = np.random.RandomState([self._seed, self.epoch, int(idx)])
+        if rng.uniform() < self._p:
+            from incubator_mxnet_torch import nd
+            x = nd.array(x.asnumpy()[:, ::-1].copy())
+        return x, y
+
+
 def _est_loaders():
-    from incubator_mxnet_torch.gluon.data import DataLoader
+    from incubator_mxnet_torch.gluon.data import DataLoader, SimpleDataset
     from incubator_mxnet_torch.gluon.data.vision import (
         SyntheticImageDataset, transforms as T)
     norm = T.Normalize(0.5, 0.25)
-    train = SyntheticImageDataset(EST_SAMPLES, (3, 32, 32), seed=0) \
-        .transform_first(T.Compose([T.RandomFlipLeftRight(), norm]))
+    flips = SeededFlips(SyntheticImageDataset(EST_SAMPLES, (3, 32, 32),
+                                              seed=0))
+    train = SimpleDataset(flips).transform_first(norm)
     val = SyntheticImageDataset(EST_SAMPLES // 4, (3, 32, 32), seed=1) \
         .transform_first(norm)
     return (DataLoader(train, EST_BATCH, shuffle=True, num_workers=4,
                        thread_pool=True, pin_memory=True),
-            DataLoader(val, EST_BATCH, num_workers=4, thread_pool=True))
+            DataLoader(val, EST_BATCH, num_workers=4, thread_pool=True),
+            flips)
 
 
 def _resnet18(ctx):
@@ -5159,7 +5229,8 @@ def _train_dist_loop(ctx):
     jsonl = [json.loads(m) for m in records if m.startswith("{")]
     keys = {"epoch", "batch", "samples_per_sec", "metrics", "time", "rank",
             "role", "host"}
-    if not jsonl or any(set(r) != keys for r in jsonl):
+    if not jsonl or any(not keys <= set(r) <= keys | SPEEDOMETER_PLANES
+                        for r in jsonl):
         raise AssertionError(f"[estimator] Speedometer records {jsonl[:1]}")
     name, value = acc.get()
     if value < DIST_MIN_ACC:
@@ -5174,7 +5245,7 @@ def _train_dist_loop(ctx):
 
 def phase_estimator(card):
     """Estimator.fit of train_dist.py's net (resnet18_v1, thumbnail, 10
-    classes) for 3 epochs from a DataLoader with RandomFlipLeftRight and
+    classes) for 3 epochs from a DataLoader with seeded left-right flips and
     Normalize, with LoggingHandler, CheckpointHandler and
     EarlyStoppingHandler; evaluate on held-out data (gate EST_MIN_ACC),
     a checkpoint loaded into a fresh net, then train_dist.py's loop."""
@@ -5190,24 +5261,35 @@ def phase_estimator(card):
     trainer = gluon.Trainer(net.collect_params(), "sgd", EST_SGD)
     e = est.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
                       train_metrics="acc", trainer=trainer, context=ctx)
-    train, val = _est_loaders()
+    train, val, flips = _est_loaders()
     accs = []
 
-    class Record(est.EpochEnd):
+    class Record(est.EpochBegin, est.EpochEnd):
+        def epoch_begin(self, estimator):
+            flips.epoch = estimator.current_epoch
+
         def epoch_end(self, estimator):
             accs.append(estimator.train_metric.get()[1])
-    with tempfile.TemporaryDirectory() as d:
-        e.fit(train, epochs=EST_EPOCHS, event_handlers=[
-            est.LoggingHandler(log_interval=16),
-            est.CheckpointHandler(d, "resnet18"),
-            est.EarlyStoppingHandler(patience=1), Record()])
-        torch.cuda.synchronize()
-        fit_s = time.time() - t0
-        (name, value), = e.evaluate(val)
-        files = sorted(os.listdir(d))
-        fresh = _resnet18(ctx)
-        fresh.load_parameters(os.path.join(
-            d, f"resnet18-epoch{EST_EPOCHS - 1}.params"), ctx=ctx)
+    # cuDNN's heuristics may pick a convolution backward that adds in
+    # a run-dependent order; the phase asks for deterministic ones so
+    # its accuracies repeat from run to run
+    was_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            e.fit(train, epochs=EST_EPOCHS, event_handlers=[
+                est.LoggingHandler(log_interval=16),
+                est.CheckpointHandler(d, "resnet18"),
+                est.EarlyStoppingHandler(patience=1), Record()])
+            torch.cuda.synchronize()
+            fit_s = time.time() - t0
+            (name, value), = e.evaluate(val)
+            files = sorted(os.listdir(d))
+            fresh = _resnet18(ctx)
+            fresh.load_parameters(os.path.join(
+                d, f"resnet18-epoch{EST_EPOCHS - 1}.params"), ctx=ctx)
+    finally:
+        torch.backends.cudnn.deterministic = was_det
     x = next(iter(val))[0]
     with torch.no_grad():
         ref, got = net(x).data, fresh(x).data
@@ -5223,10 +5305,11 @@ def phase_estimator(card):
                              f"epochs")
     log(f"[estimator] Estimator.fit resnet18_v1 (thumbnail, 10 classes) "
         f"{EST_EPOCHS} epochs of {EST_SAMPLES} 3x32x32 at batch "
-        f"{EST_BATCH} (RandomFlipLeftRight, Normalize; 4 loader threads): "
+        f"{EST_BATCH} (flips seeded by sample and epoch, Normalize; 4 "
+        f"loader threads): "
         f"training accuracy by epoch "
-        + ", ".join(f"{a:.4f}" for a in accs)
-        + f"; held-out {name} {value:.4f} (gate {EST_MIN_ACC}); "
+        + ", ".join(repr(float(a)) for a in accs)
+        + f"; held-out {name} {float(value)!r} (gate {EST_MIN_ACC}); "
         f"{fit_s:.1f} s; checkpoints {files}; the last loaded into a "
         f"fresh net gives its outputs within {out_err:.1e}")
     log(f"[estimator] {_train_dist_loop(ctx)}")
@@ -6004,6 +6087,7 @@ def _ms_text(ms):
 NATIVE_SERVE_DIR = os.path.join(HERE, "build", "native_serve")
 NATIVE_TRAIN_DIR = os.path.join(HERE, "build", "native_train")
 NATIVE_EXPORTS_JSON = os.path.join(HERE, "build", "native_exports.json")
+NATIVE_SERVE_PKG = "model_native_cuda.pt2"
 NATIVE_ADAM = {"learning_rate": 2e-5}
 NATIVE_EXPORTS_TIMEOUT = 900
 
@@ -6020,7 +6104,11 @@ def native_exports():
     t0 = time.time()
     _, net = _bert_artifact(NATIVE_SERVE_DIR, T, BH_BATCH, 0,
                             platforms=("cuda",))
-    secs = {"serve_s": time.time() - t0}
+    # [native-serve] removes the package when it is done; [planes]
+    # compares its own export of the block with these bytes
+    with open(os.path.join(NATIVE_SERVE_DIR, NATIVE_SERVE_PKG), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    secs = {"serve_s": time.time() - t0, "serve_sha256": digest}
     del net
     torch.cuda.empty_cache()
     net, batch = _bench_bert()
@@ -6044,13 +6132,17 @@ class NativeExports:
         self.log_path = os.path.join(HERE, "build", "native_exports.log")
         if os.path.exists(NATIVE_EXPORTS_JSON):
             os.remove(NATIVE_EXPORTS_JSON)
+        # the exports go through the persistent compile cache, which
+        # [planes] exports from again
+        shutil.rmtree(COMPILE_CACHE_DIR, ignore_errors=True)
         self.t0 = time.time()
         with open(self.log_path, "w") as f:
             self.proc = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__),
                  "--native-exports"], cwd=HERE, stdout=f,
                 stderr=subprocess.STDOUT, start_new_session=True,
-                env=dict(os.environ, PYTHONPATH=HERE))
+                env=dict(os.environ, PYTHONPATH=HERE,
+                         MXNET_COMPILE_CACHE_DIR=COMPILE_CACHE_DIR))
         self.seconds = None
         atexit.register(self.stop)
         log(f"[native-exports] started in process {self.proc.pid}")
@@ -7281,6 +7373,547 @@ def phase_onnx(card):
     return err
 
 
+# -- the runtime planes ------------------------------------------------------
+
+PLANES_WINDOW = 5        # steps a timed window
+# the timed windows: (name, goodput, tracing, health) each plane on or off
+PLANES_WINDOWS = (("off", False, False, False), ("goodput", True, False,
+                                                  False),
+                  ("goodput+tracing", True, True, False),
+                  ("goodput+health", True, False, True),
+                  ("on", True, True, True))
+PLANES_WARM = 3          # ParallelTrainer steps before the windows
+# MXNET_PROFILE_STEPS: the capture starts at the boundary of the step
+# after the 2 small-model steps, the warm-up and the timed windows, and
+# holds the 2 steps after it
+PLANES_PROFILE = \
+    f"{2 + PLANES_WARM + len(PLANES_WINDOWS) * PLANES_WINDOW + 1}:2"
+PLANES_FAULT_STEP = 3    # the imperative loop's nan_grad step
+PLANES_LOOP = 5          # imperative iterations (the fault among them)
+PLANES_FLOP_RTOL = 0.02  # counted FLOPs against the analytic count
+PLANES_BUCKET_RTOL = 0.01   # the ledger's buckets against the wall,
+#                             its compute bucket against the compute span
+# the "other" bucket of a step with goodput and tracing on, a share of
+# its wall: the host's work outside the trainer's compute span (the
+# boundary), with no host sync in the step.  The window's first step is
+# left out: it holds the window's opening sync.  With health on, the
+# step's one sync waits for the card's tail outside the compute span
+# (3.0-7.6 ms of 55-72 ms walls), so the on window's "other" is printed,
+# not bounded.
+PLANES_OTHER_MAX = 0.05
+# the profile window's kernels the report's classes leave as "other",
+# a share of its device time
+PLANES_CLASS_OTHER_MAX = 0.05
+PLANES_BATCH_WINDOW_MS = 0.5     # the tuned.json serving window
+PLANES_TIMEOUT = 600
+PLANES_JSON = os.path.join(HERE, "build", "planes.json")
+PLANES_DIR = os.path.join(HERE, "build", "planes")
+COMPILE_CACHE_DIR = os.path.join(HERE, "build", "compile_cache")
+PLANES_PAGES = ("goodputz", "numericz", "profilez", "tunerz")
+
+
+def bert_step_flops(n, t, layers, units, hidden, classes):
+    """The analytic FLOPs of one BERT classifier train step at batch n,
+    length t: 2 x the multiply-adds of each product, three times (the
+    forward, then the weight and the input gradient, or for attention
+    the gradients of both operands).  Per layer: qkv (3E), proj (E),
+    ffn_1 and ffn_2 (F) over n t rows; QK^T and PV over n t^2 pairs of
+    width E; then the pooler and the classifier over n rows."""
+    per_layer = 2 * n * t * units * (4 * units + 2 * hidden) \
+        + 4 * n * t * t * units
+    head = 2 * n * units * (units + classes)
+    return 3 * (layers * per_layer + head)
+
+
+def _planes_flops_small():
+    """The counted FLOPs of one ParallelTrainer step of a 2-layer BERT
+    (128 units, 2 heads of 64) at 4 x 16 on the card and on the CPU:
+    the card's count goes through row 1b's registered formula, the
+    CPU's through the einsum attention's products."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd, parallel
+    from incubator_mxnet_torch.models import get_model
+    rng = np.random.RandomState(0)
+    data = (rng.randint(0, 100, (4, 16)).astype(np.float32),
+            np.zeros((4, 16), np.float32),
+            rng.randint(0, 2, 4).astype(np.float32))
+    out = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        mx.seed(0)
+        net = get_model("bert_classifier", model_name="bert_tiny",
+                        num_classes=2, dropout=0.0, vocab_size=100,
+                        max_length=16)
+        net.initialize(mx.init.Normal(0.02), ctx=ctx)
+        tr = parallel.ParallelTrainer(net, _bert_loss(), "adam",
+                                      {"learning_rate": 2e-5},
+                                      mesh=parallel.default_mesh(ctx=ctx))
+        tr.step(*[nd.array(a, ctx=ctx) for a in data])
+        out[name] = tr._ledger.flops_per_step()
+    return out, bert_step_flops(4, 16, 2, 128, 512, 2)
+
+
+def _planes_kernel_flops():
+    """Each hand kernel's FLOPs as the planes count them on the card —
+    rows 1 and 1b by their registered formula under torch's counter,
+    rows 2-6 and 8 by their ctypes wrappers' per-launch counts — against
+    torch's count of the kernel's plain version on the same inputs.
+    Returns {kernel: (counted, plain)}; raises unless each pair is
+    equal."""
+    from incubator_mxnet_torch import goodput
+    from incubator_mxnet_torch.ops import flash_attention as fa
+    from incubator_mxnet_torch.tools import bottleneck_bwd as bnb
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    scale = D ** -0.5
+    bh, lb, lt = BH_BATCH * HEADS // 8, 8, 1024
+    q, k, v = (rnd(bh, T, D) for _ in range(3))
+    full = torch.full((bh,), T, dtype=torch.int32, device="cuda")
+    ql, kl, vl, dol = (rnd(lb, lt, D) for _ in range(4))
+    lfull = torch.full((lb,), lt, dtype=torch.int32, device="cuda")
+    blocks = (fa._fit_block(512, lt), fa._fit_block(1024, lt))
+    o, lse = fa.flash_fwd(ql, kl, vl, lfull, scale, False, *blocks)
+    delta = (dol.float() * o.float()).sum(-1, keepdim=True)
+    bwd = (ql, kl, vl, dol, lse, delta, lfull, scale, False, *blocks)
+    qb, kb, vb, dob = (rnd(BH_BATCH // 8, T, HEADS, D) for _ in range(4))
+    bfull = torch.full((BH_BATCH // 8,), T, dtype=torch.int32,
+                       device="cuda")
+    ob, pb = fa.flash_short_bthd_fwd_train(qb, kb, vb, bfull, scale)
+    deltab = (dob.float() * ob.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    x, w, gamma, _, dy, m, inv = _bnb_inputs(gen, 4096, 64, 256)
+    s1, s2 = bnb.bottleneck_bwd_reduce(dy, x, w, m, inv)
+    cases = {
+        "flash_short_fwd": (
+            lambda: fa.flash_short_fwd(q, k, v, full, scale),
+            lambda: fa.flash_short_reference(q, k, v, full, scale, False)),
+        "flash_short_fwd_train": (
+            lambda: fa.flash_short_fwd_train(q, k, v, full, scale),
+            lambda: fa.flash_short_reference(q, k, v, full, scale, False,
+                                             True)),
+        "flash_fwd": (
+            lambda: fa.flash_fwd(ql, kl, vl, lfull, scale, False, *blocks),
+            lambda: fa.flash_fwd_reference(ql, kl, vl, lfull, scale, False,
+                                           *blocks)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
+                         lambda: fa.flash_bwd_dq_reference(*bwd)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                          lambda: fa.flash_bwd_dkv_reference(*bwd)),
+        "flash_short_bthd_fwd": (
+            lambda: fa.flash_short_bthd_fwd(qb, kb, vb, bfull, scale),
+            lambda: fa.flash_short_bthd_reference(qb, kb, vb, bfull, scale,
+                                                  False)),
+        "flash_short_bthd_fwd_train": (
+            lambda: fa.flash_short_bthd_fwd_train(qb, kb, vb, bfull, scale),
+            lambda: fa.flash_short_bthd_reference(qb, kb, vb, bfull, scale,
+                                                  False, True)),
+        "flash_short_bthd_bwd": (
+            lambda: fa.flash_short_bthd_bwd(qb, kb, vb, dob, deltab, pb,
+                                            scale),
+            lambda: fa.flash_short_bthd_bwd_reference(qb, kb, vb, dob,
+                                                      deltab, pb, scale)),
+        "bottleneck_bwd_reduce": (
+            lambda: bnb.bottleneck_bwd_reduce(dy, x, w, m, inv),
+            lambda: bnb.bottleneck_reduce_reference(dy, x, w, m, inv)),
+        "bottleneck_bwd_apply": (
+            lambda: bnb.bottleneck_bwd_apply(dy, x, w, m, inv, gamma, s1,
+                                             s2),
+            lambda: bnb.bottleneck_apply_reference(dy, x, w, m, inv, gamma,
+                                                   s1, s2)),
+    }
+    out = {}
+    for name, (kernel, plain) in cases.items():
+        before = _all_counts()[name]
+        counted = goodput.count_flops(kernel)[1]
+        launched = _all_counts()[name] - before
+        out[name] = (counted, goodput.count_flops(plain)[1])
+        if launched != 1 or counted != out[name][1] or not counted:
+            raise AssertionError(f"[planes] {name}: {launched} launches, "
+                                 f"{counted} FLOPs counted, plain version "
+                                 f"{out[name][1]}")
+    torch.cuda.synchronize()
+    return out
+
+
+def _planes_window(tr, batch, gp, tr_on, hl):
+    """PLANES_WINDOW ParallelTrainer steps with the goodput, tracing and
+    health planes on or off; the mean step ms (host clock, the card
+    synchronized before and after) and each step's trace id."""
+    from incubator_mxnet_torch import goodput, health, tracing
+    goodput.set_enabled(gp)
+    tracing.set_enabled(tr_on)
+    health.set_enabled(hl)
+    tids = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PLANES_WINDOW):
+        tr.step(*batch)
+        tids.append(tracing.last_trace_id())
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / PLANES_WINDOW, tids
+
+
+def _planes_ledger_check(recs, tids, flops, peak, other_max=None):
+    """A traced window's ledger records against what the ledger was fed:
+    the buckets sum to the step's wall (PLANES_BUCKET_RTOL); the compute
+    bucket is the trainer's own "compute" span of that step's trace
+    (PLANES_BUCKET_RTOL); "other" stays under `other_max` of the wall
+    past the window's first step, when given; the MFU is the counted
+    FLOPs over the wall and the card's named peak, in (0, 1].  Returns
+    a line per step."""
+    from incubator_mxnet_torch import tracing
+    spans = tracing.spans()
+    out = []
+    for i, (r, tid) in enumerate(zip(recs, tids)):
+        b, wall = r["buckets"], r["wall_seconds"]
+        comp = sum(sp.duration for sp in spans
+                   if sp.trace_id == tid and sp.name == "compute")
+        mfu = flops * r["steps"] / wall / peak if peak else None
+        if abs(sum(b.values()) / wall - 1) > PLANES_BUCKET_RTOL or \
+                not comp or abs(b["compute"] / comp - 1) > \
+                PLANES_BUCKET_RTOL or (other_max and i and b["other"]
+                                       > other_max * wall) \
+                or not (mfu and 0 < r["mfu"] <= 1) or \
+                abs(r["mfu"] / mfu - 1) > 1e-9:
+            raise AssertionError(f"[planes] ledger record {r}: compute "
+                                 f"span {comp} s, MFU from the counted "
+                                 f"FLOPs {mfu} (peak {peak})")
+        out.append(f"wall {wall * 1e3:.2f} ms, compute "
+                   f"{b['compute'] * 1e3:.2f} (span {comp * 1e3:.2f}), "
+                   f"other {b['other'] * 1e3:.2f}")
+    return out
+
+
+def _planes_class_check(rep):
+    """The profile report's class split: row 1b's kernel in custom-call,
+    the products in matmul, and what no class names ("other") under
+    PLANES_CLASS_OTHER_MAX of the device time."""
+    cls = rep["class_ms"]
+    other = cls.get("other", 0.0) / max(sum(cls.values()), 1e-12)
+    if not (cls.get("custom-call") and cls.get("matmul")) or \
+            other > PLANES_CLASS_OTHER_MAX:
+        names = [o["name"][:80] for o in rep["top_ops"]
+                 if o["class"] == "other"]
+        raise AssertionError(f"[planes] profile classes {cls}: other "
+                             f"{other:.4f} of the device time, its top "
+                             f"kernels {names[:8]}")
+    return other
+
+
+def _planes_profile(tr, batch, lines):
+    """The MXNET_PROFILE_STEPS window: a step whose boundary (13) starts
+    the capture, then the 2 captured steps.  Returns the report, the row
+    1b kernel names in its trace, the wrapper's count over the captured
+    steps and the steps run; a trace that lost the kernels is taken
+    again in a profilez window of 2 steps, up to 3 times."""
+    from incubator_mxnet_torch import profiling
+    from incubator_mxnet_torch.ops import flash_attention as fa
+    steps = 0
+    for attempt in range(4):
+        if attempt:
+            profiling.arm(steps=2, label=f"planes-retry{attempt}")
+        tr.step(*batch)                 # the boundary that starts it
+        if not profiling.profilez("")["active"]:
+            raise AssertionError(f"[planes] no capture started at the "
+                                 f"boundary MXNET_PROFILE_STEPS="
+                                 f"{PLANES_PROFILE} names")
+        before = fa.launch_counts["flash_short_fwd_train"]
+        for _ in range(2):
+            tr.step(*batch)
+        steps += 3
+        counted = fa.launch_counts["flash_short_fwd_train"] - before
+        rep = profiling.last_report()
+        if rep is None or "error" in rep:
+            raise AssertionError(f"[planes] no profile report: {rep}")
+        with open(rep["paths"]["torch_trace"]) as f:
+            parsed = profiling.parse_trace(json.load(f))
+        row1b = [e.name for e in parsed["events"]
+                 if e.kind == "op" and "short_fwd" in e.name]
+        lines.append(f"[planes] profile window {attempt}: "
+                     f"{rep['window']['steps']} steps, "
+                     f"{rep['device']['kernel_events']} kernel events, "
+                     f"{rep['device']['launch_calls']} launch calls, lost "
+                     f"{rep['device']['events_lost']}; row 1b "
+                     f"{len(row1b)} traced, {counted} counted by its "
+                     f"wrapper")
+        if not rep["device"]["events_lost"] and row1b:
+            return rep, row1b, counted, steps
+    raise AssertionError("[planes] torch.profiler lost the kernel events "
+                         "of 4 windows")
+
+
+def _planes_launches(what, want, kernel):
+    """The hand kernels' counts since the last reset: `want` launches of
+    `kernel`, no other kernel."""
+    got = {n: c for n, c in _all_counts().items() if c}
+    if got != {kernel: want}:
+        raise AssertionError(f"[planes] {what}: launches {got}, expected "
+                             f"{want} of {kernel}")
+    return got
+
+
+def planes_child():
+    """`chip_smoke.py --planes`: the [planes] path in a process whose
+    environment turns the planes on (MXNET_HEALTH, MXNET_TRACE,
+    MXNET_PROFILE_STEPS, MXNET_HEALTH_FAULT_PLAN, MXNET_COMPILE_CACHE_DIR;
+    set by `phase_planes`).  Writes its lines, records and launch counts
+    to PLANES_JSON; raises on any gate."""
+    import logging as _logging
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import (autograd, callback, compile_cache,
+                                       goodput, gluon, health, parallel,
+                                       profiling)
+    from incubator_mxnet_torch.serving import ServeConfig, ServingRuntime
+    card = card_line()
+    lines, out = [], {}
+    _reset_all_counts()
+    small, small_analytic = _planes_flops_small()
+    if small["card"] != small["cpu"] or abs(
+            small["card"] / small_analytic - 1) > PLANES_FLOP_RTOL:
+        raise AssertionError(f"[planes] small step FLOPs card "
+                             f"{small['card']}, CPU {small['cpu']}, "
+                             f"analytic {small_analytic}")
+    lines.append(f"[planes] 2-layer BERT at 4x16: FLOPs counted "
+                 f"{small['card']:.0f} on the card, {small['cpu']:.0f} on "
+                 f"the CPU, analytic {small_analytic}")
+    kflops = _planes_kernel_flops()
+    lines.append("[planes] FLOPs of one launch, counted on the card = the "
+                 "plain version's: " + ", ".join(
+                     f"{n} {c:.0f}" for n, (c, _) in kflops.items()))
+    net, batch = _bench_bert()
+    tr = parallel.ParallelTrainer(net, _bert_loss(), "adam", NATIVE_ADAM,
+                                  mesh=parallel.default_mesh(1))
+    _reset_all_counts()
+    for i in range(PLANES_WARM):
+        # the last warm-up step counts the health-off signature's FLOPs
+        health.set_enabled(i < PLANES_WARM - 1)
+        tr.step(*batch)
+    flops = tr._ledger.flops_per_step()
+    analytic = bert_step_flops(TRAIN_BATCH, T, LAYERS, 768, 3072, 2)
+    if abs(flops / analytic - 1) > PLANES_FLOP_RTOL:
+        raise AssertionError(f"[planes] counted {flops} FLOPs a step, "
+                             f"analytic {analytic}")
+    peak = goodput.peak_flops()
+    window_ms, ledger_lines = {}, {}
+    for name, gp, tr_on, hl in PLANES_WINDOWS:
+        window_ms[name], tids = _planes_window(tr, batch, gp, tr_on, hl)
+        if gp and tr_on:
+            ledger_lines[name] = _planes_ledger_check(
+                list(tr._ledger._records)[-PLANES_WINDOW:], tids, flops,
+                peak, None if hl else PLANES_OTHER_MAX)
+    if profiling.profilez("")["active"]:
+        raise AssertionError("[planes] a capture ran in a timed window")
+    recs = list(tr._ledger._records)[-PLANES_WINDOW:]
+    hrecs = list(tr._health._records)[-PLANES_WINDOW:]
+    if any(h["nonfinite"] for h in hrecs):
+        raise AssertionError(f"[planes] nonfinite gradients {hrecs}")
+    lines.append(f"[planes] BERT-base bf16 {TRAIN_BATCH}x{T} "
+                 f"ParallelTrainer step, mean ms of {PLANES_WINDOW} steps by "
+                 f"the planes on: " + ", ".join(
+                     f"{n} {ms:.2f}" for n, ms in window_ms.items())
+                 + f" ({card})")
+    for name, steps in ledger_lines.items():
+        lines.append(f"[planes] the {name} window's steps: "
+                     + "; ".join(steps))
+    out["off_ms"], out["on_ms"] = window_ms["off"], window_ms["on"]
+    lines.append(f"[planes] FLOPs a step: counted {flops:.0f}, analytic "
+                 f"{analytic} ({flops / analytic - 1:+.2e}); peak "
+                 f"{peak / 1e12:.0f} TFLOP/s bf16 for "
+                 f"{torch.cuda.get_device_name(0)}")
+    lines.append(f"[planes] goodput record: {json.dumps(recs[-1])}")
+    lines.append(f"[planes] health record: {json.dumps(hrecs[-1])}")
+    rep, row1b, counted, profile_steps = _planes_profile(tr, batch, lines)
+    if len(row1b) != counted:
+        raise AssertionError(f"[planes] the profile window holds "
+                             f"{len(row1b)} row 1b kernels, its wrapper "
+                             f"counted {counted}")
+    other_share = _planes_class_check(rep)
+    lines.append(f"[planes] profile report: window {rep['window']}, "
+                 f"device {rep['device']}, mfu {rep['mfu']}, class_ms "
+                 f"{rep['class_ms']} (other {other_share:.4f}), top op "
+                 f"{rep['top_ops'][0]['name'][:60]}"
+                 f" ({rep['top_ops'][0]['pct']}%), disagreements "
+                 f"{rep['disagreements']}; row 1b {sorted(set(row1b))[:1]}")
+    tr.run_steps(3, *batch)
+    multi = list(tr._ledger._records)[-1]
+    if multi["steps"] != 3 or not 0 < multi["mfu"] <= 1:
+        raise AssertionError(f"[planes] run_steps(3) record {multi}")
+    params = [p._data for p in tr.params]
+    d_card = health.checksum(params)
+    d_cpu = health.checksum([t.cpu() for t in params])
+    if d_card != d_cpu:
+        raise AssertionError(f"[planes] weight digest {d_card:016x} on the "
+                             f"card, {d_cpu:016x} on the CPU")
+    lines.append(f"[planes] run_steps(3): mfu {multi['mfu']:.4f}; weight "
+                 f"digest {d_card:016x} on the card and on the CPU")
+    out["train_counts"] = _planes_launches(
+        "ParallelTrainer", LAYERS * (PLANES_WARM + len(PLANES_WINDOWS)
+                                     * PLANES_WINDOW + profile_steps + 3),
+        "flash_short_fwd_train")
+    # the imperative loop with a Speedometer, nan_grad at step 3
+    _reset_all_counts()
+    trainer = gluon.Trainer(net.collect_params(), "adam", NATIVE_ADAM)
+    trainer.note_flops(flops)
+    speed = callback.Speedometer(TRAIN_BATCH, frequent=1, emit_json=True)
+    jsonl = []
+    handler = _logging.Handler()
+    handler.emit = lambda r: jsonl.append(r.getMessage())
+    root = _logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(_logging.INFO)
+    loss_fn = _bert_loss()
+    try:
+        for i in range(PLANES_LOOP):
+            with autograd.record():
+                loss = loss_fn(net(*batch[:2]), batch[2]).mean()
+            loss.backward()
+            trainer.step(1)
+            speed(BatchEndParam(0, i, None))
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    jsonl = [json.loads(m) for m in jsonl if m.startswith("{")]
+    nonfinite = [r["nonfinite"] for r in trainer._health._records]
+    anomaly = trainer._health.last_anomaly or {}
+    if nonfinite[:PLANES_FAULT_STEP] != [0] * PLANES_FAULT_STEP or \
+            not nonfinite[PLANES_FAULT_STEP] > 0 or \
+            anomaly.get("anomaly") != "nonfinite" or \
+            anomaly.get("step") != PLANES_FAULT_STEP:
+        raise AssertionError(f"[planes] nan_grad at step "
+                             f"{PLANES_FAULT_STEP}: nonfinite {nonfinite}, "
+                             f"anomaly {anomaly}")
+    cols = set().union(*(set(r) for r in jsonl))
+    if not {"goodput", "mfu", "hbm_peak_bytes", "grad_norm", "nonfinite",
+            "trace_id", "loss_bucket"} <= cols:
+        raise AssertionError(f"[planes] Speedometer columns {sorted(cols)}")
+    lines.append(f"[planes] gluon.Trainer loop: nonfinite by step "
+                 f"{nonfinite}, anomaly {anomaly.get('anomaly')} at step "
+                 f"{anomaly.get('step')}; Speedometer record "
+                 f"{json.dumps(jsonl[PLANES_FAULT_STEP - 1])}")
+    out["loop_counts"] = _planes_launches(
+        "gluon.Trainer loop", LAYERS * PLANES_LOOP, "flash_short_fwd_train")
+    del trainer, tr, net, params
+    torch.cuda.empty_cache()
+    # serving: the compile cache, the tuned window, the four pages
+    art = os.path.join(PLANES_DIR, "serve")
+    shutil.rmtree(art, ignore_errors=True)
+    s0 = compile_cache.stats()
+    t0 = time.time()
+    _, snet = _bert_artifact(art, T, BH_BATCH, 0, platforms=("cuda",))
+    export_s = time.time() - t0
+    del snet
+    torch.cuda.empty_cache()
+    s1 = compile_cache.stats()
+    with open(os.path.join(art, NATIVE_SERVE_PKG), "rb") as f, \
+            open(NATIVE_EXPORTS_JSON) as g:
+        same = hashlib.sha256(f.read()).hexdigest() == \
+            json.load(g)["serve_sha256"]
+    if s1["hits"] != s0["hits"] + 1 or s1["compile_seconds"] or not same:
+        raise AssertionError(f"[planes] second export: cache {s0} -> {s1}, "
+                             f"same bytes {same}")
+    lines.append(f"[planes] export_serving(platforms=('cuda',)) again: a "
+                 f"cache hit, {export_s:.1f} s, no compile, the background "
+                 f"export's bytes; cache {s1['entries']} entries, "
+                 f"{s1['bytes']} bytes")
+    tuned = os.path.join(PLANES_DIR, "tuned.json")
+    from incubator_mxnet_torch import tuner
+    tuner.write_tuned(tuned, {"winner": {
+        "serve_batch_window_ms": PLANES_BATCH_WINDOW_MS}})
+    os.environ["MXNET_TUNED_CONFIG"] = tuned
+    # the serving path's launches: from the runtime's load (its warm-up
+    # forward) to its last answer
+    _reset_all_counts()
+    rt = ServingRuntime(art, config=ServeConfig(concurrency=2,
+                                                queue_limit=64))
+    try:
+        if rt._cfg.batch_window_ms != PLANES_BATCH_WINDOW_MS:
+            raise AssertionError(f"[planes] batch window "
+                                 f"{rt._cfg.batch_window_ms} ms, tuned "
+                                 f"{PLANES_BATCH_WINDOW_MS}")
+        port = rt.start(0, "127.0.0.1")
+        rng = np.random.RandomState(1)
+        for n in (1, 8):
+            status, body, _ = _post(port, _bert_rows(rng, n, T))
+            if status != 200 or not np.isfinite(
+                    np.asarray(body["outputs"][0], np.float64)).all():
+                raise AssertionError(f"[planes] predict {status}: "
+                                     f"{str(body)[:300]}")
+        warm = 1 + (len(rt._slot.buckets) if rt._cfg.batch_buckets else 0)
+        batches = rt.model_calls
+        if not batches:
+            raise AssertionError("[planes] the runtime answered with no "
+                                 "model call")
+        out["serve_counts"] = _planes_launches(
+            f"serving ({warm} warm-up and {batches} batch forwards)",
+            LAYERS * (warm + batches), "flash_short_fwd")
+        pages = {}
+        for page in PLANES_PAGES:
+            status, payload, _ = _http(port, "GET", f"/-/{page}")
+            if status != 200 or not isinstance(payload, dict):
+                raise AssertionError(f"[planes] /-/{page}: {status}")
+            pages[page] = sorted(payload)
+        if not pages["profilez"] or "capture_seq" not in pages["profilez"]:
+            raise AssertionError(f"[planes] profilez {pages['profilez']}")
+    finally:
+        rt.close()
+    lines.append(f"[planes] BERT-base bf16 served with the tuned batch "
+                 f"window {PLANES_BATCH_WINDOW_MS} ms: {warm} warm-up and "
+                 f"{batches} batch forwards, {out['serve_counts']} "
+                 f"launches; pages: "
+                 + "; ".join(f"/-/{p} {k}" for p, k in pages.items()))
+    out["lines"] = lines
+    with open(PLANES_JSON, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_planes(card):
+    """`[planes]`: BERT-base bf16 fine-tuned at 60 x 128 through
+    `ParallelTrainer` (step and run_steps) and the imperative
+    `gluon.Trainer` loop with a Speedometer, and served, with the
+    runtime planes on, in a process of its own whose environment turns
+    them on (`planes_child`); returns the launch counts of its three
+    paths."""
+    shutil.rmtree(PLANES_DIR, ignore_errors=True)
+    os.makedirs(PLANES_DIR)
+    if os.path.exists(PLANES_JSON):
+        os.remove(PLANES_JSON)
+    env = dict(os.environ, PYTHONPATH=HERE, MXNET_HEALTH="1",
+               MXNET_TRACE="1", MXNET_PROFILE_STEPS=PLANES_PROFILE,
+               MXNET_PROFILE_DIR=os.path.join(PLANES_DIR, "profile"),
+               MXNET_HEALTH_FAULT_PLAN=f"nan_grad:{PLANES_FAULT_STEP}",
+               MXNET_COMPILE_CACHE_DIR=COMPILE_CACHE_DIR)
+    log_path = os.path.join(PLANES_DIR, "planes.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--planes"], cwd=HERE, stdout=f,
+                                stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PLANES_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "killed at its time limit"
+    if rc != 0 or not os.path.exists(PLANES_JSON):
+        with open(log_path, errors="replace") as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"[planes] the process ended with {rc}:\n{tail}")
+    with open(PLANES_JSON) as f:
+        out = json.load(f)
+    for line in out["lines"]:
+        log(line)
+    got = {}
+    for part in ("train_counts", "loop_counts", "serve_counts"):
+        for name, n in out[part].items():
+            got[name] = got.get(name, 0) + n
+    log(f"[planes] launches: {got} ({card})")
+    return got
+
+
 def phase_seconds(tag, fn, *args, **kwargs):
     """fn(*args, **kwargs), its wall seconds logged under `tag`."""
     t0 = time.time()
@@ -7297,6 +7930,8 @@ def main():
     import incubator_mxnet_torch  # noqa: F401 — fails outside a checkout
     if sys.argv[1:] == ["--native-exports"]:
         return native_exports()
+    if sys.argv[1:] == ["--planes"]:
+        return planes_child()
     t_start = time.time()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}: {card}; torch "
@@ -7387,6 +8022,7 @@ def main():
     native_train = P("[native-train]", phase_native_train, card, native,
                      train_ms, exports)
     torch.cuda.empty_cache()
+    planes = P("[planes]", phase_planes, card)
     int8_recs = P("[int8-kernels]", phase_int8_kernels, card)
     int8_bert = P("[int8-bert]", phase_int8_bert, card)
     torch.cuda.empty_cache()
@@ -7398,13 +8034,14 @@ def main():
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn], {sc_fwd} [symbol-check], "
         f"{bucket_counts['flash_short_fwd']} [serve-buckets], "
-        f"{native_serve['flash_short_fwd']} [native-serve] (C process)")
+        f"{native_serve['flash_short_fwd']} [native-serve] (C process), "
+        f"{planes['flash_short_fwd']} [planes]")
     log(f"[done] flash_short_fwd_train: {train_launches} launches [train], "
         f"{lamb_launches} [train-lamb], {sparse_launches} [train-sparse], "
         f"{ckpt_launches} [checkpoint], {ia_train} [interleaved-attn], "
         f"{sc_train} [symbol-check], "
         f"{native_train['flash_short_fwd_train']} [native-train] (C "
-        f"process)")
+        f"process), {planes['flash_short_fwd_train']} [planes]")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
@@ -7412,12 +8049,14 @@ def main():
     kernels = [{"name": "flash_short_fwd", **short,
                 "launches": serve["flash_short_fwd"] + ia_fwd + sc_fwd
                 + bucket_counts["flash_short_fwd"]
-                + native_serve["flash_short_fwd"], **rec,
+                + native_serve["flash_short_fwd"]
+                + planes["flash_short_fwd"], **rec,
                 "buckets": bucket_recs["flash_short_fwd"]},
                {"name": "flash_short_fwd_train", **short,
                 "launches": train_launches + lamb_launches + sparse_launches
                 + ckpt_launches + ia_train + sc_train
-                + native_train["flash_short_fwd_train"], **train_rec}]
+                + native_train["flash_short_fwd_train"]
+                + planes["flash_short_fwd_train"], **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),
                             ("flash_bwd_dkv", "flash_bwd.cu", 176)):

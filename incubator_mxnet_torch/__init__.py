@@ -24,6 +24,15 @@ BucketingModule), `model` (FeedForward), `rnn` (the symbolic cells),
 `HybridBlock.export` and `gluon.SymbolBlock`.  `mxnet_alias` puts the
 package under the name `mxnet` (`python -m incubator_mxnet_torch.run
 SCRIPT` runs a stock example on it).
+The runtime planes account for a step: `goodput` (the step ledger's
+wall-clock buckets, MFU, the card's memory peak), `health` (numerics
+stats, anomalies, the fault plan), `profiling` and `profiler` (device
+timelines from torch.profiler), `compile_cache` (AOTInductor packages
+kept across exports), `tuner` (winner files), with `engine` and
+`storage` (the host dependency engine and pooled host memory, C++ in
+`csrc/`), `resource`, `runtime` (`Features`) and `test_utils`; both
+trainers, `io`, `callback.Speedometer` and serving's debugz pages read
+them.
 Attention runs in the CUDA kernels of `ops/flash_attention.py`;
 `tools.bottleneck_bwd` is the ResNet bottleneck's fused BN backward in
 two CUDA kernels (`python -m incubator_mxnet_torch.tools.bottleneck_bwd`).
@@ -53,6 +62,17 @@ from . import image
 from . import telemetry
 from . import tracing
 from . import introspect
+from . import goodput
+from . import health
+from . import profiling
+from . import profiler
+from . import compile_cache
+from . import tuner
+from . import engine
+from . import storage
+from . import resource
+from . import runtime
+from . import test_utils
 from . import symbol
 from . import symbol as sym
 from .symbol import Symbol

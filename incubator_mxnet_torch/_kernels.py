@@ -21,7 +21,7 @@ from . import _build
 from .base import MXNetError, traced
 
 __all__ = ["SOURCES", "library", "library_path", "build_all", "entry",
-           "route", "stream"]
+           "route", "stream", "add_flops", "counting_flops"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -115,6 +115,34 @@ def route(name, t, launch, plain, traceable=False):
     if device.type in ("cpu", "meta"):
         return plain()
     raise MXNetError(f"{name}: no kernel for device {device}")
+
+
+# FLOPs of the ctypes launches while a count runs (`goodput.count_flops`):
+# torch's FlopCounterMode sees only dispatched ops, so each wrapper of a
+# kernel that is not a registered op adds its own formula here when it
+# launches.  One count at a time a process; None when none runs.
+_flop_acc = None
+
+
+def add_flops(n):
+    """Add a launch's FLOPs to the running count, if one runs."""
+    acc = _flop_acc
+    if acc is not None:
+        acc[0] += int(n)
+
+
+class counting_flops:
+    """`with counting_flops() as acc:` sums `add_flops` into acc[0]."""
+
+    def __enter__(self):
+        global _flop_acc
+        self._prev, _flop_acc = _flop_acc, [0]
+        return _flop_acc
+
+    def __exit__(self, *exc):
+        global _flop_acc
+        _flop_acc = self._prev
+        return False
 
 
 def stream(t):

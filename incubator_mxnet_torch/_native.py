@@ -1,8 +1,8 @@
 """Build and load the port's host libraries, and build the C ABI.
 
-The sources `csrc/*.cc` (the JPEG codec, the RecordIO reader and writer
-and the threaded image-record pipeline) are host C++ with plain C entry
-points.  At first use they are compiled together by the host's C++
+The sources `csrc/*.cc` (the JPEG codec, the RecordIO reader and writer,
+the threaded image-record pipeline, the host dependency engine and the
+pooled host storage) are host C++ with plain C entry points.  At first use they are compiled together by the host's C++
 compiler (`c++ -O3 -std=c++17 -shared -fPIC -pthread`) into one library
 under `build/host/` at the repository root, a directory git ignores, and
 loaded with ctypes.  The file name carries a hash of the sources and of
@@ -52,7 +52,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "library", "entry", "build",
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
-SOURCES = ("jpeg_codec.cc", "recordio.cc", "image_pipeline.cc")
+SOURCES = ("jpeg_codec.cc", "recordio.cc", "image_pipeline.cc",
+           "engine.cc", "storage.cc")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
              "-ffp-contract=off")
 

@@ -86,9 +86,27 @@ class _Scope:
         return False
 
 
+class _RecordScope(_Scope):
+    """`record()` scope that also opens a "forward" tracing span: the
+    recorded region is the forward pass, and the span parents to the
+    pending step root so `Trainer.step`'s span adopts it as a child.
+    With tracing off the span is a shared no-op."""
+
+    def __enter__(self):
+        from . import tracing
+        self._tspan = tracing.span("forward")
+        self._tspan.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        r = super().__exit__(*exc)
+        self._tspan.__exit__(*exc)
+        return r
+
+
 def record(train_mode=True):
     """Scope in which executed ops are recorded for differentiation."""
-    return _Scope(True, train_mode)
+    return _RecordScope(True, train_mode)
 
 
 def pause(train_mode=False):
@@ -143,7 +161,14 @@ def _head_grads(heads, head_grads):
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Reverse sweep from `heads` (NDArrays recorded under `record()`);
     gradients land in the leaves' `.grad` per their `grad_req`.  A head
-    that no gradient-taking input reaches writes nothing."""
+    that no gradient-taking input reaches writes nothing.  The sweep is
+    a "backward" tracing span."""
+    from . import tracing
+    with tracing.span("backward"):
+        return _backward_impl(heads, head_grads, retain_graph, train_mode)
+
+
+def _backward_impl(heads, head_grads, retain_graph, train_mode):
     from .ndarray import NDArray
     if isinstance(heads, (NDArray, torch.Tensor)):
         heads = [heads]

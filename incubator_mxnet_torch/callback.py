@@ -8,14 +8,21 @@ from __future__ import annotations
 import json
 import logging
 import math
-import socket
 import sys
 import time
 
 from .base import get_env
+from . import telemetry as _telemetry
+from . import tracing as _tracing
 
 __all__ = ["Speedometer", "log_train_metric", "ProgressBar",
            "do_checkpoint", "module_checkpoint"]
+
+
+_tm_speed = _telemetry.gauge(
+    "speedometer_samples_per_sec", "Last Speedometer throughput reading")
+_tm_samples = _telemetry.counter(
+    "speedometer_samples", "Samples processed through Speedometer windows")
 
 
 class Speedometer:
@@ -25,8 +32,14 @@ class Speedometer:
     "batch", "samples_per_sec", "metrics", "time", "rank", "role",
     "host"}``, through logging and appended to `json_path` when given.
     ``MXNET_TELEMETRY_JSONL=path`` gives a default path and implies
-    `emit_json`.  The port has no multi-process runtime yet, so `rank` is
-    0 and `role` "process".
+    `emit_json`.  `rank`, `role` and `host` are the process identity
+    (`introspect.process_identity`).  The record also carries, when
+    there, the newest step's ``trace_id`` (tracing on), the goodput
+    ledger's ``goodput``, ``mfu``, ``hbm_peak_bytes`` and dominant
+    ``loss_bucket``, and the health ledger's ``grad_norm``,
+    ``nonfinite`` and ``audit_ok``.  Each reading sets the gauge
+    ``speedometer_samples_per_sec`` and adds to ``speedometer_samples``.
+    `tools/parse_log.py` reads the records.
     """
 
     def __init__(self, batch_size, frequent=50, auto_reset=True,
@@ -46,11 +59,40 @@ class Speedometer:
         return v if math.isfinite(v) else None   # strict-JSON safe
 
     def _emit(self, epoch, batch, speed, name_values):
+        from . import goodput as _goodput
+        from . import health as _hl
+        from . import introspect as _introspect
+        ident = _introspect.process_identity()
         record = {"epoch": int(epoch), "batch": int(batch),
                   "samples_per_sec": self._finite(round(float(speed), 3)),
                   "metrics": {n: self._finite(v) for n, v in name_values},
-                  "time": time.time(), "rank": 0, "role": "process",
-                  "host": socket.gethostname()}
+                  "time": time.time(), "rank": ident["rank"],
+                  "role": ident["role"], "host": ident["host"]}
+        tid = _tracing.last_trace_id()
+        if tid:
+            # join key against the span timeline: the newest completed
+            # step's trace id
+            record["trace_id"] = _tracing.format_id(tid)
+        led = _goodput.last_record()
+        if led is not None:
+            for field in ("goodput", "mfu"):
+                if led.get(field) is not None:
+                    record[field] = round(led[field], 4)
+            if led.get("hbm_peak_bytes"):
+                record["hbm_peak_bytes"] = int(led["hbm_peak_bytes"])
+            buckets = led.get("buckets")
+            if buckets and not led.get("untraced"):
+                loss = {b: s for b, s in buckets.items() if b != "compute"}
+                if loss:
+                    record["loss_bucket"] = max(loss, key=loss.get)
+        hrec = _hl.last_record()
+        if hrec is not None:
+            if hrec.get("grad_norm") is not None:
+                record["grad_norm"] = self._finite(hrec["grad_norm"])
+            if hrec.get("nonfinite") is not None:
+                record["nonfinite"] = int(hrec["nonfinite"])
+            if hrec.get("audit_ok") is not None:
+                record["audit_ok"] = bool(hrec["audit_ok"])
         line = json.dumps(record, sort_keys=True)
         logging.info("%s", line)
         if self.json_path:
@@ -74,6 +116,8 @@ class Speedometer:
                 # coarse clocks can tick 0 across fast windows
                 speed = self.frequent * self.batch_size / \
                     max(time.time() - self.tic, 1e-9)
+                _tm_speed.set(speed)
+                _tm_samples.inc(self.frequent * self.batch_size)
                 nv = []
                 if param.eval_metric is not None:
                     nv = param.eval_metric.get_name_value()

@@ -55,8 +55,11 @@ artifact of the port is not one of the JAX package's either way).
 
 Every call of a loaded model counts ``serving_requests`` and observes
 ``serving_request_seconds``, labelled with the artifact directory's
-name (``name#b{n}`` for a bucket).  The JAX package's compile-cache
-path has no counterpart: nothing is compiled.
+name (``name#b{n}`` for a bucket).  Loading compiles nothing; the
+framework-free packages that `platforms=` and `export_training` write
+are compiled once and go through the persistent compile cache
+(`compile_cache`, ``MXNET_COMPILE_CACHE_DIR``), as the JAX package's
+`export_*` do.
 """
 from __future__ import annotations
 
@@ -228,11 +231,32 @@ def _package(program, out_dir, fname, deterministic=False, **options):
     116 s of BERT-base's serving export on the card's host.  With
     `deterministic`, Inductor lowers every accumulating scatter (an
     embedding's gradient) to ATen's sorted one instead of atomic adds,
-    whose order, and so whose rounding, changes from run to run."""
+    whose order, and so whose rounding, changes from run to run.  With
+    ``MXNET_COMPILE_CACHE_DIR`` set, the package goes through the
+    persistent compile cache, keyed by the exported program, the
+    backend and `fname` with the options."""
     import torch._inductor
+    from . import compile_cache as _cc
     from ._native import openmp_compiler
+    path = os.path.join(out_dir, fname)
+    key = None
+    if _cc.enabled():
+        # the persistent compile cache (`compile_cache`): a hit copies
+        # the package another export compiled and compiles nothing
+        key = _cc.cache_key(program, extra={
+            "kind": "aoti", "package": fname,
+            "deterministic": bool(deterministic),
+            "options": {k: repr(v) for k, v in sorted(options.items())}})
+        hit = _cc.get(key)
+        if hit is not None:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            with open(tmp, "wb") as f:
+                f.write(hit[0])
+            os.replace(tmp, path)
+            return fname
     was = (torch.are_deterministic_algorithms_enabled(),
            torch.is_deterministic_algorithms_warn_only_enabled())
+    t0 = time.perf_counter()
     try:
         if deterministic:
             torch.use_deterministic_algorithms(True, warn_only=True)
@@ -241,9 +265,14 @@ def _package(program, out_dir, fname, deterministic=False, **options):
                  "aot_inductor.compile_wrapper_opt_level": "O0",
                  **options}):
             torch._inductor.aoti_compile_and_package(
-                program, package_path=os.path.join(out_dir, fname))
+                program, package_path=path)
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    secs = time.perf_counter() - t0
+    _cc.note_compile(secs)
+    if key is not None:
+        with open(path, "rb") as f:
+            _cc.put(key, f.read(), compile_seconds=secs)
     return fname
 
 

@@ -17,13 +17,34 @@ rows.  Weights are updated in place.
 The kvstore is "device", "local" or None: one device, nothing to
 reduce.  The distributed and NCCL kvstores, gradient compression and
 update-on-kvstore wait for the multi-GPU slice and raise.
+
+The runtime planes ride `step` as in the JAX package: `introspect`'s
+`begin_step`/`end_step` (the flight recorder's step events, with the
+ledger's breakdown), a "step" tracing span (autograd's "forward" and
+"backward" spans of the caller's loop join its trace, the update is a
+"compute" span), the trainer's `goodput.StepLedger` over the window
+[previous step end, this step end], with ``MXNET_HEALTH=1`` the
+`health` ledger (the gradients' and weights' stats after the update,
+one host sync) and the fault plan (``nan_grad`` poisons a gradient at
+the step's start, ``bitflip_weight`` flips a weight bit at its end),
+and `profiling.step_boundary`.  Live trainers report under the debugz
+statusz section "trainer".
 """
 from __future__ import annotations
 
+import itertools
 import pickle
+import time
+import weakref
 
 import torch
 
+from .. import goodput as _goodput
+from .. import health as _health
+from .. import introspect as _introspect
+from .. import profiling as _profiling
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..base import MXNetError, get_env
 from .. import optimizer as opt
 from ..convert import host_tensor
@@ -35,6 +56,11 @@ from .parameter import ParameterDict
 __all__ = ["Trainer"]
 
 _LOCAL_KVSTORES = (None, "device", "local")
+
+_tm_step_time = _telemetry.histogram(
+    "step_time_seconds", "gluon.Trainer.step wall time (host-side)")
+_trainer_seq = itertools.count()        # flight-event / ledger labels
+_live_trainers = weakref.WeakSet()
 
 
 class Trainer:
@@ -61,6 +87,17 @@ class Trainer:
         self._states = [None] * len(self._params)
         self._states_created = [False] * len(self._params)
         self._allow_fused = get_env("MXNET_FUSED_TRAINER", True, bool)
+        # the planes (the module docstring); the health ledger is made
+        # at the first step with MXNET_HEALTH on
+        _introspect.ensure_debugz(role="worker")
+        _introspect.maybe_install_postmortem()
+        self._introspect_label = f"trainer{next(_trainer_seq)}"
+        self._ledger = _goodput.StepLedger(self._introspect_label)
+        self._health = None
+        self._step_count = 0
+        self._last_step_end = None
+        _live_trainers.add(self)
+        _introspect.register_statusz("trainer", _trainers_statusz)
 
     @property
     def learning_rate(self):
@@ -76,10 +113,93 @@ class Trainer:
     # ------------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce the gradients (nothing to do on one device) and apply
-        one update, the gradients scaled by 1/batch_size."""
-        self._optimizer.rescale_grad = 1.0 / batch_size
-        self.allreduce_grads()
-        self._update(ignore_stale_grad)
+        one update, the gradients scaled by 1/batch_size; then the step
+        boundary of the planes (the module docstring)."""
+        n = self._step_count
+        self._step_count = n + 1
+        _introspect.begin_step(n, trainer=self._introspect_label)
+        last = self._last_step_end
+        compute = (time.monotonic() - last) if last is not None else None
+        win0 = last if last is not None else time.monotonic()
+        if _health.enabled():
+            self._health_pre_step(n)
+        t0 = time.perf_counter()
+        try:
+            with _tracing.step_span(metric=_tm_step_time):
+                self._optimizer.rescale_grad = 1.0 / batch_size
+                self.allreduce_grads()
+                with _tracing.span("compute"):
+                    self._update(ignore_stale_grad)
+        finally:
+            self._last_step_end = time.monotonic()
+        rec = self._ledger.on_step(win0, self._last_step_end,
+                                   trace_id=_tracing.last_trace_id())
+        _introspect.end_step(n, time.perf_counter() - t0,
+                             compute_seconds=compute,
+                             trainer=self._introspect_label, ledger=rec)
+        # health before the profiling boundary: an anomaly this step
+        # arms its autocapture window in time to open at this boundary
+        if _health.enabled():
+            self._health_post_step(n)
+        _profiling.step_boundary(label=self._introspect_label)
+
+    def note_flops(self, flops_per_step):
+        """The FLOPs of one iteration of the caller's loop (forward,
+        backward and update, e.g. from `goodput.count_flops`): the
+        ledger's MFU numerator.  The trainer runs only the update, so it
+        cannot count the rest itself."""
+        self._ledger.note_flops(flops_per_step)
+
+    # -- numerics & model health ---------------------------------------
+    def _health_pre_step(self, n):
+        """The ``nan_grad`` fault: one gradient element set to NaN at
+        the step's start, so it flows through the real update and
+        stats."""
+        if "nan_grad" not in _health.fault_actions(n):
+            return
+        for p in self._params:
+            g = p._data.grad
+            if g is not None and not g.is_sparse:
+                with torch.no_grad():
+                    g[(0,) * g.ndim] = float("nan")
+                break
+
+    def _health_post_step(self, n):
+        """The step's numerics into the health ledger: the gradients'
+        stats scaled by 1/batch_size as the update saw them, and the
+        weights' (after the ``bitflip_weight`` fault, if planned)."""
+        if self._health is None:
+            self._health = _health.ledger(self._introspect_label)
+        if "bitflip_weight" in _health.fault_actions(n):
+            self._bitflip_weight()
+        scale = float(self._optimizer.rescale_grad or 1.0)
+        gs = _health.tensor_stats(
+            [p._data.grad for p in self._params
+             if p._data.grad is not None and not p._data.grad.is_sparse])
+        ws = _health.tensor_stats([p._data for p in self._params])
+        self._health.on_step(step=n, grad_sumsq=gs["sumsq"] * scale * scale,
+                             nonfinite=gs["nonfinite"],
+                             weight_sumsq=ws["sumsq"])
+
+    def _bitflip_weight(self):
+        """Flip the lowest mantissa bit of the first weight element (the
+        low byte, little-endian): a silent corruption that is never a
+        NaN or an Inf."""
+        w = self._params[0]._data
+        with torch.no_grad():
+            b = w.reshape(-1)[:1].view(torch.uint8)
+            b[0] = b[0] ^ 1
+
+    @staticmethod
+    def _statusz_of(tr):
+        led = tr._ledger.summary()["window"]
+        out = {"kvstore": tr._kvstore_type,
+               "goodput": {"fraction": led["goodput_fraction"],
+                           "mfu": led["mfu"]},
+               "params": len(tr._params), "steps": tr._step_count}
+        if _health.enabled() and tr._health is not None:
+            out["health"] = tr._health.summary()
+        return out
 
     def allreduce_grads(self):
         """One device holds every gradient whole: nothing to reduce."""
@@ -187,3 +307,15 @@ class Trainer:
         out = [put(s, p) for p, s in zip(self._params, states)]
         self._states = out
         self._states_created = [True] * len(out)
+
+
+def _trainers_statusz():
+    """The ``/-/statusz`` "trainer" section over every live trainer: one
+    trainer's report, or a list of them."""
+    trs = sorted(_live_trainers, key=id)
+    if not trs:
+        return {"gone": True}
+    if len(trs) == 1:
+        return Trainer._statusz_of(trs[0])
+    return {"count": len(trs),
+            "trainers": [Trainer._statusz_of(t) for t in trs]}

@@ -29,11 +29,17 @@ Three pieces:
   - ``/metrics`` — Prometheus text (so one listener serves scrapers
     and humans).
 
+  - ``/-/goodputz``, ``/-/numericz``, ``/-/profilez`` and
+    ``/-/tunerz`` — the runtime planes' pages (`goodput`, `health`,
+    `profiling`, `tuner` with the compile cache); ``/-/profilez``
+    reads its query string (``?steps=N`` arms a capture window,
+    ``?view=trace`` returns the last merged timeline).
+
   With ``MXNET_DEBUGZ_PORT`` unset, :func:`ensure_debugz` is a no-op:
-  zero extra threads, zero sockets.  The JAX package's six further
-  pages (goodputz, numericz, profilez, controllerz, tunerz,
-  checkpointz) read planes the port does not have yet, so
-  `DEBUGZ_PATHS` is its tuple less those six.
+  zero extra threads, zero sockets.  The JAX package's two further
+  pages, controllerz and checkpointz, read planes that come with the
+  distributed parameter server, so `DEBUGZ_PATHS` is its tuple less
+  those two.
 
 * **Flight recorder** — a bounded in-memory ring
   (``MXNET_FLIGHT_EVENTS`` entries) of recent structured events: step
@@ -74,7 +80,8 @@ __all__ = [
     "flight", "flight_events", "set_flight_capacity",
     "begin_step", "end_step", "current_step",
     "process_identity", "set_role",
-    "statusz", "stackz", "metricz", "tracez", "flightz",
+    "statusz", "stackz", "metricz", "tracez", "flightz", "goodputz",
+    "numericz", "profilez", "tunerz",
     "debugz_payload", "register_statusz", "unregister_statusz",
     "set_tracez_provider",
     "DebugzServer", "start_debugz", "ensure_debugz", "debugz_server",
@@ -332,13 +339,54 @@ def flightz():
             "events": flight_events()}
 
 
+def goodputz():
+    """``/-/goodputz``: the per-trainer goodput ledger windows
+    (`goodput.goodputz`; imported lazily — goodput imports this
+    module at its own import)."""
+    from . import goodput as _goodput
+    return _goodput.goodputz()
+
+
+def numericz():
+    """``/-/numericz``: the per-trainer numerics & model-health
+    ledgers — rolling stats, last anomaly, last audit verdict
+    (`health.numericz`; imported lazily)."""
+    from . import health as _health
+    return _health.numericz()
+
+
+def profilez(query=""):
+    """``/-/profilez``: the device-profiling plane — status / last
+    report with no query, ``?steps=N`` / ``?duration_ms=M`` arms a
+    capture window, ``?view=trace`` returns the last merged host+device
+    timeline (`profiling.profilez`; imported lazily)."""
+    from . import profiling as _profiling
+    return _profiling.profilez(query)
+
+
+def tunerz():
+    """``/-/tunerz``: the auto-tuner + persistent compile cache — the
+    consumed ``tuned.json``, the last in-process tune, trial counters,
+    cache hit/miss/bytes (`tuner.tunerz`; imported lazily)."""
+    from . import tuner as _tuner
+    return _tuner.tunerz()
+
+
 _PATHS = {
     "/-/statusz": statusz,
     "/-/stackz": stackz,
     "/-/tracez": tracez,
     "/-/metricz": metricz,
     "/-/flightz": flightz,
+    "/-/goodputz": goodputz,
+    "/-/numericz": numericz,
+    "/-/profilez": profilez,
+    "/-/tunerz": tunerz,
 }
+
+# endpoints whose handler takes the request's query string (the
+# capture-arming endpoint); every other payload is query-free
+_QUERY_PATHS = frozenset(("/-/profilez",))
 
 DEBUGZ_PATHS = tuple(sorted(_PATHS))
 
@@ -347,12 +395,14 @@ def debugz_payload(path, query=None):
     """Shared handler dispatch: ``(status_code, payload_dict)`` for a
     debugz path, or ``(404, None)``.  The standalone debugz server AND
     the serving front end both answer through this, so every process
-    class exposes identical payloads.  `path` may carry a query
-    string; no page of the port reads one, so it and `query` are
-    ignored."""
-    fn = _PATHS.get(path.partition("?")[0])
+    class exposes identical payloads.  `path` may carry its raw query
+    string (``/-/profilez?steps=4``) — or pass it via `query`."""
+    path, _, inline_q = path.partition("?")
+    fn = _PATHS.get(path)
     if fn is None:
         return 404, None
+    if path in _QUERY_PATHS:
+        return 200, fn(query if query is not None else inline_q)
     return 200, fn()
 
 

@@ -22,6 +22,8 @@ from collections import namedtuple
 import numpy as _np
 import torch
 
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..base import MXNetError, get_env
 from ..context import Context, as_device, cpu, current_context
 from ..ndarray import NDArray, array
@@ -31,6 +33,52 @@ from ..random import np_rng as _frng
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "LibSVMIter", "DevicePrefetcher"]
+
+
+_tm_batches = _telemetry.counter(
+    "io_batches", "Batches produced by data iterators", ("iter",))
+_tm_bytes = _telemetry.counter(
+    "io_bytes", "Payload bytes produced by data iterators", ("iter",))
+_tm_stall = _telemetry.histogram(
+    "io_prefetch_stall_seconds",
+    "Time the consumer blocked waiting on a prefetch queue", ("iter",))
+_tm_h2d_seconds = _telemetry.histogram(
+    "io_h2d_seconds",
+    "Host->device staging time per batch (the copies' enqueue; with "
+    "sync=True the full transfer)", ("iter",))
+_tm_h2d_bytes = _telemetry.counter(
+    "io_h2d_bytes_total", "Payload bytes staged host->device", ("iter",))
+_tm_staging_depth = _telemetry.gauge(
+    "io_staging_depth",
+    "Batches currently resident in the device staging ring", ("iter",))
+# hoisted children: the per-batch hot path pays one enabled() check +
+# one observe, not a labels() resolution
+_tm_stall_prefetch = _tm_stall.labels("PrefetchingIter")
+_tm_stall_device = _tm_stall.labels("DevicePrefetcher")
+_tm_h2d_seconds_device = _tm_h2d_seconds.labels("DevicePrefetcher")
+_tm_h2d_bytes_device = _tm_h2d_bytes.labels("DevicePrefetcher")
+_tm_staging_depth_device = _tm_staging_depth.labels("DevicePrefetcher")
+
+
+def _nbytes(a):
+    """Payload bytes of an NDArray, tensor or numpy array (0 for
+    anything else)."""
+    if isinstance(a, BaseSparseNDArray):
+        return sum(t.numel() * t.element_size() for t in _tensors(a))
+    t = a._data if isinstance(a, NDArray) else a
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    return int(getattr(t, "nbytes", 0) or 0)
+
+
+def _record_batch(kind, batch):
+    if not _telemetry.enabled():
+        return
+    _tm_batches.labels(kind).inc()
+    nbytes = sum(_nbytes(a) for a in (getattr(batch, "data", None) or [])) \
+        + sum(_nbytes(a) for a in (getattr(batch, "label", None) or []))
+    if nbytes:
+        _tm_bytes.labels(kind).inc(nbytes)
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])):
@@ -73,8 +121,13 @@ class DataIter:
 
     def next(self):
         if self.iter_next():
-            return DataBatch(self.getdata(), self.getlabel(),
-                             pad=self.getpad(), index=self.getindex())
+            batch = DataBatch(self.getdata(), self.getlabel(),
+                              pad=self.getpad(), index=self.getindex())
+            # _tm_label lets delegating wrappers (CSVIter) attribute
+            # their inner iterator's batches to themselves
+            _record_batch(getattr(self, "_tm_label",
+                                  type(self).__name__), batch)
+            return batch
         raise StopIteration
 
     def __next__(self):
@@ -372,7 +425,15 @@ class PrefetchingIter(DataIter):
             return self._replay.pop(0)
         if self._sync:
             return self._produce()
-        item = self._queue.get()
+        # batches are counted by the wrapped iterators' next(); the
+        # stall is this layer's own signal, and with MXNET_TRACE=1 a
+        # "prefetch_stall" span on the step timeline
+        tm = _telemetry.enabled()
+        t0 = _time.perf_counter() if tm else 0.0
+        with _telemetry.timed(None, span="prefetch_stall"):
+            item = self._queue.get()
+        if tm:
+            _tm_stall_prefetch.observe(_time.perf_counter() - t0)
         if item is None or isinstance(item, _PrefetchFailure):
             # terminal states are sticky: the worker has exited, so a
             # second next() raises again instead of blocking forever
@@ -476,7 +537,10 @@ class DevicePrefetcher:
     has nothing to do here).
 
     `depth=K` keeps up to K batches per transfer thread staged (default
-    `MXNET_IO_STAGING_DEPTH`, 2).  `threads=N` stages up to N batches at
+    `MXNET_IO_STAGING_DEPTH`, else the tuner's ``staging_depth``, else
+    2).  Each staging records the h2d telemetry and, with tracing on, an
+    ``io.h2d`` span in the step it feeds; the consumer's wait is
+    ``io_prefetch_stall_seconds``.  `threads=N` stages up to N batches at
     once while keeping the source's order: each pull takes a position
     under the source lock, finished batches land in a bounded
     position-keyed reorder buffer, and the consumer pops positions in
@@ -496,7 +560,10 @@ class DevicePrefetcher:
         with cpu():
             self._it = iter(it)
         if depth is None:
-            depth = get_env("MXNET_IO_STAGING_DEPTH", 2, int)
+            # MXNET_IO_STAGING_DEPTH > tuned.json "staging_depth" > 2
+            from .. import tuner as _tuner
+            depth = _tuner.env_or_tuned("MXNET_IO_STAGING_DEPTH",
+                                        "staging_depth", 2, int)
         self._depth = max(1, int(depth))
         self._n = max(1, int(threads))
         self._sync = bool(sync)
@@ -510,6 +577,9 @@ class DevicePrefetcher:
         self._stop = threading.Event()      # hard stop (abandon work)
         self._closing = threading.Event()   # graceful: drain in-flight
         self._done = False
+        # step-root context the transfer threads parent their io.h2d
+        # spans to (refreshed on every consumer pop)
+        self._trace_ctx = _tracing.pending_step_context()
         self._workers = [threading.Thread(target=self._work, daemon=True,
                                           name=f"mx-io-stage-{i}")
                          for i in range(self._n)]
@@ -548,17 +618,37 @@ class DevicePrefetcher:
                 return j, e
 
     def _stage(self, item, stream):
+        """One source batch on the destination; returns (placed tuple,
+        event).  Runs on a transfer thread: the h2d telemetry and an
+        ``io.h2d`` span parented to the consumer's step root."""
         tup = tuple(item) if isinstance(item, (tuple, list)) else (item,)
+        tm = _telemetry.enabled()
+        tid, sid = self._trace_ctx
+        t0p = _time.perf_counter() if tm else 0.0
+        t0m = _time.monotonic()
+        event = None
         if stream is None:
-            return tuple(self._put(b) for b in tup), None
-        with torch.cuda.stream(stream):
             placed = tuple(self._put(b) for b in tup)
-            event = torch.cuda.Event()
-            event.record(stream)
-        if self._sync:
-            # the copies must have read the host bytes before the next
-            # pull can recycle their buffer
-            event.synchronize()
+        else:
+            with torch.cuda.stream(stream):
+                placed = tuple(self._put(b) for b in tup)
+                event = torch.cuda.Event()
+                event.record(stream)
+            if self._sync:
+                # the copies must have read the host bytes before the
+                # next pull can recycle their buffer
+                event.synchronize()
+        if tm or tid:
+            nbytes = sum(_nbytes(b) for b in tup)
+            if tm:
+                _tm_h2d_seconds_device.observe(_time.perf_counter() - t0p)
+                if nbytes:
+                    _tm_h2d_bytes_device.inc(nbytes)
+            if tid:
+                _tracing.record_span("io.h2d", t0m, _time.monotonic(), tid,
+                                     parent_id=sid,
+                                     attrs={"bytes": nbytes,
+                                            "sync": self._sync})
         return placed, event
 
     def _work(self):
@@ -598,6 +688,8 @@ class DevicePrefetcher:
                 # the excursion over capacity is at most the thread count
                 dropped = None
                 self._buf[pos] = item
+                if _telemetry.enabled():
+                    _tm_staging_depth_device.set(len(self._buf))
                 self._cv.notify_all()
         if dropped is not None:
             # hard stop: nobody pops this, but its copies may be in
@@ -642,6 +734,11 @@ class DevicePrefetcher:
     def __next__(self):
         if self._done:
             raise StopIteration
+        tm = _telemetry.enabled()
+        t0 = _time.perf_counter() if tm else 0.0
+        # refresh the step-root context the transfer threads attribute
+        # io.h2d spans to (two tuple reads when tracing is off)
+        self._trace_ctx = _tracing.pending_step_context()
         with self._cv:
             while self._get_idx not in self._buf:
                 if self._stop.is_set() or self._closing.is_set() or (
@@ -653,7 +750,11 @@ class DevicePrefetcher:
                 self._cv.wait(timeout=0.5)
             item = self._buf.pop(self._get_idx)
             self._get_idx += 1
+            if tm:
+                _tm_staging_depth_device.set(len(self._buf))
             self._cv.notify_all()
+        if tm:
+            _tm_stall_device.observe(_time.perf_counter() - t0)
         if item is None:
             self._done = True
             raise StopIteration
@@ -700,6 +801,7 @@ class CSVIter(DataIter):
         self._inner = NDArrayIter(
             {data_name: data}, {label_name: label}, batch_size=batch_size,
             last_batch_handle="pad" if round_batch else "discard")
+        self._inner._tm_label = "CSVIter"
         self.provide_data = self._inner.provide_data
         self.provide_label = self._inner.provide_label
 

@@ -69,9 +69,11 @@ import ctypes
 import threading
 
 import torch
+import torch.utils.flop_counter
 
 from ..base import MXNetError, get_env
-from .._kernels import entry, route as _route, stream as _stream
+from .._kernels import (entry, route as _route, stream as _stream,
+                        add_flops as _add_flops)
 
 __all__ = ["flash_attention", "flash_short_fwd", "flash_short_fwd_train",
            "flash_short_reference", "flash_short_bwd", "FlashShort",
@@ -250,6 +252,10 @@ def _launch_short(q, k, v, lengths, scale, causal, save_p, counter):
              *(s for r in rows for s in r[1:]), float(scale),
              int(bool(causal)), int(q.dtype == torch.bfloat16), _stream(q))
     _launched(counter, err)
+    if counter.startswith("flash_short_bthd"):
+        # rows 1 and 1b are registered ops with a FLOP formula (below);
+        # the BTHD forms are plain ctypes launches: QK^T and PV
+        _add_flops(4 * B * H * T * T * d)
     return (o, p) if save_p else o
 
 
@@ -294,6 +300,19 @@ def _short_op(name, save_p):
 
 _SHORT_OPS = {False: _short_op("flash_short_fwd", False),
               True: _short_op("flash_short_fwd_train", True)}
+
+
+def _short_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    """FLOPs of rows 1 and 1b: QK^T and PV over every (query, key) pair,
+    masked ones included, as the plain version's two products count."""
+    BH, Tq, d = q_shape
+    return 4 * BH * Tq * k_shape[1] * d
+
+
+# torch's FlopCounterMode counts a registered op only by a formula
+torch.utils.flop_counter.register_flop_formula(
+    [getattr(torch.ops.mxnet_torch, name) for name in SHORT_SCHEMAS])(
+        _short_flops)
 
 
 def _dispatch(q, k, v, lengths, scale, causal, save_p):
@@ -462,6 +481,8 @@ def _launch_short_bthd_bwd(q, k, v, do, delta, p, scale):
              *(s for r in rows for s in r[1:]), float(scale),
              int(q.dtype == torch.bfloat16), _stream(q))
     _launched("flash_short_bthd_bwd", err)
+    # dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q
+    _add_flops(8 * B * H * T * T * d)
     return outs
 
 
@@ -695,6 +716,8 @@ def _launch_fwd(q, k, v, lengths, scale, causal, block_q, block_k):
              o.data_ptr(), lse.data_ptr(),
              *_geometry(q, k, scale, causal, block_q, block_k), _stream(q))
     _launched("flash_fwd", err)
+    # QK^T and PV over every (query, key) pair, masked ones included
+    _add_flops(4 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2])
     return o, lse
 
 
@@ -737,6 +760,10 @@ def _launch_bwd(name, n_out, q, k, v, do, lse, delta, lengths, scale,
              *(t.data_ptr() for t in outs),
              *_geometry(q, k, scale, causal, block_q, block_k), _stream(q))
     _launched(name, err)
+    # dq recomputes S = QK^T and dP = dO V^T, then dS K (3 products);
+    # dkv recomputes S^T and dP^T, then P^T dO and dS^T Q (4)
+    _add_flops((6 if n_out == 1 else 8) * q.shape[0] * q.shape[1]
+               * k.shape[1] * q.shape[2])
     return outs
 
 

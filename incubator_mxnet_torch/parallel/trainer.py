@@ -31,6 +31,18 @@ format (`parallel/checkpoint.py`), under the same structural keys
 between the packages.  `param_bytes()` and `optimizer_state_bytes()`
 give (total, largest on one device): one device holds it all.
 
+The runtime planes ride the step as in the JAX package: each trainer
+owns a `goodput.StepLedger` (the window [previous step end, this step
+end], its buckets from the step's spans, MFU from the FLOPs counted on
+the first step of each signature, the card's memory peak), a
+`health.HealthLedger` while ``MXNET_HEALTH=1`` (the step's numerics
+stats taken on the device and read in one host sync), and
+`profiling.step_boundary` after each `step` and each `run_steps(k)`.
+A `step` is a "step" tracing span with a "compute" span inside.  With
+``MXNET_GOODPUT=0``, ``MXNET_HEALTH`` unset and no profiling window,
+each plane costs one flag check a step.  Live trainers report under
+the debugz statusz section "ptrainer".
+
 One device only: the mesh is `default_mesh()`'s (gpu(0) unless the
 caller passes a mesh on `cpu()`).  Model-parallel `rules`, sequence
 sharding (`seq_axis`), ZeRO (`zero`), pipeline and tensor-parallel
@@ -38,12 +50,20 @@ meshes raise until the multi-GPU slice.
 """
 from __future__ import annotations
 
+import itertools
 import math
+import time
+import weakref
 
 import numpy as _np
 import torch
 
 from .. import autograd
+from .. import goodput as _goodput
+from .. import health as _health
+from .. import introspect as _introspect
+from .. import profiling as _profiling
+from .. import tracing as _tracing
 from ..base import MXNetError
 from ..gluon.block import record_rows
 from ..gluon.parameter import bound_data
@@ -53,6 +73,9 @@ from ..ops.optim import sgd_multi, adam_multi
 from .mesh import Mesh, default_mesh
 
 __all__ = ["ParallelTrainer"]
+
+_ptrainer_seq = itertools.count()       # goodput/health ledger labels
+_live_ptrainers = weakref.WeakSet()
 
 
 class ParallelTrainer:
@@ -108,6 +131,14 @@ class ParallelTrainer:
         self._states = None
         self.num_update = 0
         self.lazy_params = []
+        # the planes: the goodput ledger (its peak is one card's), the
+        # health ledger made at the first step with MXNET_HEALTH on
+        self._ledger = _goodput.StepLedger(
+            f"ptrainer{next(_ptrainer_seq)}", devices=[self.device])
+        self._ledger_anchor = None
+        self._health = None
+        _live_ptrainers.add(self)
+        _introspect.register_statusz("ptrainer", _ptrainers_statusz)
 
     @property
     def device(self):
@@ -228,11 +259,14 @@ class ParallelTrainer:
                  for w, g in zip(weights, grads)]
         return lval, grads, rows_out
 
-    def _one_step(self, inputs, label, t):
+    def _one_step(self, inputs, label, t, health=False):
         """Forward, loss, backward and update; returns the float32 mean
-        loss (a 0-d tensor on the device)."""
+        loss (a 0-d tensor on the device), or with `health` the step's
+        numerics stats (`health.traced_step_stats`: a dict of 0-d
+        tensors, the loss among them; no host sync)."""
         weights = [self.params[i]._data for i in self._wrt]
         lval, grads, rows_out = self._loss_grads(weights, inputs, label)
+        old = _health.snapshot(weights) if health else None
         lazy = {j: self._lazy_rows(i, rows_out)
                 for j, i in enumerate(self._wrt) if i in rows_out}
         lazy = {j: r for j, r in lazy.items() if r is not None}
@@ -246,26 +280,88 @@ class ParallelTrainer:
             for j, rows in lazy.items():
                 self._lazy_rows_update(weights[j], self._states[j], grads[j],
                                        rows, t)
+            if health:
+                return _health.traced_step_stats(lval, grads, weights, old)
         return lval.detach()
+
+    def _signature(self, inputs, label, health, k=1):
+        """What a step's FLOP count depends on: the batch's shapes and
+        dtypes, the health flag and the steps a call runs."""
+        return (k, health) + tuple((tuple(a.shape), str(a.dtype))
+                                   for a in (*inputs, label))
+
+    def _health_feed(self, stats, step):
+        """Read the step's stats in one host sync, feed the numerics
+        ledger; returns the loss tensor."""
+        if self._health is None:
+            self._health = _health.ledger(self._ledger.label)
+        vals = _health.host_step_stats(stats)
+        self._health.on_step(step=step, loss=vals["loss"],
+                             grad_sumsq=vals["grad_sumsq"],
+                             nonfinite=int(vals["nonfinite"]),
+                             weight_sumsq=vals["weight_sumsq"],
+                             update_sumsq=vals["update_sumsq"])
+        return stats["loss"]
+
+    def _boundary(self, win0, steps=1):
+        """The step boundary: the ledger's window, then the profiling
+        window's hook (one flag check when idle)."""
+        self._ledger_anchor = time.monotonic()
+        self._ledger.on_step(win0, self._ledger_anchor, steps=steps,
+                             trace_id=_tracing.last_trace_id())
+        _profiling.step_boundary(label=self._ledger.label, steps=steps)
 
     # ------------------------------------------------------------------
     def step(self, *batch):
         """One train step.  batch = (input..., label).  Returns the
         (scalar NDArray) mean loss."""
-        inputs, label = self._prepare(batch)
-        self.num_update += 1
-        return NDArray(self._one_step(inputs, label, float(self.num_update)))
+        return self._train(batch, 1)
 
     def run_steps(self, k, *batch):
         """k train steps on the same batch; returns the last step's mean
-        loss.  Adam's step runs from `num_update + 1` as in one step."""
-        inputs, label = self._prepare(batch)
-        t = float(self.num_update + 1)
-        self.num_update += k
-        lval = None
-        for i in range(k):
-            lval = self._one_step(inputs, label, t + i)
-        return NDArray(lval)
+        loss.  Adam's step runs from `num_update + 1` as in one step.
+        The planes see one boundary of k steps, as the JAX package's one
+        dispatch; with health on, the last step's stats are fed, its
+        nonfinite count summed over the k steps."""
+        return self._train(batch, k)
+
+    def _train(self, batch, k):
+        """k steps in a "step" span and one "compute" span, then the
+        step boundary.  The FLOPs are counted on the first step of a
+        signature not seen yet (goodput on) and spread over k steps."""
+        win0 = self._ledger_anchor
+        if win0 is None:
+            win0 = time.monotonic()
+        with _tracing.step_span(steps=k):
+            inputs, label = self._prepare(batch)
+            t = float(self.num_update + 1)
+            self.num_update += k
+            hbit = _health.enabled()
+            sig = self._signature(inputs, label, hbit, k)
+
+            def run(t0, n, out=None):
+                for i in range(n):
+                    cur = self._one_step(inputs, label, t0 + i, hbit)
+                    if hbit and out is not None:
+                        cur = dict(cur, nonfinite=cur["nonfinite"]
+                                   + out["nonfinite"])
+                    out = cur
+                return out
+            with _tracing.span("compute", steps=k):
+                if _goodput.enabled() and \
+                        not self._ledger.has_signature(sig):
+                    out, flops = _goodput.count_flops(run, t, 1)
+                    out = run(t + 1, k - 1, out)
+                    self._ledger.set_executable(sig, {"flops": flops * k},
+                                                steps_per_call=k)
+                else:
+                    if _goodput.enabled():
+                        self._ledger.use_signature(sig)
+                    out = run(t, k)
+            if hbit:
+                out = self._health_feed(out, self.num_update)
+        self._boundary(win0, steps=k)
+        return NDArray(out)
 
     def state_shapes(self):
         """The shape of each float32 optimizer state in the flat order
@@ -421,3 +517,26 @@ class ParallelTrainer:
         else:
             self._states = [None for _ in self._wrt]
         self.num_update = int(num_update)
+
+
+def _ptrainer_statusz_of(tr):
+    led = tr._ledger.summary()["window"]
+    report = {"device": str(tr.device), "steps": tr.num_update,
+              "optimizer": tr.kind,
+              "goodput": {"fraction": led["goodput_fraction"],
+                          "mfu": led["mfu"]}}
+    if _health.enabled() and tr._health is not None:
+        report["health"] = tr._health.summary()
+    return report
+
+
+def _ptrainers_statusz():
+    """The ``/-/statusz`` "ptrainer" section over every live
+    ParallelTrainer: one trainer's report, or a list of them."""
+    trs = sorted(_live_ptrainers, key=id)
+    if not trs:
+        return {"gone": True}
+    if len(trs) == 1:
+        return _ptrainer_statusz_of(trs[0])
+    return {"count": len(trs),
+            "trainers": [_ptrainer_statusz_of(t) for t in trs]}

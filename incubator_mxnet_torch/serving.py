@@ -61,9 +61,9 @@ Everything emits through `incubator_mxnet_torch.telemetry`:
 
 The device is explicit: `ServingRuntime(..., ctx=None)` and ``--ctx``
 serve on gpu(0) unless the CPU is asked for, and raise without CUDA.
-The JAX package reads `batch_window_ms` from the tuner's winner file
-when its env var is unset; the port has no tuner, so it takes the
-default.
+`batch_window_ms` is ``MXNET_SERVE_BATCH_WINDOW_MS``, else the tuner's
+winner file (``MXNET_TUNED_CONFIG``, knob ``serve_batch_window_ms``),
+else 2 ms, as in the JAX package.
 
 Chaos gate: ``python -m incubator_mxnet_torch.tools.serve_chaos``.
 
@@ -209,9 +209,14 @@ class ServeConfig:
     )
 
     def __init__(self, **overrides):
+        from . import tuner as _tuner
         for attr, env, default, typ in self._FIELDS:
             if attr in overrides:
                 setattr(self, attr, typ(overrides.pop(attr)))
+            elif attr == "batch_window_ms":
+                # env > the tuner's winner artifact > 2 ms
+                setattr(self, attr, _tuner.env_or_tuned(
+                    env, "serve_batch_window_ms", default, typ))
             else:
                 setattr(self, attr, get_env(env, default, typ))
         if overrides:

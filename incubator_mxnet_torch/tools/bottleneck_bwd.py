@@ -47,7 +47,8 @@ import threading
 
 import torch
 
-from .._kernels import entry, route as _route, stream as _stream
+from .._kernels import (entry, route as _route, stream as _stream,
+                        add_flops as _add_flops)
 from ..base import MXNetError
 
 __all__ = ["bn_dot", "bottleneck_bwd", "bottleneck_bwd_reduce",
@@ -174,6 +175,7 @@ def _launch_reduce(dy, x, w, m, inv):
              inv.data_ptr(), part.data_ptr(), s1.data_ptr(), s2.data_ptr(),
              M, C, K, groups, _stream(dy))
     _launched(name, err)
+    _add_flops(2 * M * C * K)       # z = x W, recomputed for the sums
     return s1, s2
 
 
@@ -195,6 +197,7 @@ def _launch_apply(dy, x, w, m, inv, gamma, s1, s2):
              part.data_ptr(), dx.data_ptr(), dw.data_ptr(), M, C, K, groups,
              _stream(dy))
     _launched(name, err)
+    _add_flops(6 * M * C * K)       # z = x W again, dx = dz W^T, dW = x^T dz
     return dx, dw
 
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
 import shutil
 import signal
 import socket
@@ -58,11 +59,26 @@ ROWS = 2            # rows per happy request
 
 
 def free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A free port below the kernel's ephemeral range: a server killed
+    and restarted on its port (the fleet gate's) must not find it taken
+    as the local port of a client connection in between, which a port
+    the kernel handed out by binding port 0 can be."""
+    lo = 32768
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    rng = random.Random()
+    for _ in range(1000):
+        port = rng.randrange(max(1024, lo // 2), lo)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port below {lo}")
 
 
 def build_mlp_artifact(out_dir, seed=7):

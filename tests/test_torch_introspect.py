@@ -27,8 +27,10 @@ from incubator_mxnet_torch import introspect as ins
 from incubator_mxnet_torch.models import get_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LEFT_OUT = ("/-/goodputz", "/-/numericz", "/-/profilez", "/-/controllerz",
-            "/-/tunerz", "/-/checkpointz")
+# the pages of the planes that come with the distributed parameter
+# server; goodputz, numericz, profilez and tunerz are served since the
+# runtime planes were ported
+LEFT_OUT = ("/-/controllerz", "/-/checkpointz")
 
 
 @pytest.fixture(autouse=True)
@@ -39,6 +41,7 @@ def _clean_introspect():
 
 
 def test_debugz_paths_are_the_jax_packages_less_six():
+    # once six pages were left out; now the two of LEFT_OUT are
     assert set(LEFT_OUT) <= set(jins.DEBUGZ_PATHS)
     assert ins.DEBUGZ_PATHS == tuple(p for p in jins.DEBUGZ_PATHS
                                      if p not in LEFT_OUT)

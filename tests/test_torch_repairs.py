@@ -1498,3 +1498,40 @@ def test_f7_exports():
                            env=dict(__import__("os").environ,
                                     JAX_PLATFORMS="cpu"))
         assert r.stdout.split() == ["True", "True"], r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("env", [
+    {"DMLC_ROLE": "worker", "DMLC_WORKER_RANK": "3"},
+    {"MXNET_DEBUGZ_ROLE": "serving"}, {}])
+def test_r1_speedometer_identity_is_the_process_identity(env, tmp_path,
+                                                         monkeypatch):
+    """R1: a Speedometer JSON record names the process as the JAX
+    package's does (`introspect.process_identity`: role, rank, host from
+    DMLC_ROLE / DMLC_WORKER_RANK / MXNET_DEBUGZ_ROLE), where the port
+    wrote rank 0 and role "process" whatever the environment."""
+    import collections
+    import json
+    from incubator_mxnet_tpu import callback as jcallback
+    from incubator_mxnet_tpu import introspect as jins
+    from incubator_mxnet_torch import callback, introspect
+    for k in ("DMLC_ROLE", "DMLC_WORKER_RANK", "DMLC_RANK",
+              "MXNET_DEBUGZ_ROLE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(introspect, "_role_override", None)
+    monkeypatch.setattr(jins, "_role_override", None)
+    Param = collections.namedtuple("Param", ["epoch", "nbatch",
+                                             "eval_metric"])
+    recs = []
+    for mod, name in ((callback, "port"), (jcallback, "jax")):
+        path = tmp_path / f"{name}.jsonl"
+        sp = mod.Speedometer(4, frequent=1, json_path=str(path))
+        for nbatch in range(3):
+            sp(Param(0, nbatch, None))
+        recs.append([json.loads(line) for line in
+                     path.read_text().splitlines()])
+    assert len(recs[0]) == len(recs[1]) == 2
+    for got, ref in zip(*recs):
+        assert {k: got[k] for k in ("rank", "role", "host")} == \
+            {k: ref[k] for k in ("rank", "role", "host")}

@@ -955,22 +955,34 @@ def test_side_by_side_429_path(pair):
         jrt.close()
 
 
+def _wait_health(runtime, cond, timeout=5.0):
+    """Poll `runtime.healthz()` until `cond` holds, or fail at the
+    deadline."""
+    deadline = time.monotonic() + timeout
+    while not cond(runtime.healthz()):
+        assert time.monotonic() < deadline, runtime.healthz()
+        time.sleep(0.002)
+
+
 def test_side_by_side_409_after_reload(pair, tmp_path_factory):
     small = _export_pair(tmp_path_factory, 4, "small_both", cap=2)
     (rt, base), (jrt, jbase) = _both(pair, fault_plan="slow:0:500",
                                      deadline_ms=10000, queue_limit=8)
     try:
         codes = []
-        for b, target in ((base, small[0]), (jbase, small[1])):
+        for r, b, target in ((rt, base, small[0]), (jrt, jbase, small[1])):
             results = {}
             blocker = threading.Thread(target=_post, args=(
                 b, {"inputs": [_rows(CAP).tolist()]}))
             blocker.start()
-            time.sleep(0.15)
+            # order the requests by each runtime's own state: the
+            # blocker is in its (slow) model call, then the second
+            # request waits in the queue, then the reload
+            _wait_health(r, lambda h: h["inflight_calls"] >= 1)
             queued = threading.Thread(target=lambda b=b: results.update(
                 q=_post(b, {"inputs": [_rows(CAP).tolist()]})))
             queued.start()
-            time.sleep(0.1)
+            _wait_health(r, lambda h: h["queue"]["depth"] >= 1)
             code, body, _ = _post(b, {"artifact_dir": target},
                                   path="/-/reload")
             assert code == 200 and body["ok"], body
