@@ -7,11 +7,12 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    every CUDA kernel of the port built from `incubator_mxnet_torch/csrc/`,
-   one nvcc per source, all started together, and beside them the C ABI
-   (`_native.build_native`: the C library `csrc/mxtorch_infer.cc`, its
-   consumers, and `libmxtorch_ops.so` with rows 1 and 1b as PyTorch
-   operators, linked to the short kernel's library), all before any
-   timed phase.
+   one nvcc per source, all started together, before any timed phase,
+   and beside them the C ABI (`_native.build_native`: the C library
+   `csrc/mxtorch_infer.cc`, its consumers, and `libmxtorch_ops.so` with
+   rows 1 and 1b as PyTorch operators, linked to the short kernel's
+   library), which goes on in a thread of its own through the first
+   phases until `[native-serve]` needs it.
 2. The short kernel (row 1) against its plain PyTorch version at the
    serving shape (BH = 128*12, T = 128, d = 64), bfloat16 and float32,
    causal on and off, kv_length random with 0 and T among them: max
@@ -316,6 +317,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    bit for bit a direct call at its pad target and the flat runtime's
    row, within `LOGIT_ATOL` of the einsum forward, per bucket the
    forward's ms back to back and its kernels' ms, and the p50 latency
+   (of 3 requests)
    of a request of that size bucketed and flat, and the
    `serving_batch_pad_rows`
    histogram; at T = 128 also a reload to a corrupt artifact that
@@ -327,7 +329,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    corrupt reload rolled back, a good reload to a second seed, a
    mid-flight SIGTERM, the fault counters in /metrics, the debugz pages
    on the serving port): the reload's seconds, the breaker-open 503's
-   latency and the drain seconds.
+   latency and the drain seconds.  It runs at the same time as
+   `[fleet]` (both spend their time starting server processes; their
+   exports are made first, one after the other).
 41. `[fleet]`: `incubator_mxnet_torch.tools.fleet_chaos`: a router
    process over three replica processes (started together), each
    serving BERT-base bf16 at T = 128, capacity 8 without buckets, under
@@ -430,7 +434,35 @@ Phases (each prints its own lines; any failure exits non-zero):
 49. `[onnx]`: resnet50_v1b float32 exported to ONNX by the port and
    read back with `import_to_gluon` onto the card, logits within 1e-4
    of the float net's.
-50. A JSON line describing each kernel, then the card line, then the
+50. `[mesh-nccl]`: the device mesh on NCCL.  Two child processes try
+   two NCCL ranks on cuda:0 (NCCL refuses them; its error text is
+   logged); then one child process (`python3 chip_smoke.py --mesh-rank
+   nccl ...`) steps `bench_bert` (BERT-base bf16, 60 x 128, Adam 2e-5)
+   3 times through the one-device trainer, joins a process group of one
+   rank on NCCL (`parallel.init_distributed`) and steps the same model
+   3 times through `ParallelTrainer` over `make_mesh({"dp": 1})`: each
+   step's loss and every weight bit for bit the one-device trainer's,
+   row 1b 12 times a step and no other kernel, and each collective of
+   `parallel.collectives` once through NCCL with its backward.
+51. `[mesh-ranks]`: four child processes on cuda:0 joined by the host
+   transport (gloo on page-locked copies; NCCL refuses two ranks on one
+   card), four cases of 3 steps each in bf16 at full size and in float32
+   at 2 layers, held against the one-device step of the same model on
+   the same global batch computed first in this process (rows 1b and
+   2-4 launch there): BERT-base 60 x 128 on dp2 x tp2 with
+   `MEGATRON_RULES` and ZeRO-1 (head-aligned qkv, row 1b on each rank's
+   6 heads 12 times a step; the weights written by `save_checkpoint`
+   from the four ranks and read back by a one-rank trainer here, their
+   digest equal; in float32 ZeRO-1 against plain dp bit for bit, with
+   torch's deterministic algorithms and a second plain run as control),
+   BERT-base 4 x 2048 on dp2 x sp2 (ring attention), the GPipe
+   classifier of width 1024 over pp = 4 with 8 microbatches, and MoE at
+   dim 768, hidden 3072, 4 experts over ep = 4 on 8 x 128 tokens (loss,
+   aux loss, gradients); bf16 within `MESH_BF16_RTOL`, float32 within
+   `MESH_F32_RTOL`; each case's wall ms a step and the host transport's
+   share of it.  The parent kills every child on any failure or past
+   `MESH_TIMEOUT`.
+52. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -570,28 +602,48 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+class NativeBuild:
+    """The C ABI (`_native.build_native`: `libmxtorch_infer.so`, its
+    consumers and `libmxtorch_ops.so`) built in a thread of its own,
+    started beside the kernels' build; `dir()` waits for it, logs what
+    it built once, and returns its directory.  Its one compiler process
+    (the ops library includes PyTorch's headers, about a minute) runs
+    beside the first phases, which time the card, not the host."""
+
+    def __init__(self):
+        from incubator_mxnet_torch import _native
+        self._t0 = time.time()
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        self._built = pool.submit(_native.build_native, cuda=True)
+        pool.shutdown(wait=False)
+        self._logged = False
+
+    def dir(self):
+        built = self._built.result()
+        if not self._logged:
+            self._logged = True
+            log(f"[build] C ABI in {built['dir']}: built "
+                + (", ".join(f"{k} at {v:.1f} s" for k, v in
+                             built["seconds"].items()) or "nothing (on disk)")
+                + f"; done {time.time() - self._t0:.1f} s after its start")
+        return built["dir"]
+
+
 def phase_build():
-    """Build the kernels and the C ABI (`_native.build_native`) together,
-    before any timed phase; returns the C ABI's directory."""
-    from incubator_mxnet_torch import _kernels, _native
+    """Build the kernels, with the C ABI started beside them
+    (`NativeBuild`); returns the C ABI's build."""
+    from incubator_mxnet_torch import _kernels
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        native = pool.submit(_native.build_native, cuda=True)
-        logs = _kernels.build_all()
-        log(f"[build] {len(_kernels.SOURCES)} kernel source(s) in "
-            f"{time.time() - t0:.1f} s (built now: "
-            f"{sorted(logs) or 'none'})")
-        built = native.result()
-    log(f"[build] C ABI in {built['dir']}: built "
-        + (", ".join(f"{k} at {v:.1f} s" for k, v in
-                     built["seconds"].items()) or "nothing (on disk)")
-        + f"; the build phase {time.time() - t0:.1f} s")
+    native = NativeBuild()
+    logs = _kernels.build_all()
+    log(f"[build] {len(_kernels.SOURCES)} kernel source(s) in "
+        f"{time.time() - t0:.1f} s (built now: {sorted(logs) or 'none'})")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill")):
                 log(f"[build] {name}: {line.strip()}")
-    return built["dir"]
+    return native
 
 
 def host_us(fn, iters=50, repeats=5):
@@ -5690,7 +5742,7 @@ BUCKET_KERNEL = {T: "flash_short_fwd", LONG_T: "flash_fwd"}
 # pad target of at least one
 BUCKET_REQUESTS = {T: (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128),
                    LONG_T: (1, 2, 3, 4, 5, 8, 9, 16)}
-BUCKET_LATENCY_REPEATS = 5
+BUCKET_LATENCY_REPEATS = 3
 CHAOS_CAPACITY = 8
 SERVE_MODEL = "bert_12_768_12"
 
@@ -6002,48 +6054,55 @@ def _run_tool(module, args, tag, timeout):
     return json.loads(lines[-1]), time.time() - t0
 
 
-def _chaos_phase(card, tool, tag, same_weights, describe):
-    """Export BERT-base bf16 at T = 128, capacity `CHAOS_CAPACITY`, twice
-    (the second time from seed 1, or the same weights again), run the
-    port's chaos tool `tool` on the two and log `describe` of its
-    readings; returns them."""
-    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tool}_")
-    try:
-        art_a, net = _bert_artifact(os.path.join(tmp, "a"), T,
-                                    CHAOS_CAPACITY, 0)
-        art_b, net = _bert_artifact(
-            os.path.join(tmp, "b"), T, CHAOS_CAPACITY,
-            0 if same_weights else 1, net=net if same_weights else None)
-        del net
-        torch.cuda.empty_cache()
-        out, secs = _run_tool(f"incubator_mxnet_torch.tools.{tool}",
-                              ["--artifact", art_a, "--artifact-b", art_b],
-                              tag, 600)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    r = out[tool]
-    log(f"{tag} BERT-base bf16 T={T} capacity {CHAOS_CAPACITY}: "
-        f"{describe(r)}; the gate took {secs:.1f} s ({card})")
-    return r
+def _chaos_artifacts(tmp, same_weights):
+    """BERT-base bf16 at T = 128, capacity `CHAOS_CAPACITY`, exported
+    twice under `tmp` (the second time from seed 1, or the same weights
+    again); returns the two directories."""
+    art_a, net = _bert_artifact(os.path.join(tmp, "a"), T, CHAOS_CAPACITY, 0)
+    art_b, net = _bert_artifact(
+        os.path.join(tmp, "b"), T, CHAOS_CAPACITY, 0 if same_weights else 1,
+        net=net if same_weights else None)
+    del net
+    torch.cuda.empty_cache()
+    return art_a, art_b
 
 
-def phase_serve_chaos(card):
-    return _chaos_phase(
-        card, "serve_chaos", "[serve-chaos]", False, lambda r: (
-            f"reload load+warm {r['reload_seconds']:.3f} s, breaker-open "
-            f"503 in {r['breaker_503_ms']:.2f} ms, mid-flight SIGTERM "
-            f"drained and exited in {r['drain_seconds']:.3f} s"))
-
-
-def phase_fleet(card):
-    return _chaos_phase(
-        card, "fleet_chaos", "[fleet]", True, lambda r: (
+def phase_chaos(card):
+    """`[serve-chaos]` and `[fleet]`: the port's two chaos tools, each on
+    its two BERT-base exports (made here first, one after the other),
+    run at the same time: both spend their time starting and stopping
+    server processes, so they overlap on the host (their lines
+    interleave, each under its tag).  Returns their readings."""
+    tools = (("serve_chaos", "[serve-chaos]", False, lambda r: (
+        f"reload load+warm {r['reload_seconds']:.3f} s, breaker-open "
+        f"503 in {r['breaker_503_ms']:.2f} ms, mid-flight SIGTERM "
+        f"drained and exited in {r['drain_seconds']:.3f} s")),
+        ("fleet_chaos", "[fleet]", True, lambda r: (
             f"router over 3 replicas, {r['requests']} requests "
             f"({r['ok']} 200s, {r['shed']} sheds) in "
             f"{r['load_seconds']:.1f} s, {r['requests_per_s']:.1f} "
             f"requests/s, p50 {r['p50_ms']:.1f} ms, p99 "
             f"{r['p99_ms']:.1f} ms; rolling deploy "
-            f"{r['deploy_seconds']:.2f} s"))
+            f"{r['deploy_seconds']:.2f} s")))
+    tmps = [tempfile.mkdtemp(prefix=f"chip_smoke_{t[0]}_") for t in tools]
+    try:
+        arts = [_chaos_artifacts(d, t[2]) for d, t in zip(tmps, tools)]
+        with concurrent.futures.ThreadPoolExecutor(len(tools)) as pool:
+            runs = [pool.submit(_run_tool,
+                                f"incubator_mxnet_torch.tools.{t[0]}",
+                                ["--artifact", a, "--artifact-b", b], t[1],
+                                600) for t, (a, b) in zip(tools, arts)]
+            results = [r.result() for r in runs]
+    finally:
+        for d in tmps:
+            shutil.rmtree(d, ignore_errors=True)
+    out = []
+    for (tool, tag, _, describe), (res, secs) in zip(tools, results):
+        log(f"{tag} BERT-base bf16 T={T} capacity {CHAOS_CAPACITY}: "
+            f"{describe(res[tool])}; the gate took {secs:.1f} s, beside "
+            f"the other tool ({card})")
+        out.append(res[tool])
+    return out
 
 
 def _native_run(cmd, tag, timeout=900):
@@ -6199,7 +6258,8 @@ def phase_native_serve(card, native, exports):
     del served, pkg
     torch.cuda.empty_cache()
     stdout = _native_run(
-        [os.path.join(native, "serve_native"), out, "--platform", "cuda",
+        [os.path.join(native.dir(), "serve_native"), out, "--platform",
+         "cuda",
          *(a for i in range(3)
            for a in ("--input", os.path.join(out, f"in{i}.bin"))),
          "--repeat", str(NATIVE_RUNS + 1)], tag)
@@ -6302,7 +6362,8 @@ def phase_native_train(card, native, train_step_ms, exports):
     dump = os.path.join(out, "trained")
     os.makedirs(dump)
     stdout = _native_run(
-        [os.path.join(native, "train_test"), out, "--platform", "cuda",
+        [os.path.join(native.dir(), "train_test"), out, "--platform",
+         "cuda",
          *(a for i in range(3)
            for a in ("--input", os.path.join(out, f"in{i}.bin"))),
          "--steps", str(NATIVE_STEPS), "--out-dir", dump], tag)
@@ -7914,6 +7975,591 @@ def phase_planes(card):
     return got
 
 
+# -- the device mesh ------------------------------------------------------------
+
+MESH_DIR = os.path.join(HERE, "build", "mesh")
+MESH_RANKS = 4           # ranks sharing cuda:0 through the host transport
+MESH_STEPS = 3
+MESH_TIMEOUT = 420       # each group of child processes
+# the ranks' loss against the one-device step of the same model and
+# global batch, relative: bf16 at full depth (the dp mean and the tp
+# partial sums add in another order, through 12 layers of bf16), and
+# float32 at 2 layers; gradients (MoE) by the norm of the difference over
+# the reference's norm, with the same bounds
+MESH_BF16_RTOL = 1e-2
+MESH_F32_RTOL = 1e-5
+MESH_F32_LAYERS = 2
+MESH_PIPE = {"d": 1024, "classes": 10, "n_stage": 4, "in_units": 20,
+             "batch": 64, "n_micro": 8, "lr": 0.2}
+MESH_MOE = {"dim": 768, "hidden": 3072, "experts": 4, "rows": 8,
+            "tokens": 128}
+
+
+def _mesh_bert(rows, seqlen, layers, dtype, seed=0):
+    """BERT-base's classifier (`bench_bert`: Normal(0.02) from `seed`,
+    dropout 0) at `layers` layers in `dtype` on cuda:0, and its seeded
+    rows x seqlen batch (numpy seed 0)."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, nd
+    from incubator_mxnet_torch.models.bert import BERTModel, BERTClassifier
+    rng = np.random.RandomState(0)
+    batch = [nd.array(a, ctx=mx.gpu(0)) for a in (
+        rng.randint(0, 30522, (rows, seqlen)).astype(np.float32),
+        np.zeros((rows, seqlen), np.float32),
+        rng.randint(0, 2, rows).astype(np.float32))]
+    mx.seed(seed)
+    bert = BERTModel(30522, units=768, hidden_size=3072, num_layers=layers,
+                     num_heads=12, max_length=seqlen, dropout=0.0,
+                     prefix="bertmodel0_")
+    net = BERTClassifier(bert, num_classes=2, dropout=0.0,
+                         prefix="bertclassifier0_")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    if dtype != "float32":
+        net.cast(dtype)
+    with autograd.pause(), torch.no_grad():
+        net(*[nd.array(a.asnumpy()[:1], ctx=mx.gpu(0)) for a in batch[:2]])
+    return net, batch
+
+
+def _mesh_pipe(dtype):
+    """`_pipe_net` of tests/test_parallel.py at width 1024 and 4 stages
+    (Xavier from seed 11) in `dtype` on cuda:0, and its seeded batch."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import nd
+    p = MESH_PIPE
+    rng = np.random.RandomState(3)
+    batch = [nd.array(a, ctx=mx.gpu(0)) for a in (
+        rng.randn(p["batch"], p["in_units"]).astype(np.float32),
+        rng.randint(0, p["classes"], p["batch"]).astype(np.float32))]
+    mx.seed(11)
+    with mx.gpu(0):
+        net = mx.test_utils.pipeline_mlp(d=p["d"], classes=p["classes"],
+                                         n_stage=p["n_stage"],
+                                         in_units=p["in_units"])
+    if dtype != "float32":
+        net.cast(dtype)
+        batch[0] = batch[0].astype(dtype)
+    return net, batch
+
+
+def _mesh_moe(dtype):
+    """The MoE layer (dim 768, hidden 3072, 4 experts, seed 0) and 8 x 128
+    seeded tokens in `dtype` on cuda:0."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import parallel
+    m = MESH_MOE
+    layer = parallel.MoELayer(m["dim"], m["hidden"], m["experts"])
+    dt, dev = getattr(torch, dtype), mx.gpu(0).torch_device
+    layer.params = {k: v.to(dev, dt) for k, v in layer.params.items()}
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        m["rows"], m["tokens"], m["dim"]).astype(np.float32)).to(dev, dt)
+    return layer, x
+
+
+def _moe_grads(layer, x, mesh=None):
+    """moe_apply's loss sum(out^2) / tokens + aux and its gradients;
+    on an 'ep' mesh this rank's rows and experts, each gradient summed
+    over the ranks holding the same block (the trainer's convention)."""
+    from incubator_mxnet_torch import parallel
+    from incubator_mxnet_torch.parallel import collectives as C
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in layer.params.items()}
+    xs = x
+    w_in, w_out = params["w_in"], params["w_out"]
+    if mesh is not None:
+        n, i = mesh.axis_size("ep"), mesh.axis_index("ep")
+        b, e = x.shape[0] // n, w_in.shape[0] // n
+        xs = x[i * b:(i + 1) * b]
+        w_in, w_out = w_in[i * e:(i + 1) * e], w_out[i * e:(i + 1) * e]
+    xs = xs.detach().clone().requires_grad_(True)
+    out, aux = parallel.moe_apply(xs, params["gate_w"], w_in, w_out,
+                                  mesh=mesh)
+    tokens = x.shape[0] * x.shape[1]
+    part = out.float().pow(2).sum() / tokens
+    if mesh is None:
+        loss = part + aux.float()
+        loss.backward()
+        return {"loss": float(loss.detach()), "aux": float(aux.detach()),
+                **{k: v.grad.float() for k, v in params.items()},
+                "x": xs.grad.float()}
+    (part + aux.float() / mesh.size).backward()
+    g = {k: v.grad for k, v in params.items()}
+    loss = float(C._all_reduce(mesh, "ep", part.detach())) + \
+        float(aux.detach())
+    gx = C._all_gather(mesh, "ep", xs.grad.contiguous(), 0)
+    return {"loss": loss, "aux": float(aux.detach()),
+            "gate_w": C._all_reduce(mesh, "ep", g["gate_w"]).float(),
+            "w_in": C._all_reduce(mesh, "ep", g["w_in"]).float(),
+            "w_out": C._all_reduce(mesh, "ep", g["w_out"]).float(),
+            "x": gx.float()}
+
+
+def _mesh_loss():
+    from incubator_mxnet_torch import gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    return lambda out, label: loss_fn(out.astype("float32"), label)
+
+
+def _mesh_train(net, batch, mesh, steps=MESH_STEPS, **kw):
+    """`steps` ParallelTrainer steps; returns the trainer, the losses,
+    the wall ms a step past the first, the host transport's seconds a
+    step and each hand kernel's launches."""
+    from incubator_mxnet_torch import parallel
+    kind = kw.pop("optimizer", "adam")
+    opt = kw.pop("optimizer_params", {"learning_rate": 2e-5})
+    tr = parallel.ParallelTrainer(net, _mesh_loss(), kind, opt, mesh=mesh,
+                                  **kw)
+    before = _all_counts()
+    losses, walls = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            mesh.transport_stats(reset=True)
+        losses.append(float(tr.step(*batch).asnumpy()))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wire = mesh.transport_stats()["seconds"]
+    after = _all_counts()
+    launches = {k: v - before.get(k, 0) for k, v in after.items()
+                if v - before.get(k, 0)}
+    past = walls[1:] or walls
+    return tr, {"losses": losses, "step_ms": sum(past) / len(past),
+                "wire_ms": wire * 1e3 / max(1, len(past)),
+                "launches": launches}
+
+
+def _digest(tensors):
+    from incubator_mxnet_torch import health
+    return health.checksum(tensors)
+
+
+def mesh_oracle():
+    """The one-device references of `[mesh-ranks]`, in this process:
+    each case's losses (and MoE's gradients), bf16 at full size and
+    float32 at 2 layers, on the same global batches."""
+    from incubator_mxnet_torch import parallel
+    one = parallel.default_mesh(1)
+    out, launches = {}, {}
+
+    def note(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    for dtype, layers in (("bfloat16", LAYERS), ("float32", MESH_F32_LAYERS)):
+        net, batch = _mesh_bert(TRAIN_BATCH, T, layers, dtype)
+        tr, r = _mesh_train(net, batch, one)
+        note(r["launches"])
+        out[f"bert-{dtype}"] = r["losses"]
+        if dtype == "bfloat16":
+            out["bert-digest"] = _digest([p._data for p in tr.params])
+        del net, tr
+        net, batch = _mesh_bert(LONG_TRAIN_BATCH, LONG_T, layers, dtype)
+        tr, r = _mesh_train(net, batch, one)
+        note(r["launches"])
+        out[f"long-{dtype}"] = r["losses"]
+        del net, tr
+        net, batch = _mesh_pipe(dtype)
+        tr, r = _mesh_train(net, batch, one, optimizer="sgd",
+                            optimizer_params={"learning_rate":
+                                              MESH_PIPE["lr"]})
+        out[f"pipe-{dtype}"] = r["losses"]
+        del net, tr
+        layer, x = _mesh_moe(dtype)
+        out[f"moe-{dtype}"] = _moe_grads(layer, x)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _rel(a, b):
+    """‖a - b‖ / ‖b‖ of tensors, or |a - b| / |b| of numbers."""
+    if isinstance(a, torch.Tensor):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).norm() / b.norm())
+    return abs(a - b) / abs(b)
+
+
+def mesh_child(mode, rank, world, port, out_path):
+    """`chip_smoke.py --mesh-rank MODE RANK WORLD PORT OUT`: one rank of
+    a `[mesh-nccl]` or `[mesh-ranks]` world; writes its results as JSON
+    to OUT (the parent reads them) and raises on any failure."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import parallel
+    torch.set_num_threads(2)
+    res = {"mode": mode, "rank": rank}
+    coord = f"127.0.0.1:{port}"
+    if mode == "probe":
+        # two NCCL ranks on one card: NCCL refuses them
+        try:
+            parallel.init_distributed(coord, world, rank, timeout=60)
+            t = torch.ones(4, device="cuda:0")
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            res["nccl"] = f"accepted, sum {t[0].item()}"
+        except Exception as e:      # noqa: BLE001 — the probe's finding
+            res["nccl"] = f"{type(e).__name__}: {e}"
+    elif mode == "nccl":
+        res.update(_mesh_nccl_child(coord))
+    else:
+        parallel.init_distributed(coord, world, rank, ctx=mx.gpu(0),
+                                  transport="host", timeout=300)
+        res.update(_mesh_ranks_child())
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _mesh_nccl_child(coord):
+    """One rank on NCCL: BERT-base bf16 at 60 x 128 through the
+    one-device trainer, then init_distributed at world size 1 and the
+    same model through `ParallelTrainer` over make_mesh({"dp": 1}) on
+    NCCL: losses and weights after each step bit for bit; row 1b 12
+    times a step; each collective of collectives.py through NCCL."""
+    from incubator_mxnet_torch import parallel
+    from incubator_mxnet_torch.parallel import collectives as C
+    out = {}
+    net, batch = _bench_bert()
+    ref = parallel.ParallelTrainer(net, _bert_loss(), "adam", NATIVE_ADAM,
+                                   mesh=parallel.default_mesh(1))
+    ref_w = []
+    ref_losses = []
+    for _ in range(MESH_STEPS):
+        ref_losses.append(ref.step(*batch).data.clone())
+        ref_w.append([p._data.detach().clone() for p in ref.params])
+    del ref, net
+    n, pid = parallel.init_distributed(coord, 1, 0, timeout=120)
+    mesh = parallel.make_mesh({"dp": 1})
+    if mesh.transport != "nccl" or \
+            torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"[mesh-nccl] the mesh's transport is "
+                             f"{mesh.transport}")
+    net, batch = _bench_bert()
+    tr = parallel.ParallelTrainer(net, _bert_loss(), "adam", NATIVE_ADAM,
+                                  mesh=mesh)
+    before = _all_counts()
+    walls = []
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.step(*batch).data
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        same_w = all(torch.equal(p._data, w)
+                     for p, w in zip(tr.params, ref_w[i]))
+        if not torch.equal(loss, ref_losses[i]) or not same_w:
+            raise AssertionError(
+                f"[mesh-nccl] step {i + 1}: loss {loss.item()} against "
+                f"{ref_losses[i].item()}, weights equal {same_w}")
+    after = _all_counts()
+    launches = {k: v - before.get(k, 0) for k, v in after.items()
+                if v - before.get(k, 0)}
+    if launches != {"flash_short_fwd_train": LAYERS * MESH_STEPS}:
+        raise AssertionError(f"[mesh-nccl] launches {launches}")
+    # every collective once through NCCL on the world of one rank
+    x = torch.randn(8, 4, device="cuda:0", requires_grad=True)
+    ys = [C.allreduce(x, "dp", mesh=mesh), C.allmean(x, "dp", mesh=mesh),
+          C.allmax(x, "dp", mesh=mesh), C.allgather(x, "dp", mesh=mesh),
+          C.reduce_scatter(x, "dp", mesh=mesh),
+          C.alltoall(x, "dp", 0, 1, mesh=mesh),
+          C.shift(x, "dp", 1, mesh=mesh)]
+    sum(y.sum() for y in ys).backward()
+    torch.cuda.synchronize()
+    for y in ys:
+        if not torch.equal(y.detach(), x.detach()):
+            raise AssertionError("[mesh-nccl] a collective of one rank "
+                                 "changed its input")
+    if not torch.equal(x.grad, torch.full_like(x, float(len(ys)))):
+        raise AssertionError("[mesh-nccl] the collectives' backward")
+    out.update(losses=[float(l) for l in ref_losses],
+               step_ms=sum(walls[1:]) / max(1, len(walls) - 1),
+               launches=launches, nccl=torch.cuda.nccl.version())
+    parallel.mesh.shutdown()
+    return out
+
+
+def _zero_vs_plain(mesh, layers, dtype):
+    """ZeRO-1 against the plain dp path on the same ranks, 3 steps each
+    from the same weights, with torch's deterministic algorithms (a
+    BERT step's embedding backward adds its repeated rows with atomics
+    otherwise, so two plain runs on the card differ in the last bits);
+    a second plain run is the control.  Returns the ZeRO-1 run's
+    `_mesh_train` record (launches of all three), with the three runs'
+    losses and weights' digests under "zero_vs_plain"."""
+    import warnings
+    from incubator_mxnet_torch import parallel
+    out, launches, first = {}, {}, None
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, zero in (("zero", 1), ("plain", 0), ("control", 0)):
+                net, batch = _mesh_bert(TRAIN_BATCH, T, layers, dtype)
+                tr, r = _mesh_train(net, batch, mesh,
+                                    rules=parallel.MEGATRON_RULES, zero=zero)
+                out[name] = {"losses": r["losses"],
+                             "digest": _digest(tr.gather_params())}
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+                first = first or r
+                del net, tr
+    finally:
+        torch.use_deterministic_algorithms(was)
+    out["nondeterministic"] = sorted({str(w.message)[:160] for w in caught
+                                      if "deterministic" in str(w.message)})
+    return dict(first, launches=launches, zero_vs_plain=out)
+
+
+def _mesh_ranks_child():
+    """The four cases of `[mesh-ranks]` on this rank; every rank runs
+    them in the same order."""
+    from incubator_mxnet_torch import parallel
+    out = {}
+    rank = torch.distributed.get_rank()
+    # case 1: BERT-base bf16 at 60 x 128, dp2 x tp2, MEGATRON_RULES,
+    # ZeRO-1; the gathered weights written through save_checkpoint
+    mesh = parallel.make_mesh({"dp": 2, "tp": 2})
+    ckpt = os.path.join(MESH_DIR, "ckpt")
+    net, batch = _mesh_bert(TRAIN_BATCH, T, LAYERS, "bfloat16")
+    tr, r = _mesh_train(net, batch, mesh, rules=parallel.MEGATRON_RULES,
+                        zero=1)
+    tr.save_checkpoint(ckpt)
+    r["digest"] = _digest(tr.gather_params())
+    r["param_bytes"] = tr.param_bytes()
+    r["state_bytes"] = tr.optimizer_state_bytes()
+    out["bert-bfloat16"] = r
+    del net, tr
+    torch.cuda.empty_cache()
+    out["bert-float32"] = _zero_vs_plain(mesh, MESH_F32_LAYERS, "float32")
+    # case 2: BERT-base at 4 x 2048, dp2 x sp2, ring attention
+    mesh = parallel.make_mesh({"dp": 2, "sp": 2})
+    for dtype, layers in (("bfloat16", LAYERS), ("float32", MESH_F32_LAYERS)):
+        net, batch = _mesh_bert(LONG_TRAIN_BATCH, LONG_T, layers, dtype)
+        tr, r = _mesh_train(net, batch, mesh, seq_axis="sp")
+        out[f"long-{dtype}"] = r
+        del net, tr
+        torch.cuda.empty_cache()
+    # case 3: the GPipe classifier over pp = 4, 8 microbatches
+    mesh = parallel.make_mesh({"pp": 4})
+    for dtype in ("bfloat16", "float32"):
+        net, batch = _mesh_pipe(dtype)
+        tr, r = _mesh_train(net, batch, mesh, optimizer="sgd",
+                            optimizer_params={"learning_rate":
+                                              MESH_PIPE["lr"]},
+                            n_micro=MESH_PIPE["n_micro"])
+        r["pp_active"] = tr._pp_active
+        r["bubble"] = tr.mesh_report()["pp"]["bubble_fraction"]
+        out[f"pipe-{dtype}"] = r
+        del net, tr
+    # case 4: MoE over ep = 4, a token's slot sent to its expert's rank
+    mesh = parallel.make_mesh({"ep": 4})
+    for dtype in ("bfloat16", "float32"):
+        layer, x = _mesh_moe(dtype)
+        mesh.transport_stats(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = _moe_grads(layer, x, mesh)
+        torch.cuda.synchronize()
+        g["step_ms"] = (time.perf_counter() - t0) * 1e3
+        g["wire_ms"] = mesh.transport_stats()["seconds"] * 1e3
+        if rank == 0:
+            torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                        for k, v in g.items()},
+                       os.path.join(MESH_DIR, f"moe-{dtype}.pt"))
+        out[f"moe-{dtype}"] = {k: v for k, v in g.items()
+                               if not isinstance(v, torch.Tensor)}
+    parallel.mesh.shutdown()
+    return out
+
+
+def _mesh_children(mode, world, timeout=MESH_TIMEOUT):
+    """Start `world` child processes of `mode` together, wait for all
+    of them under one deadline, and return their results; on any
+    failure or the deadline every child is killed and the phase fails
+    with their logs' tails."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    os.makedirs(MESH_DIR, exist_ok=True)
+    procs = []
+    for r in range(world):
+        res = os.path.join(MESH_DIR, f"{mode}-{r}.json")
+        if os.path.exists(res):
+            os.remove(res)
+        logf = open(os.path.join(MESH_DIR, f"{mode}-{r}.log"), "w")
+        # cuBLAS's deterministic workspace, for `_zero_vs_plain`
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", mode,
+             str(r), str(world), str(port), res], cwd=HERE, stdout=logf,
+            stderr=subprocess.STDOUT, env=env, start_new_session=True),
+            logf, res))
+    deadline = time.time() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p, _, _ in procs):
+            bad = [p for p, _, _ in procs if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"a rank ended with {bad[0].returncode}"
+                break
+            if time.time() > deadline:
+                failed = f"past the {timeout} s deadline"
+                break
+            time.sleep(0.2)
+        if failed is None and any(p.returncode != 0 for p, _, _ in procs):
+            failed = "a rank ended with " + str(
+                [p.returncode for p, _, _ in procs])
+    finally:
+        for p, logf, _ in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+            logf.close()
+    if failed is not None:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(MESH_DIR, f"{mode}-{r}.log"),
+                      errors="replace") as f:
+                tails.append(f"--- rank {r}:\n" + f.read()[-3000:])
+        raise AssertionError(f"[mesh-{mode}] {failed}\n" + "\n".join(tails))
+    out = []
+    for _, _, res in procs:
+        with open(res) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_mesh_nccl(card):
+    """`[mesh-nccl]`: the NCCL probe of two ranks on cuda:0 (its error
+    text logged), then one rank on NCCL (`_mesh_nccl_child`).  Returns
+    the path's launch counts."""
+    # the probe's two ranks and the NCCL rank start together
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(_mesh_children, "probe", 2, 120)
+        (got,) = _mesh_children("nccl", 1)
+        probe = probe.result()
+    for r in probe:
+        log(f"[mesh-nccl] two NCCL ranks on cuda:0, rank {r['rank']}: "
+            + r["nccl"].replace("\n", " | ")[:600])
+    log(f"[mesh-nccl] NCCL {got['nccl']} at world size 1: BERT-base bf16 "
+        f"60x{T}, {MESH_STEPS} Adam steps over make_mesh({{'dp': 1}}) bit "
+        f"for bit the one-device trainer's (losses "
+        f"{[round(l, 6) for l in got['losses']]}), {got['step_ms']:.2f} ms "
+        f"a step, launches {got['launches']}; every collective through "
+        f"NCCL ({card})")
+    return got["launches"]
+
+
+def phase_mesh_ranks(card):
+    """`[mesh-ranks]`: four ranks on cuda:0 over the host transport
+    (`_mesh_ranks_child`), each case held against the one-device step of
+    the same model on the same global batch computed here first
+    (`mesh_oracle`); returns the ranks' and the oracles' launch counts.
+
+    Cases: BERT-base bf16 60 x 128 on dp2 x tp2 with MEGATRON_RULES and
+    ZeRO-1 (row 1b on each rank's 6 heads, 12 launches a step a rank;
+    the weights written by save_checkpoint and read back by a one-rank
+    trainer here, digest equal); BERT-base 4 x 2048 on dp2 x sp2 (ring
+    attention; the oracle runs rows 2-4); the GPipe classifier of width
+    1024 over pp = 4 with 8 microbatches; MoE at dim 768, hidden 3072, 4
+    experts over ep = 4 on 8 x 128 tokens (loss, aux loss, gradients).
+    Each bf16 at full size within MESH_BF16_RTOL, and float32 at
+    MESH_F32_LAYERS layers within MESH_F32_RTOL; ZeRO-1 against plain dp
+    on the same ranks (float32, `_zero_vs_plain`) bit for bit."""
+    from incubator_mxnet_torch import parallel
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    t0 = time.time()
+    ref, ref_launches = mesh_oracle()
+    log(f"[mesh-ranks] one-device oracles in {time.time() - t0:.1f} s, "
+        f"launches {ref_launches}")
+    torch.cuda.empty_cache()
+    ranks = _mesh_children("ranks", MESH_RANKS)
+    r0 = ranks[0]
+    bad = []
+    for case in ("bert", "long", "pipe"):
+        for dtype, tol in (("bfloat16", MESH_BF16_RTOL),
+                           ("float32", MESH_F32_RTOL)):
+            key = f"{case}-{dtype}"
+            for r in ranks:
+                err = max(_rel(a, b) for a, b in zip(r[key]["losses"],
+                                                     ref[key]))
+                if not err <= tol:
+                    bad.append(f"{key} rank {r['rank']}: losses "
+                               f"{r[key]['losses']} against {ref[key]}")
+            st = ranks[0][key]
+            share = st["wire_ms"] / st["step_ms"] if st["step_ms"] else 0
+            log(f"[mesh-ranks] {key}: losses {[round(l, 6) for l in st['losses']]}"
+                f" against one device {[round(l, 6) for l in ref[key]]} "
+                f"(worst rel {max(_rel(a, b) for a, b in zip(st['losses'], ref[key])):.2e}, "
+                f"bound {tol}); {st['step_ms']:.1f} ms a step, the host "
+                f"transport {st['wire_ms']:.1f} ms of it ({share:.1%}); "
+                f"rank 0's launches {st['launches']} ({card})")
+    for dtype, tol in (("bfloat16", MESH_BF16_RTOL),
+                       ("float32", MESH_F32_RTOL)):
+        got = torch.load(os.path.join(MESH_DIR, f"moe-{dtype}.pt"))
+        want = ref[f"moe-{dtype}"]
+        errs = {k: _rel(got[k], want[k]) for k in ("loss", "aux", "gate_w",
+                                                   "w_in", "w_out", "x")}
+        if max(errs.values()) > tol:
+            bad.append(f"moe-{dtype}: {errs}")
+        st = ranks[0][f"moe-{dtype}"]
+        log(f"[mesh-ranks] moe-{dtype}: loss {got['loss']:.6f} against "
+            f"{want['loss']:.6f}, aux {got['aux']:.6f} against "
+            f"{want['aux']:.6f}, relative errors "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (bound {tol}); forward and backward {st['step_ms']:.1f} ms,"
+            f" the host transport {st['wire_ms']:.1f} ms ({card})")
+    zp = r0["bert-float32"]["zero_vs_plain"]
+    if not zp["zero"] == zp["plain"] == zp["control"]:
+        bad.append(f"ZeRO-1 against plain dp: {zp}")
+    log(f"[mesh-ranks] ZeRO-1 against plain dp (and a second plain run), "
+        f"float32 {MESH_F32_LAYERS} layers, deterministic algorithms: "
+        f"losses and weights' digest bit for bit "
+        f"({zp['zero']['digest']:#x}); nondeterministic ops warned: "
+        f"{zp['nondeterministic'] or 'none'}")
+    for r in ranks:
+        got = r["bert-bfloat16"]["launches"]
+        if got != {"flash_short_fwd_train": LAYERS * MESH_STEPS}:
+            bad.append(f"rank {r['rank']} bert-bfloat16 launches {got}")
+    if not all(r["pipe-float32"]["pp_active"] for r in ranks):
+        bad.append("the pipeline did not run")
+    # the checkpoint of the four ranks read back by a one-rank trainer
+    net, batch = _mesh_bert(TRAIN_BATCH, T, LAYERS, "bfloat16", seed=5)
+    tr = parallel.ParallelTrainer(net, _mesh_loss(), "adam",
+                                  {"learning_rate": 2e-5},
+                                  mesh=parallel.default_mesh(1))
+    tr._prepare(batch)
+    t1 = time.time()
+    man = tr.load_checkpoint(os.path.join(MESH_DIR, "ckpt"))
+    load_s = time.time() - t1
+    got = _digest([p._data for p in tr.params])
+    want = r0["bert-bfloat16"]["digest"]
+    if got != want or man["process_count"] != MESH_RANKS:
+        bad.append(f"checkpoint: digest {got:#x} against the ranks' "
+                   f"{want:#x}, {man['process_count']} processes")
+    pb, sb = r0["bert-bfloat16"]["param_bytes"], \
+        r0["bert-bfloat16"]["state_bytes"]
+    log(f"[mesh-ranks] the ranks' checkpoint ({man['process_count']} shard "
+        f"files) loaded by one rank in {load_s:.1f} s: weights' digest "
+        f"{got:#x} equal; one-device oracle's digest "
+        f"{ref['bert-digest']:#x}; param bytes {pb[0]} total, {pb[1]} the "
+        f"most on a rank; ZeRO-1 state bytes {sb[0]}, {sb[1]}")
+    del net, tr
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("[mesh-ranks] " + "; ".join(bad))
+    launches = dict(ref_launches)
+    for r in ranks:
+        for key in ("bert-bfloat16", "bert-float32", "long-bfloat16",
+                    "long-float32"):
+            for k, v in r[key]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f"[mesh-ranks] launches, the ranks' and the oracles': {launches}")
+    return launches
+
+
 def phase_seconds(tag, fn, *args, **kwargs):
     """fn(*args, **kwargs), its wall seconds logged under `tag`."""
     t0 = time.time()
@@ -7932,6 +8578,9 @@ def main():
         return native_exports()
     if sys.argv[1:] == ["--planes"]:
         return planes_child()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mode, rank, world, port, out = sys.argv[2:7]
+        return mesh_child(mode, int(rank), int(world), int(port), out)
     t_start = time.time()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}: {card}; torch "
@@ -8015,8 +8664,7 @@ def main():
     P("[train-record]", phase_train_record, card, resident_step_ms)
     bucket_counts, bucket_recs = P("[serve-buckets]", phase_serve_buckets,
                                    card)
-    P("[serve-chaos]", phase_serve_chaos, card)
-    P("[fleet]", phase_fleet, card)
+    P("[serve-chaos] and [fleet]", phase_chaos, card)
     native_serve = P("[native-serve]", phase_native_serve, card, native,
                      exports)
     native_train = P("[native-train]", phase_native_train, card, native,
@@ -8030,6 +8678,8 @@ def main():
     torch.cuda.empty_cache()
     P("[quantize-example]", phase_quantize_example, card)
     P("[onnx]", phase_onnx, card)
+    mesh_nccl = P("[mesh-nccl]", phase_mesh_nccl, card)
+    mesh_ranks = P("[mesh-ranks]", phase_mesh_ranks, card)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn], {sc_fwd} [symbol-check], "
@@ -8041,7 +8691,10 @@ def main():
         f"{ckpt_launches} [checkpoint], {ia_train} [interleaved-attn], "
         f"{sc_train} [symbol-check], "
         f"{native_train['flash_short_fwd_train']} [native-train] (C "
-        f"process), {planes['flash_short_fwd_train']} [planes]")
+        f"process), {planes['flash_short_fwd_train']} [planes], "
+        f"{mesh_nccl['flash_short_fwd_train']} [mesh-nccl], "
+        f"{mesh_ranks['flash_short_fwd_train']} [mesh-ranks] (the four "
+        f"ranks' processes and the one-device oracles)")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
@@ -8056,16 +8709,20 @@ def main():
                 "launches": train_launches + lamb_launches + sparse_launches
                 + ckpt_launches + ia_train + sc_train
                 + native_train["flash_short_fwd_train"]
-                + planes["flash_short_fwd_train"], **train_rec}]
+                + planes["flash_short_fwd_train"]
+                + mesh_nccl["flash_short_fwd_train"]
+                + mesh_ranks["flash_short_fwd_train"], **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),
                             ("flash_bwd_dkv", "flash_bwd.cu", 176)):
         launches = serve_long[name] + train_long[name] + \
-            bucket_counts.get(name, 0)
+            bucket_counts.get(name, 0) + mesh_ranks.get(name, 0)
         log(f"[done] {name}: {serve_long[name]} launches serving at T="
             f"{LONG_T}, {train_long[name]} training at T={LONG_T}"
             + (f", {bucket_counts[name]} [serve-buckets]"
-               if name in bucket_counts else ""))
+               if name in bucket_counts else "")
+            + f", {mesh_ranks.get(name, 0)} [mesh-ranks] (the one-device "
+            f"oracle of the dp2 x sp2 case)")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}/{src}",
                         "replaces": f"{fa_py}:{line}", "launches": launches,

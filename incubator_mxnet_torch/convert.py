@@ -44,8 +44,18 @@ def params_from_jax(block, arrays, ctx=None):
                 s != 0 and s != n for s, n in zip(p.shape, shape))):
             raise MXNetError(f"params_from_jax: {name} has shape {shape}, "
                              f"the block expects {p.shape}")
-    block.load_dict({k: host_tensor(v) for k, v in arrays.items()}, ctx=ctx,
-                    source="params_from_jax")
+    # a parameter a mesh trainer placed keeps its block of the global
+    # (JAX) layout, the head-aligned one of a fused qkv included
+    placed = {n for n, p in params.items() if p._shard is not None}
+    with torch.no_grad():
+        for n in placed:
+            p = params[n]
+            p._data.copy_(p._shard.local_block(host_tensor(arrays[n]))
+                          .to(p._data.device, p._data.dtype))
+    rest = {k: host_tensor(v) for k, v in arrays.items() if k not in placed}
+    if rest:
+        block.load_dict(rest, ctx=ctx, source="params_from_jax",
+                        **({"allow_missing": True} if placed else {}))
 
 
 def _numpy_tree(x):

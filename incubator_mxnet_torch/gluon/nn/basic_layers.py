@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ... import autograd
+from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
@@ -77,8 +78,16 @@ class Dense(HybridBlock):
         self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight=None, bias=None):
-        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
-                               flatten=self._flatten, no_bias=bias is None)
+        if self.weight._shard is not None:
+            # a block placed by a mesh trainer (parallel.tensor_parallel)
+            from ...parallel.tensor_parallel import dense_forward
+            out = NDArray(dense_forward(
+                self, x.data, weight.data,
+                None if bias is None else bias.data))
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   flatten=self._flatten,
+                                   no_bias=bias is None)
         if self._activation is not None:
             out = F.Activation(out, act_type=self._activation)
         return out
@@ -237,6 +246,11 @@ class Embedding(HybridBlock):
         elif self._sparse_grad:
             from ...ndarray.sparse import sparse_embedding
             return sparse_embedding(x, weight)
+        if self.weight._shard is not None:
+            from ...parallel.tensor_parallel import cut_axis, \
+                embedding_forward
+            if cut_axis(self.weight._shard, 0):
+                return NDArray(embedding_forward(self, x.data, weight.data))
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
 

@@ -88,6 +88,8 @@ class Parameter:
         self._trace_reads = 0       # records the rows it looks up
         self._rows_lookups = 0
         self._trace_override = None  # a Symbol while a block is traced
+        self._shard = None          # parallel.sharding.Sharding of the
+        #                             local block a mesh trainer placed
 
     @property
     def shape(self):

@@ -325,11 +325,33 @@ def host_step_stats(stats):
 
 def replica_digests(arrays, mesh, axis):
     """Per-replica weight digests ``{replica_index: digest}`` along the
-    mesh axis `axis`, or None when the mesh holds one replica.  The
-    port's `Mesh` is one device (a single 'dp' replica) until the
-    multi-GPU slice, so this is always None: there is no second replica
-    to compare (the JAX package's answer for a one-replica mesh)."""
-    return None
+    mesh axis `axis`, or None when the mesh has no such axis or one
+    replica.  Each rank folds its blocks of `arrays` into one digest;
+    the digests are all-gathered over the mesh (a collective: every rank
+    calls this at the same point), and each replica's are combined in
+    mesh-grid order, so equal replicas give equal digests whatever the
+    tp/pp cut within them."""
+    import numpy as np
+    names = list(getattr(mesh, "axis_names", ()))
+    if axis not in names or mesh.shape[axis] < 2 or \
+            getattr(mesh, "transport", None) is None:
+        return None
+    from .parallel import collectives as C
+    d = checksum(arrays)
+    signed = d - (1 << 64) if d >= (1 << 63) else d
+    mine = torch.tensor([signed], dtype=torch.int64, device=mesh.device)
+    every = C._all_gather(mesh, mesh.axis_names, mine, 0).cpu().tolist()
+    every = [x & 0xFFFFFFFFFFFFFFFF for x in every]
+    pos = np.arange(mesh.size).reshape(np.asarray(mesh.devices).shape)
+    grid = np.moveaxis(pos, names.index(axis), 0).reshape(
+        mesh.shape[axis], -1)
+    out = {}
+    for i, row in enumerate(grid):
+        dg = _SEED
+        for p in row:
+            dg = combine_digest(dg, every[int(p)])
+        out[i] = dg
+    return out
 
 
 # ---------------------------------------------------------------------

@@ -3,13 +3,17 @@
 `PrefetchingIter`, `CSVIter`, `LibSVMIter` (CSR batches),
 `DevicePrefetcher`, the host-to-card staging ring, and
 `ImageRecordIter` over the threaded image-record pipeline
-(`native_image`).  The sharded iterators are not ported (ROADMAP.md)."""
+(`native_image`), and the sharded iterator of a mesh (`sharded`)."""
 from .io import (DataDesc, DataBatch, DataIter, NDArrayIter, ResizeIter,
                  PrefetchingIter, CSVIter, LibSVMIter, DevicePrefetcher)
+from .sharded import (ShardedDataIter, shard_bounds, data_shard_info,
+                      assemble_global, assemble_from_shards, LocalBatch)
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "DevicePrefetcher", "LibSVMIter",
-           "ImageRecordIter"]
+           "ImageRecordIter", "ShardedDataIter", "shard_bounds",
+           "data_shard_info", "assemble_global", "assemble_from_shards",
+           "LocalBatch"]
 
 
 def ImageRecordIter(path_imgrec=None, path_imgidx=None, data_shape=None,

@@ -11,10 +11,17 @@ from __future__ import annotations
 
 from ..gluon import nn, HybridBlock
 from ..base import MXNetError
+from ..ndarray import NDArray
 
 __all__ = ["BERTEncoderLayer", "BERTEncoder", "BERTModel", "BERTClassifier",
            "TransformerEncoder", "get_bert_model", "bert_12_768_12",
            "bert_24_1024_16", "bert_mini", "bert_classifier"]
+
+
+def _shard_of(layer):
+    """The sharding of a layer's weight a mesh trainer placed, or None
+    (a quantized layer has no gluon weight)."""
+    return getattr(getattr(layer, "weight", None), "_shard", None)
 
 
 class SelfAttention(HybridBlock):
@@ -34,14 +41,31 @@ class SelfAttention(HybridBlock):
                                  in_units=units)
 
     def hybrid_forward(self, F, x, mask=None, kv_length=None):
+        units, heads, tp = self._units, self._num_heads, None
+        sh = _shard_of(self.qkv)
+        if sh is not None:
+            from ..parallel.tensor_parallel import cut_axis
+            tp = cut_axis(sh, 0)
+        if tp:
+            # column-parallel qkv laid out head-aligned: this rank's
+            # q ; k ; v of its own heads
+            n = sh.mesh.axis_size(tp)
+            if heads % n:
+                raise MXNetError(f"{heads} heads do not split over {tp} "
+                                 f"({n})")
+            units, heads = units // n, heads // n
+            self.qkv._tp_keep_local = True
         qkv = self.qkv(x)                                   # (N, T, 3E)
-        q = F.slice_axis(qkv, axis=-1, begin=0, end=self._units)
-        k = F.slice_axis(qkv, axis=-1, begin=self._units, end=2 * self._units)
-        v = F.slice_axis(qkv, axis=-1, begin=2 * self._units,
-                         end=3 * self._units)
+        q = F.slice_axis(qkv, axis=-1, begin=0, end=units)
+        k = F.slice_axis(qkv, axis=-1, begin=units, end=2 * units)
+        v = F.slice_axis(qkv, axis=-1, begin=2 * units, end=3 * units)
         out = F.multi_head_attention(q, k, v, mask, kv_length,
-                                     num_heads=self._num_heads,
+                                     num_heads=heads,
                                      dropout=self._dropout)
+        if tp and _shard_of(self.proj) is None:
+            from ..parallel import collectives
+            out = NDArray(collectives.allgather(
+                out.data, tp, axis=-1, mesh=sh.mesh))
         return self.proj(out)
 
 
@@ -58,6 +82,14 @@ class PositionwiseFFN(HybridBlock):
             self.dropout = nn.Dropout(dropout)
 
     def hybrid_forward(self, F, x):
+        sh1, sh2 = _shard_of(self.ffn_1), _shard_of(self.ffn_2)
+        if sh1 is not None:
+            # Megatron's pair: the first layer's columns feed the second
+            # layer's rows without a gather
+            from ..parallel.tensor_parallel import cut_axis
+            col = cut_axis(sh1, 0)
+            self.ffn_1._tp_keep_local = bool(col) and \
+                cut_axis(sh2, 1) == col
         h = self.ffn_1(x)
         h = F.gelu_fused(h) if self._activation == "gelu" \
             else F.Activation(h, act_type=self._activation)
@@ -148,8 +180,14 @@ class BERTModel(HybridBlock):
         x = self.word_embed(inputs)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
+        # under sequence_parallel_scope this rank holds chunk i of the
+        # sequence: its positions start at i T
+        from ..parallel.ring_attention import sequence_parallel_config
+        sp = sequence_parallel_config()
+        start = 0 if sp is None else \
+            sp["mesh"].axis_index(sp["seq_axis"]) * T
         pos = position_embed.expand_dims(0).slice_axis(
-            axis=1, begin=0, end=T)
+            axis=1, begin=start, end=start + T)
         x = x + pos
         x = self.embed_dropout(self.embed_ln(x))
         # valid_length rides as kv_length so the kernel path stays
@@ -157,8 +195,15 @@ class BERTModel(HybridBlock):
         seq = self.encoder(x, None, valid_length)
         outs = [seq]
         if self._use_pooler:
-            cls = F.slice_axis(seq, axis=1, begin=0, end=1).reshape(
-                0, self._units)
+            cls = F.slice_axis(seq, axis=1, begin=0, end=1)
+            if sp is not None and \
+                    not sp["mesh"].trivial(sp["seq_axis"]):
+                # the first token lies in chunk 0
+                from ..parallel import collectives
+                cls = NDArray(collectives.allgather(
+                    cls.data, sp["seq_axis"], axis=1,
+                    mesh=sp["mesh"])[:, :1])
+            cls = cls.reshape(0, self._units)
             outs.append(self.pooler(cls))
         if self._use_decoder:
             outs.append(self.decoder(seq))

@@ -27,8 +27,10 @@ fails there raises, nothing falls back.  Inside `autograd.record()` the
 kernel route carries its backward (`FlashShort`, `FlashShortBTHD` or
 `Flash`).  Everything else, lengths between 512 and the crossover
 included, takes the einsum path, which applies attention dropout to the
-probabilities in train mode.  Ring attention is not ported
-(ROADMAP.md).
+probabilities in train mode.  Under `parallel.sequence_parallel_scope`
+the op is given this rank's sequence chunk and runs ring attention over
+the scope's axis (no mask, no kv_length, no attention dropout in train
+mode: each raises), as the JAX op routes it.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 
 from .registry import register
 from .. import autograd
-from ..base import get_env, outside_trace
+from ..base import MXNetError, get_env, outside_trace
 from ..random import generator
 
 
@@ -73,6 +75,22 @@ def multi_head_attention(query, key, value, mask=None, kv_length=None, *,
     s = scale if scale is not None else 1.0 / (d ** 0.5)
 
     train_dropout = dropout > 0.0 and autograd.is_training()
+    from ..parallel.ring_attention import (sequence_parallel_config,
+                                           _ring_attention_inner)
+    cfg = sequence_parallel_config()
+    if cfg is not None:
+        # the local chunk of a sequence cut over the ring
+        if mask is not None or kv_length is not None:
+            raise MXNetError("a mask or kv_length is not supported under "
+                             "sequence_parallel_scope")
+        if train_dropout:
+            raise MXNetError("attention dropout is not supported under "
+                             "sequence_parallel_scope")
+        out = _ring_attention_inner(split(query, Tq), split(key, Tk),
+                                    split(value, Tk), cfg["seq_axis"],
+                                    causal=causal, scale=s,
+                                    mesh=cfg["mesh"])
+        return out.transpose(1, 2).reshape(N, Tq, E)
     route = attention_route(query.is_cuda, Tq, Tk, d, mask is not None,
                             train_dropout)
     if route == "bthd":

@@ -1,5 +1,5 @@
-"""Sharded checkpoint files, written and read by one process
-(counterpart of `incubator_mxnet_tpu/parallel/checkpoint.py`).
+"""Sharded checkpoint files (counterpart of
+`incubator_mxnet_tpu/parallel/checkpoint.py`).
 
 The format is the JAX package's, so checkpoints cross between the
 packages both ways:
@@ -8,16 +8,20 @@ packages both ways:
   JSON dict), `{shape, dtype}` of every array under `arrays`, and the
   sha256 of every shard file under `shard_sha256`;
 - `<dir>/shards-{process:05d}.npz`: each array's shards under
-  `name##start:stop,...` (one key per shard, the empty index for a 0-d
-  array), each stored as its raw little-endian bytes viewed as uint8,
-  so bfloat16 needs no numpy dtype.
+  `name##start:stop,...` (slices of the global array, the empty index
+  for a 0-d array), each stored as its raw little-endian bytes viewed
+  as uint8, so bfloat16 needs no numpy dtype.
 
-One process writes `shards-00000.npz`, one shard per array.  Reading
-assembles an array from whatever shards of it the listed files hold,
-so a checkpoint the JAX package wrote over several devices loads too.
-A shard file whose sha256 differs from the manifest's fails, naming
-the file.  The manifest is written last, durably (fsync of the file and
-its directory around an atomic rename).
+One process writes `shards-00000.npz`, one shard per array.  Over a mesh
+(`shardings=`) every rank writes `shards-{rank}.npz` with the pieces of
+its blocks (a head-aligned qkv block is three pieces), only where it is
+the first of the ranks holding that block, and rank 0 writes the
+manifest once every file is there.  Reading assembles each array from
+whatever shards of it the listed files hold, so a checkpoint written by
+any number of processes of either package loads.  A shard file whose
+sha256 differs from the manifest's fails, naming the file.  The
+manifest is written last, durably (fsync of the file and its directory
+around an atomic rename).
 """
 from __future__ import annotations
 
@@ -88,27 +92,55 @@ def _bytes_of(t):
     return t.numpy().reshape(-1).view(_np.uint8)
 
 
-def save_sharded(directory, arrays, step=0, extra=None):
-    """Write {name: tensor} as one process's shard file and the
-    manifest."""
+def _index_key(index, shape):
+    return ",".join(f"{0 if sl.start is None else sl.start}:"
+                    f"{d if sl.stop is None else sl.stop}"
+                    for sl, d in zip(index, shape))
+
+
+def save_sharded(directory, arrays, step=0, extra=None, shardings=None,
+                 mesh=None):
+    """Write {name: tensor} and the manifest.  With `shardings` ({name:
+    (Sharding, global shape)}) and the `mesh` the tensors are this
+    rank's blocks, every rank of the mesh calls this and each writes its
+    own file."""
     os.makedirs(directory, exist_ok=True)
-    manifest = {"step": int(step), "process_count": 1,
+    proc, count = (mesh.rank, mesh.world_size) if shardings else (0, 1)
+    manifest = {"step": int(step), "process_count": count,
                 "extra": extra or {}, "arrays": {}}
     payload = {}
     for name, t in arrays.items():
         if "##" in name:
             raise MXNetError("array names must not contain '##'")
-        shape = [int(d) for d in t.shape]
-        manifest["arrays"][name] = {"shape": shape,
+        if shardings:
+            sh, shape = shardings[name]
+        else:
+            sh, shape = None, tuple(t.shape)
+        manifest["arrays"][name] = {"shape": [int(d) for d in shape],
                                     "dtype": dtype_name(t.dtype)}
-        payload[name + "##" + ",".join(f"0:{d}" for d in shape)] = \
-            _bytes_of(t)
-    fname = "shards-00000.npz"
+        if sh is None:
+            payload[name + "##" + ",".join(f"0:{d}" for d in shape)] = \
+                _bytes_of(t)
+            continue
+        if any(mesh.coords[a] for a in sh.replica_axes()):
+            continue        # another rank holds the same block
+        for g, l in sh.blocks(shape):
+            payload[f"{name}##{_index_key(g, shape)}"] = _bytes_of(t[l])
+    fname = f"shards-{proc:05d}.npz"
     _np.savez(os.path.join(directory, fname), **payload)
-    manifest["shard_sha256"] = {
-        fname: file_sha256(os.path.join(directory, fname))}
-    write_durable(os.path.join(directory, "manifest.json"),
-                  json.dumps(manifest, indent=2).encode())
+    if shardings:
+        from .collectives import barrier
+        barrier(mesh)
+    if proc == 0:
+        hashes = {}
+        for p in range(count):
+            f = f"shards-{p:05d}.npz"
+            hashes[f] = file_sha256(os.path.join(directory, f))
+        manifest["shard_sha256"] = hashes
+        write_durable(os.path.join(directory, "manifest.json"),
+                      json.dumps(manifest, indent=2).encode())
+    if shardings:
+        barrier(mesh)
     return directory
 
 

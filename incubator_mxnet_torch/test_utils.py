@@ -245,3 +245,22 @@ class DummyIter:
 
     def reset(self):
         pass
+
+
+def pipeline_mlp(d=16, classes=10, n_stage=2, in_units=20, flatten=True):
+    """Dense → `parallel.GPipeStack` → Dense with the prefixes the default
+    `TRANSFORMER_RULES` key on (`ffn_1_*` column-parallel, `stack_pipe_*`
+    staged, `ffn_2_*` row-parallel), initialized Xavier: the JAX
+    package's multi-axis test model."""
+    from . import initializer
+    from .gluon import nn
+    from .parallel import GPipeStack
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(d, activation="relu", prefix="ffn_1_",
+                         in_units=in_units, flatten=flatten))
+        net.add(GPipeStack(n_stage, d, prefix="stack_"))
+        net.add(nn.Dense(classes, prefix="ffn_2_", in_units=d,
+                         flatten=flatten))
+    net.initialize(initializer.Xavier())
+    return net

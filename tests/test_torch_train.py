@@ -185,18 +185,24 @@ def test_resume_from_jax_optimizer_states(trainer):
 
 
 def test_parallel_trainer_rejects_what_is_not_ported():
+    """What a world of one device cannot take raises; ZeRO, a sequence
+    axis the mesh lacks and model-parallel rules are taken, each a no-op
+    on one device as in the JAX package (meshes of several ranks:
+    tests/test_torch_parallel*.py)."""
     net = get_model("bert_classifier", model_name="bert_tiny",
                     vocab_size=VOCAB, max_length=T)
     mesh = parallel.default_mesh(ctx=mx.cpu())
     loss = gluon.loss.SoftmaxCrossEntropyLoss()
-    for kw in (dict(zero=1), dict(seq_axis="sp"), dict(rules=object()),
-               dict(mesh_shape=(2, 1, 1))):
-        args = dict(kw) if "mesh_shape" in kw else dict(mesh=mesh, **kw)
-        with pytest.raises(mx.MXNetError, match="not ported"):
-            parallel.ParallelTrainer(net, loss, "adam", **args)
+    for kw in (dict(zero=1), dict(seq_axis="sp"),
+               dict(rules=parallel.MEGATRON_RULES)):
+        tr = parallel.ParallelTrainer(net, loss, "adam", mesh=mesh, **kw)
+        assert tr.seq_axis is None and tr.rules is None
+        assert tr.zero_level == kw.get("zero", 0)
+    with pytest.raises(mx.MXNetError, match="needs 2 devices, have 1"):
+        parallel.ParallelTrainer(net, loss, "adam", mesh_shape=(2, 1, 1))
     with pytest.raises(mx.MXNetError, match="sgd/adam"):
         parallel.ParallelTrainer(net, loss, "rmsprop", mesh=mesh)
-    with pytest.raises(mx.MXNetError, match="not ported"):
+    with pytest.raises(mx.MXNetError, match="a world of one device"):
         parallel.default_mesh(2)
 
 
