@@ -462,7 +462,33 @@ Phases (each prints its own lines; any failure exits non-zero):
    `MESH_F32_RTOL`; each case's wall ms a step and the host transport's
    share of it.  The parent kills every child on any failure or past
    `MESH_TIMEOUT`.
-52. A JSON line describing each kernel, then the card line, then the
+52. `[kvstore]`: the parameter server (`kvstore.dist`, fixed fleet) in
+   child processes started by the port's `tools/launch.py --launcher
+   local` (`chip_smoke.py --kv-worker CASE`; workers on cuda:0, servers
+   `python -m incubator_mxnet_torch.kvstore.server` on the host).  Case
+   1: BERT-base bf16 at 60 x 128 a worker, 2 workers and 1 server,
+   `gluon.Trainer(..., "adam", {"learning_rate": 2e-5},
+   kvstore="dist_sync")` bucketed with Adam on the server, 3 steps: both
+   workers' weights bit for bit equal after every step, the loss within
+   `KV_BF16_RTOL` of a one-device Trainer step on the 120 x 128 global
+   batch computed first in this process, row 1b 12 times a step a
+   worker, and no card mapped in the server process (/proc/PID/maps);
+   again at 2 layers in float32 within `KV_F32_RTOL`.  Case 2:
+   `tools/bench_allreduce.py --smoke --bert-base --workers 2` over case
+   1's first-step gradients, on the card (per-key, bucketed, streamed,
+   ZeRO-1 and ZeRO-2 over 2 servers, with the smoke gates).  Case 3: 4
+   workers as one host's relay (`MXNET_KV_HIERARCHY=1`, one kvstore
+   worker) against a flat 4-worker `dist_sync` run, both updating on
+   the workers: the same weights bit for bit (torch's deterministic
+   algorithms) and a quarter of the push bytes.  Case 4: train_dist.py's
+   loop (resnet18_v1 thumbnail) over `dist_sync`, 2 workers, 2 epochs:
+   each rank's accuracy at least `DIST_MIN_ACC`, equal weights.  Each
+   case's wall ms a step, wire bytes a step and the exchange's share of
+   the step (the wire.*/bucket.*/hier.* spans).  Every case starts at
+   once, case 2 as soon as case 1's workers saved their gradients; the
+   parent kills every process group on any failure or past
+   `KV_TIMEOUT`.
+53. A JSON line describing each kernel, then the card line, then the
    final `{"ok": true, ...}` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout
@@ -8560,6 +8586,442 @@ def phase_mesh_ranks(card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# [kvstore]: the parameter server over loopback TCP, workers on cuda:0
+# ----------------------------------------------------------------------
+
+KV_DIR = os.path.join(HERE, "build", "kv")
+KV_TIMEOUT = 300         # each wave of launched workers and servers
+KV_STEPS = 3
+KV_ROWS = 60             # rows a worker (60 x 128, bench_bert's batch)
+KV_BF16_RTOL = 1e-2      # loss, against the one-device step (bf16)
+KV_F32_RTOL = 1e-5       # loss, against the one-device step (float32)
+KV_F32_LAYERS = 2
+KV_ADAM = {"learning_rate": 2e-5}
+KV_RELAY_RANKS = 4
+KV_DIST_SAMPLES = 2048   # train_dist.py's default
+KV_DIST_BATCH = 64
+# (workers, layers, dtype, update_on_kvstore, relay) of each case
+KV_CASES = {"bert-bfloat16": (2, LAYERS, "bfloat16", True, False),
+            "bert-float32": (2, KV_F32_LAYERS, "float32", True, False),
+            "flat": (KV_RELAY_RANKS, LAYERS, "bfloat16", False, False),
+            "relay": (KV_RELAY_RANKS, LAYERS, "bfloat16", False, True)}
+KV_SPANS = ("wire.", "bucket.", "hier.", "kv.")
+
+
+def _kv_maps(pid):
+    """(libcuda loaded, a card's device file mapped) of process `pid`,
+    from /proc/PID/maps."""
+    with open(f"/proc/{pid}/maps", errors="replace") as f:
+        text = f.read()
+    return "libcuda" in text, bool(re.search(r"/dev/nvidia\d", text))
+
+
+def _kv_server_pids():
+    """The pids of this process's sibling kvstore servers (children of
+    the same launcher)."""
+    ppid, out = os.getppid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == ppid \
+                and "incubator_mxnet_torch.kvstore.server" in cmd:
+            out.append(int(d))
+    return out
+
+
+def _kv_exchange_ms(t0, t1):
+    """Milliseconds of [t0, t1] covered by the exchange's spans (the
+    union of wire.*, bucket.*, hier.* and kv.*)."""
+    from incubator_mxnet_torch import tracing
+    ivs = [(max(s.t0, t0), min(s.t1, t1)) for s in tracing.spans()
+           if s.name.startswith(KV_SPANS) and s.t1 > t0 and s.t0 < t1]
+    return sum(b - a for a, b in tracing.merge_intervals(ivs)) * 1e3
+
+
+def kv_worker(case, out_dir):
+    """`chip_smoke.py --kv-worker CASE DIR`: one worker of a `[kvstore]`
+    case under the port's launcher; writes its results to
+    DIR/CASE-RANK.json and raises on any failure."""
+    import warnings
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, gluon, tracing
+    torch.set_num_threads(2)
+    relay_rank = os.environ.get("MXNET_KV_LOCAL_RANK")
+    me = int(relay_rank if relay_rank is not None
+             else os.environ["DMLC_WORKER_RANK"])
+    if case == "dist":
+        return _kv_dist_worker(me, out_dir)
+    nw, layers, dtype, uok, _relay = KV_CASES[case]
+    if not uok:
+        # flat and relay runs are compared bit for bit: the embedding
+        # backward's atomics would differ between runs
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    caught = warnings.catch_warnings(record=True)
+    seen = caught.__enter__()
+    warnings.simplefilter("always")
+    net, batch = _mesh_bert(KV_ROWS * nw, T, layers, dtype)
+    mine = [b[me * KV_ROWS:(me + 1) * KV_ROWS] for b in batch]
+    tr = gluon.Trainer(net.collect_params(), "adam", KV_ADAM,
+                       kvstore="dist_sync", update_on_kvstore=uok)
+    kv, loss_fn = tr._kv, _bert_loss()
+    tracing.set_enabled(True)
+    res = {"case": case, "rank": me, "losses": [], "digests": [],
+           "step_ms": [], "exchange_ms": [], "push_bytes": [],
+           "reply_bytes": []}
+    _reset_all_counts()
+    for step in range(KV_STEPS):
+        torch.cuda.synchronize()
+        p0, r0 = kv.wire_bytes, kv.reply_bytes
+        t0 = time.perf_counter()
+        tm0 = time.monotonic()
+        with autograd.record():
+            loss = loss_fn(net(*mine[:2]), mine[2])
+        loss.backward()
+        if step == 0 and case == "bert-bfloat16":
+            # the gradients [kvstore]'s exchange legs replay
+            torch.save([p._data.grad.cpu() for p in tr._params],
+                       os.path.join(out_dir, f"grads-{me}.pt"))
+            open(os.path.join(out_dir, f"grads-{me}.done"), "w").close()
+        tr.step(KV_ROWS * nw)
+        torch.cuda.synchronize()
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["exchange_ms"].append(_kv_exchange_ms(tm0, time.monotonic()))
+        res["losses"].append(float(loss.mean().asscalar()))
+        res["digests"].append(_digest([p._data for p in tr._params]))
+        res["push_bytes"].append(kv.wire_bytes - p0)
+        res["reply_bytes"].append(kv.reply_bytes - r0)
+    caught.__exit__(None, None, None)
+    res["nondeterministic"] = sorted({str(w.message)[:160] for w in seen
+                                      if "deterministic" in str(w.message)})
+    res["launches"] = {k: v for k, v in _all_counts().items() if v}
+    res["update_on_kvstore"] = tr._update_on_kvstore
+    res["bucketed"] = (tr._kv_bucketer or tr._bucketer or None) is not None
+    res["cuda"] = _kv_maps(os.getpid())
+    res["servers"] = {str(p): _kv_maps(p) for p in _kv_server_pids()}
+    with open(os.path.join(out_dir, f"{case}-{me}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _kv_dist_worker(me, out_dir):
+    """train_dist.py's loop body (its data recipe, rank shard,
+    NDArrayIter, resnet18_v1 thumbnail, SGD 0.05/0.9, Accuracy) with
+    kvstore="dist_sync" on cuda:0, 2 epochs."""
+    import incubator_mxnet_torch as mx
+    from incubator_mxnet_torch import autograd, gluon, io, metric
+    torch.set_num_threads(2)
+    nw = int(os.environ["DMLC_NUM_WORKER"])
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(7)
+    n = KV_DIST_SAMPLES
+    proto = rng.randn(10, 3, 32, 32).astype(np.float32)
+    labels = rng.randint(0, 10, n)
+    data = proto[labels] + 0.4 * rng.randn(n, 3, 32, 32).astype(np.float32)
+    shard = slice(me * n // nw, (me + 1) * n // nw)
+    train = io.NDArrayIter(data[shard], labels[shard].astype(np.float32),
+                           batch_size=KV_DIST_BATCH, shuffle=True)
+    mx.random.seed(0)
+    net = _resnet18(ctx)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", EST_SGD,
+                            kvstore="dist_sync")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    t0 = time.perf_counter()
+    steps = 0
+    for epoch in range(2):
+        train.reset()
+        acc.reset()
+        for batch in train:
+            x = batch.data[0].as_in_context(ctx)
+            y = batch.label[0].as_in_context(ctx)
+            with autograd.record():
+                out = net(x)
+                loss = loss_fn(out, y).mean()
+            loss.backward()
+            trainer.step(1)
+            acc.update([y], [out])
+            steps += 1
+    torch.cuda.synchronize()
+    name, value = acc.get()
+    res = {"case": "dist", "rank": me, "acc": value, "metric": name,
+           "steps": steps, "step_ms": (time.perf_counter() - t0) * 1e3
+           / steps, "push_bytes": trainer._kv.wire_bytes / steps,
+           "reply_bytes": trainer._kv.reply_bytes / steps,
+           "digest": _digest([p._data for p in trainer._params]),
+           "launches": {k: v for k, v in _all_counts().items() if v}}
+    with open(os.path.join(out_dir, f"dist-{me}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _kv_launch(case, env=None):
+    """The port's launcher for one case: its workers run `chip_smoke.py
+    --kv-worker CASE`; returns the Popen (own process group)."""
+    nw = KV_CASES[case][0] if case in KV_CASES else 2
+    cenv = dict(os.environ, PYTHONPATH=HERE, MXNET_KVSTORE_TIMEOUT="240",
+                CUBLAS_WORKSPACE_CONFIG=":4096:8", **(env or {}))
+    for k in ("DMLC_PS_ROOT_PORT", "MXNET_KVSTORE_SERVER_ADDRS"):
+        cenv.pop(k, None)
+    logf = open(os.path.join(KV_DIR, f"{case}.log"), "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "incubator_mxnet_torch.tools.launch",
+         "--launcher", "local", "-n", str(nw), "-s", "1", sys.executable,
+         os.path.abspath(__file__), "--kv-worker", case, KV_DIR],
+        cwd=HERE, env=cenv, stdout=logf, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return case, nw, p, logf
+
+
+def _kv_wait(runs, timeout=KV_TIMEOUT):
+    """Wait for launched cases under one deadline; on any failure kill
+    every process group and fail with the logs' tails.  Returns
+    {case: [result of each rank]}."""
+    deadline = time.time() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for _, _, p, _ in runs):
+            bad = [c for c, _, p, _ in runs if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"case {bad[0]} ended with an error"
+                break
+            if time.time() > deadline:
+                failed = f"past the {timeout} s deadline"
+                break
+            time.sleep(0.2)
+        if failed is None:
+            bad = [c for c, _, p, _ in runs if p.returncode != 0]
+            if bad:
+                failed = f"case {bad[0]} ended with an error"
+    finally:
+        for _, _, p, logf in runs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+            logf.close()
+    if failed is not None:
+        tails = []
+        for case, _, _, _ in runs:
+            with open(os.path.join(KV_DIR, f"{case}.log"),
+                      errors="replace") as f:
+                tails.append(f"--- {case}:\n" + f.read()[-3000:])
+        raise AssertionError(f"[kvstore] {failed}\n" + "\n".join(tails))
+    out = {}
+    for case, nw, _, _ in runs:
+        out[case] = []
+        for r in range(nw):
+            with open(os.path.join(KV_DIR, f"{case}-{r}.json")) as f:
+                out[case].append(json.load(f))
+    return out
+
+
+def _kv_oracle():
+    """The one-device `gluon.Trainer` (Adam 2e-5) on the 120 x 128
+    global batch, 3 steps: losses bf16 at full size, float32 at 2
+    layers."""
+    from incubator_mxnet_torch import autograd, gluon
+    out = {}
+    for dtype, layers in (("bfloat16", LAYERS), ("float32", KV_F32_LAYERS)):
+        net, batch = _mesh_bert(KV_ROWS * 2, T, layers, dtype)
+        tr = gluon.Trainer(net.collect_params(), "adam", KV_ADAM)
+        loss_fn, losses = _bert_loss(), []
+        for _ in range(KV_STEPS):
+            with autograd.record():
+                loss = loss_fn(net(*batch[:2]), batch[2])
+            loss.backward()
+            tr.step(KV_ROWS * 2)
+            losses.append(float(loss.mean().asscalar()))
+        out[dtype] = losses
+        del net, tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kv_case_line(case, ranks, card):
+    """One case's log line: wall ms a step, wire bytes a step (pushed to
+    and pulled from the servers, all workers), exchange share."""
+    past = slice(1, None)
+    ms = np.mean([np.mean(r["step_ms"][past]) for r in ranks])
+    ex = np.mean([np.sum(r["exchange_ms"][past]) / np.sum(r["step_ms"][past])
+                  for r in ranks])
+    push = sum(np.mean(r["push_bytes"][past]) for r in ranks)
+    pull = sum(np.mean(r["reply_bytes"][past]) for r in ranks)
+    return (f"[kvstore] {case}: {ms:.1f} ms a step (steps 2-{KV_STEPS}), "
+            f"wire {push / 1e6:.1f} MB pushed + {pull / 1e6:.1f} MB pulled "
+            f"a step over all workers, exchange (wire.*/bucket.*/hier.* "
+            f"spans) {100 * ex:.1f}% of the step ({card})")
+
+
+def phase_kvstore(card):
+    """`[kvstore]`: the dist kvstore through the port's launcher, workers
+    on cuda:0 and servers on the host.  Case 1: BERT-base bf16 (and
+    float32 at 2 layers) at 60 x 128 a worker, 2 workers, `dist_sync`
+    with Adam on the server, 3 steps: both workers' weights equal bit
+    for bit after every step, losses within KV_BF16_RTOL (KV_F32_RTOL)
+    of the one-device trainer on the 120 x 128 global batch, row 1b 12
+    times a step a worker, no CUDA context in the server.  Case 2:
+    `bench_allreduce --smoke --bert-base` over case 1's first-step
+    gradients (2 workers).  Case 3: the host relay of 4 workers
+    (MXNET_KV_HIERARCHY, one kvstore worker) bit for bit a flat
+    4-worker `dist_sync` run, both updating on the workers, with a
+    quarter of its push bytes.  Case 4: train_dist.py's loop over
+    `dist_sync`, 2 epochs, each rank's accuracy >= DIST_MIN_ACC and
+    equal weights.  Returns the workers' launch counts."""
+    shutil.rmtree(KV_DIR, ignore_errors=True)
+    os.makedirs(KV_DIR)
+    t0 = time.time()
+    # every case starts at once; the exchange legs start as soon as case
+    # 1's workers saved their first gradients
+    runs = [_kv_launch("bert-bfloat16"), _kv_launch("bert-float32"),
+            _kv_launch("dist"), _kv_launch("flat"),
+            _kv_launch("relay", {"MXNET_KV_HIERARCHY": "1"})]
+    try:
+        oracle = _kv_oracle()
+    except BaseException:
+        for _, _, p, logf in runs:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            logf.close()
+        raise
+    log(f"[kvstore] one-device oracles (120x{T}, Adam 2e-5, "
+        f"{KV_STEPS} steps) in {time.time() - t0:.1f} s")
+    marks = [os.path.join(KV_DIR, f"grads-{r}.done") for r in range(2)]
+    deadline = time.time() + KV_TIMEOUT
+    while not all(os.path.exists(m) for m in marks) \
+            and runs[0][2].poll() is None and time.time() < deadline:
+        time.sleep(0.2)
+    bench_out = os.path.join(KV_DIR, "bench.json")
+    bench_log = open(os.path.join(KV_DIR, "bench.log"), "w")
+    bench = subprocess.Popen(
+        [sys.executable, "-m", "incubator_mxnet_torch.tools.bench_allreduce",
+         "--smoke", "--bert-base", "--workers", "2", "--steps", "1",
+         "--grads", KV_DIR, "--json-out", bench_out], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=bench_log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        got = _kv_wait(runs)
+        bench.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        if bench.poll() is None:
+            os.killpg(bench.pid, signal.SIGKILL)
+            bench.wait()
+        bench_log.close()
+    log(f"[kvstore] the cases and the exchange legs in "
+        f"{time.time() - t0:.1f} s")
+    launches = {}
+    for case, ranks in got.items():
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    # case 1
+    for dtype, rtol in (("bfloat16", KV_BF16_RTOL), ("float32",
+                                                     KV_F32_RTOL)):
+        ranks = got[f"bert-{dtype}"]
+        if ranks[0]["digests"] != ranks[1]["digests"]:
+            raise AssertionError(f"[kvstore] bert-{dtype}: the workers' "
+                                 f"weights differ after a step")
+        losses = [(a + b) / 2 for a, b in zip(ranks[0]["losses"],
+                                              ranks[1]["losses"])]
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, oracle[dtype])]
+        if max(errs) > rtol:
+            raise AssertionError(f"[kvstore] bert-{dtype}: losses {losses} "
+                                 f"against the one-device {oracle[dtype]}")
+        for r in ranks:
+            want = {"flash_short_fwd_train": LAYERS * KV_STEPS} \
+                if dtype == "bfloat16" else {"flash_short_fwd_train":
+                                             KV_F32_LAYERS * KV_STEPS}
+            if r["launches"] != want or not r["update_on_kvstore"] \
+                    or not r["bucketed"]:
+                raise AssertionError(f"[kvstore] bert-{dtype} rank "
+                                     f"{r['rank']}: launches "
+                                     f"{r['launches']} (want {want}), "
+                                     f"update_on_kvstore "
+                                     f"{r['update_on_kvstore']}, bucketed "
+                                     f"{r['bucketed']}")
+            if not r["servers"] or any(v[1] for v in r["servers"].values()) \
+                    or not r["cuda"][1]:
+                raise AssertionError(f"[kvstore] bert-{dtype}: server maps "
+                                     f"{r['servers']} (libcuda, a card "
+                                     f"mapped), the worker's {r['cuda']}")
+        log(f"[kvstore] bert-{dtype} ({2} workers, 1 server, Adam on the "
+            f"server): weights equal bit for bit after each of {KV_STEPS} "
+            f"steps; losses {[round(x, 6) for x in losses]} against the "
+            f"one-device {[round(x, 6) for x in oracle[dtype]]} (worst "
+            f"{max(errs):.2e}, tolerance {rtol}); row 1b "
+            f"{ranks[0]['launches']} a worker; the server's maps "
+            f"(libcuda, a card mapped): {list(r['servers'].values())}")
+        log(_kv_case_line(f"bert-{dtype}", ranks, card))
+    # case 2
+    if bench.returncode != 0:
+        with open(os.path.join(KV_DIR, "bench.log"), errors="replace") as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"[kvstore] bench_allreduce: rc "
+                             f"{bench.returncode}\n{tail}")
+    with open(bench_out) as f:
+        rep = json.load(f)
+    z = rep["zero"]
+    log(f"[kvstore] exchange legs over case 1's gradients ({rep['params']} "
+        f"tensors, {rep['payload_mb']} MB {rep['dtype']} a worker, 2 "
+        f"workers): per-key {rep['per_key']['roundtrips_per_step']:.0f} "
+        f"round trips {rep['per_key']['step_seconds'] * 1e3:.1f} ms a step, "
+        f"bucketed {rep['bucketed']['roundtrips_per_step']:.0f} round "
+        f"trips {rep['bucketed']['step_seconds'] * 1e3:.1f} ms "
+        f"({rep['roundtrip_ratio']}x, identical "
+        f"{rep['bitwise_identical']}); overlap "
+        f"{rep['overlap']['overlap_fraction']} sequential, "
+        f"{rep['overlap_streamed']['overlap_fraction']} streamed "
+        f"(identical {rep['streamed_bitwise_identical']}); ZeRO over 2 "
+        f"servers identical {z['bitwise_identical_across_legs']}, owned "
+        f"skew {z['zero2']['owned_skew']}, grad wire "
+        f"{z['zero1']['grad_wire_mb_per_step']} -> "
+        f"{z['zero2']['grad_wire_mb_per_step']} MB a step a worker, "
+        f"ZeRO-2 worker state {z['zero2']['worker_state_bytes']} B "
+        f"({card})")
+    # case 3
+    flat, relay = got["flat"], got["relay"]
+    digests = {r["digests"][-1] for r in flat + relay}
+    if len(digests) != 1 or any(r["digests"] != flat[0]["digests"]
+                                for r in flat + relay):
+        raise AssertionError(f"[kvstore] relay against flat: weights "
+                             f"differ ({[r['digests'] for r in flat]} "
+                             f"flat, {[r['digests'] for r in relay]} "
+                             f"relay; nondeterministic ops "
+                             f"{flat[0]['nondeterministic']})")
+    flat_push = sum(r["push_bytes"][-1] for r in flat)
+    relay_push = sum(r["push_bytes"][-1] for r in relay)
+    if relay_push * 4 != flat_push:
+        raise AssertionError(f"[kvstore] relay pushes {relay_push} B a "
+                             f"step, the flat run {flat_push} B")
+    log(f"[kvstore] relay of {KV_RELAY_RANKS} workers (one kvstore "
+        f"worker) bit for bit the flat {KV_RELAY_RANKS}-worker run after "
+        f"each step (Adam on the workers); the servers receive "
+        f"{relay_push / 1e6:.1f} MB a step against {flat_push / 1e6:.1f} "
+        f"MB (1/4)")
+    log(_kv_case_line("flat", flat, card))
+    log(_kv_case_line("relay", relay, card))
+    # case 4
+    dist = got["dist"]
+    if dist[0]["digest"] != dist[1]["digest"] \
+            or min(r["acc"] for r in dist) < DIST_MIN_ACC:
+        raise AssertionError(f"[kvstore] train_dist loop: {dist}")
+    log(f"[kvstore] train_dist.py's loop over dist_sync (2 workers, "
+        f"{KV_DIST_SAMPLES} samples, 2 epochs): last epoch accuracy "
+        f"{[round(r['acc'], 4) for r in dist]}, weights equal; "
+        f"{np.mean([r['step_ms'] for r in dist]):.1f} ms a step, wire "
+        f"{sum(r['push_bytes'] + r['reply_bytes'] for r in dist) / 1e6:.2f}"
+        f" MB a step ({card})")
+    log(f"[kvstore] launches {launches}; {time.time() - t0:.1f} s")
+    return launches
+
+
 def phase_seconds(tag, fn, *args, **kwargs):
     """fn(*args, **kwargs), its wall seconds logged under `tag`."""
     t0 = time.time()
@@ -8581,6 +9043,8 @@ def main():
     if sys.argv[1:2] == ["--mesh-rank"]:
         mode, rank, world, port, out = sys.argv[2:7]
         return mesh_child(mode, int(rank), int(world), int(port), out)
+    if sys.argv[1:2] == ["--kv-worker"]:
+        return kv_worker(sys.argv[2], sys.argv[3])
     t_start = time.time()
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}: {card}; torch "
@@ -8680,6 +9144,7 @@ def main():
     P("[onnx]", phase_onnx, card)
     mesh_nccl = P("[mesh-nccl]", phase_mesh_nccl, card)
     mesh_ranks = P("[mesh-ranks]", phase_mesh_ranks, card)
+    kv = P("[kvstore]", phase_kvstore, card)
     train_launches = train["flash_short_fwd_train"]
     log(f"[done] flash_short_fwd: {serve['flash_short_fwd']} launches "
         f"[serve], {ia_fwd} [interleaved-attn], {sc_fwd} [symbol-check], "
@@ -8694,7 +9159,9 @@ def main():
         f"process), {planes['flash_short_fwd_train']} [planes], "
         f"{mesh_nccl['flash_short_fwd_train']} [mesh-nccl], "
         f"{mesh_ranks['flash_short_fwd_train']} [mesh-ranks] (the four "
-        f"ranks' processes and the one-device oracles)")
+        f"ranks' processes and the one-device oracles), "
+        f"{kv['flash_short_fwd_train']} [kvstore] (the workers' "
+        f"processes)")
     fa_py = "incubator_mxnet_tpu/ops/flash_attention.py"
     csrc = "incubator_mxnet_torch/csrc"
     short = {"route": "cuda", "source": f"{csrc}/flash_short_fwd.cu",
@@ -8711,7 +9178,8 @@ def main():
                 + native_train["flash_short_fwd_train"]
                 + planes["flash_short_fwd_train"]
                 + mesh_nccl["flash_short_fwd_train"]
-                + mesh_ranks["flash_short_fwd_train"], **train_rec}]
+                + mesh_ranks["flash_short_fwd_train"]
+                + kv["flash_short_fwd_train"], **train_rec}]
     for name, src, line in (("flash_fwd", "flash_fwd.cu", 55),
                             ("flash_bwd_dq", "flash_bwd.cu", 140),
                             ("flash_bwd_dkv", "flash_bwd.cu", 176)):

@@ -51,6 +51,8 @@ from . import optimizer
 from .optimizer import lr_scheduler
 from . import gluon
 from . import parallel
+from . import kvstore
+from . import kvstore as kv
 from . import models
 from . import rtc
 from . import operator

@@ -32,7 +32,8 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "grad", "grad_scope", "mark_variables", "Function", "get_symbol"]
+           "grad", "grad_scope", "mark_variables", "Function", "get_symbol",
+           "watch_grad_ready", "unwatch_grad_ready"]
 
 
 class _State(threading.local):
@@ -121,6 +122,74 @@ def predict_mode():
     return _Scope(None, False)
 
 
+# The grad-ready watch (MXNET_KV_OVERLAP): one per thread, as the JAX
+# package keeps it.  `backward()` reads the calling thread's watch when
+# the sweep starts and binds it to that sweep: the hooks it registers
+# call the bound callback, whatever thread torch runs them on (on CUDA,
+# its autograd device thread), so the workers of one process never
+# fire into each other's streams.
+
+class _WatchState(threading.local):
+    def __init__(self):
+        self.watch = None   # (id(tensor) -> index, callback, on_backward)
+
+
+_WATCH = _WatchState()
+
+
+def watch_grad_ready(arrays, callback, on_backward=None):
+    """Watch leaf `arrays` (NDArrays or tensors): during every later
+    `backward()` on this thread, `callback(index)` fires once per array
+    as soon as its gradient is final (torch's post-accumulate-grad
+    hook), and once at the end of the sweep for every watched array
+    whose gradient never landed.  `on_backward()` fires once at the
+    start of each sweep that reaches a watched leaf.  Returns the
+    previous watch (`unwatch_grad_ready(prev)` restores it)."""
+    prev = _WATCH.watch
+    _WATCH.watch = ({id(t): i for i, t in enumerate(_tensors(arrays))},
+                    callback, on_backward)
+    return prev
+
+
+def unwatch_grad_ready(prev=None):
+    """Remove this thread's grad-ready watch (or restore `prev`)."""
+    _WATCH.watch = prev
+
+
+def _arm_watch(leaves):
+    """Bind this thread's watch to one sweep over `leaves`: fire
+    `on_backward`, hook each watched leaf, and return the callable that
+    removes the hooks and fires the end-of-sweep fallback (None when
+    the sweep reaches no watched leaf)."""
+    watch = _WATCH.watch
+    if watch is None:
+        return None
+    index, callback, on_backward = watch
+    reached = [t for t in leaves if id(t) in index]
+    if not reached:
+        return None
+    if on_backward is not None:
+        on_backward()
+    fired, lock = set(), threading.Lock()
+
+    def fire(i):
+        with lock:
+            if i in fired:
+                return
+            fired.add(i)
+        callback(i)
+
+    handles = [t.register_post_accumulate_grad_hook(
+        lambda _t, i=index[id(t)]: fire(i)) for t in reached]
+
+    def done():
+        for h in handles:
+            h.remove()
+        for i in index.values():
+            fire(i)
+    return done
+
+
 def _tensors(arrays):
     from .ndarray import NDArray
     if isinstance(arrays, (NDArray, torch.Tensor)):
@@ -187,8 +256,9 @@ def _backward_impl(heads, head_grads, retain_graph, train_mode):
     if not pairs:
         return
     heads, grads = map(list, zip(*pairs))
+    leaves = _reachable_leaves(heads)
     with torch.no_grad():
-        for leaf in _reachable_leaves(heads):
+        for leaf in leaves:
             req = getattr(leaf, "_grad_req", "write")
             sparse = getattr(leaf, "_grad_stype", "default") == "row_sparse"
             if req == "write" and leaf.grad is not None:
@@ -198,8 +268,13 @@ def _backward_impl(heads, head_grads, retain_graph, train_mode):
                     leaf.grad.zero_()
             elif req == "add" and sparse and leaf.grad is None:
                 leaf.grad = torch.zeros_like(leaf)    # accumulate densely
-    with torch.enable_grad():
-        torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+    done = _arm_watch(leaves)
+    try:
+        with torch.enable_grad():
+            torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+    finally:
+        if done is not None:
+            done()
 
 
 def get_symbol(_arr):

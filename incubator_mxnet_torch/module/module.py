@@ -7,8 +7,8 @@ context is the current one (gpu(0) unless a `with cpu():` scope says
 otherwise).  Several contexts split the batch and sum the gradients on
 update; the parameters are NDArrays shared by the executors.  The
 optimizer updates on this process (`kvstore` "local", "device" or
-None); a `dist*` kvstore raises until the distributed parameter server
-is ported.
+None); a `dist*` kvstore raises: the parameter server drives
+`gluon.Trainer`, and Module over it is ROADMAP item 10b.
 """
 from __future__ import annotations
 
@@ -225,8 +225,9 @@ class Module(BaseModule):
             else getattr(kvstore, "type", str(kvstore))
         if kv_name is not None and kv_name.startswith("dist"):
             raise MXNetError(
-                f"kvstore {kv_name!r}: the distributed parameter server is "
-                "not ported yet (ROADMAP item 10); use kvstore='local'")
+                f"kvstore {kv_name!r}: Module over the parameter server is "
+                "not ported yet (ROADMAP item 10b); use kvstore='local', "
+                "or gluon.Trainer(..., kvstore='dist_sync')")
         if kv_name not in (None, "local", "device"):
             raise MXNetError(f"unknown kvstore {kv_name!r}")
         self.optimizer_initialized = True

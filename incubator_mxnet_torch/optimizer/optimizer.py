@@ -485,6 +485,15 @@ class Updater:
              NDArray(weight._data.reshape(-1)), state_key)
         return True
 
+    def state_nbytes(self):
+        """Bytes of every state slot's arrays."""
+        def nb(v):
+            if isinstance(v, tuple):
+                return sum(nb(x) for x in v)
+            return v._data.numel() * v._data.element_size() \
+                if isinstance(v, NDArray) else 0
+        return sum(nb(v) for v in self.states.values())
+
     def get_states(self, dump_optimizer=False):
         return pickle.dumps({k: _state_to_numpy(v)
                              for k, v in self.states.items()})

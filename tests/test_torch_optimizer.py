@@ -225,12 +225,16 @@ def test_updater_states_round_trip_and_update_flat():
     assert flat.shape == (6,)
 
 
-def test_trainer_rejects_what_is_not_ported():
+def test_trainer_rejects_what_is_not_ported(monkeypatch):
+    """The dist kvstores are ported for a fixed fleet; an elastic fleet
+    (ROADMAP item 10b) is not."""
     p = gluon.Parameter("w", shape=(2,))
     p.initialize(ctx=mx.cpu())
+    monkeypatch.setenv("MXNET_KV_ELASTIC", "1")
     for kv in ("dist_sync", "nccl", "dist_async"):
         with pytest.raises(mx.MXNetError, match="not ported"):
             gluon.Trainer([p], "sgd", kvstore=kv)
+    monkeypatch.delenv("MXNET_KV_ELASTIC")
     with pytest.raises(mx.MXNetError, match="unknown optimizer"):
         gluon.Trainer([p], "nonesuch")
 

@@ -8,8 +8,8 @@ sharing memory with the source; then `nd.array`'s shapes and dtypes,
 `axis=()`, `backward()` from a head no gradient-taking input reaches,
 `Parameter`'s `lr_mult`/`wd_mult`/`stype`/`grad_stype`, NDArray's
 `==`, `!=`, `bool()` and in-place operators, 3-D average pooling of
-bfloat16 data on the CPU, and `NDArray.dtype`, a numpy dtype as in the
-JAX package.
+bfloat16 data on the CPU, `NDArray.dtype`, a numpy dtype as in the JAX
+package, and `Updater.state_nbytes`.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances, with their reasons:
@@ -1535,3 +1535,23 @@ def test_r1_speedometer_identity_is_the_process_identity(env, tmp_path,
     for got, ref in zip(*recs):
         assert {k: got[k] for k in ("rank", "role", "host")} == \
             {k: ref[k] for k in ("rank", "role", "host")}
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.01}),
+    ("sgd", {"learning_rate": 0.1})])
+def test_updater_state_nbytes_matches_jax(name, kw):
+    """R25: `Updater.state_nbytes` (the bytes of every state slot, which
+    the kvstore server's statusz and ZeRO's accounting read) exists as
+    in the JAX package and counts the same bytes."""
+    from incubator_mxnet_torch import optimizer as topt
+    from incubator_mxnet_tpu import optimizer as jopt
+    rng = np.random.RandomState(0)
+    w = rng.randn(6, 5).astype(np.float32)
+    g = rng.randn(6, 5).astype(np.float32)
+    tu = topt.get_updater(topt.create(name, **kw))
+    ju = jopt.get_updater(jopt.create(name, **kw))
+    tu(0, nd.array(g, ctx=mx.cpu()), nd.array(w, ctx=mx.cpu()))
+    ju(0, mxj.nd.array(g), mxj.nd.array(w))
+    assert tu.state_nbytes() == ju.state_nbytes()
