@@ -407,26 +407,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    for bit (int32 accumulators and the fused bf16/f32 epilogues, q,
    scale and amax, static and dynamic), at BERT-base's four Dense
    products (M = 128 x 128: qkv, proj, ffn_1, ffn_2), ResNet-50 v1b's
-   stem, a stage-1 3x3 and 1x1 and a grouped 3x3 at batch 32, and the
+   stem, a stage-1 3x3 and 1x1 and a grouped 3x3 at batch 32, ResNeXt-50
+   32x4d's stage-3 grouped 3x3 (untimed: `igemm_kernel<2>`), and the
    ragged M = 1, N = 4, K = 147 dense and convolution; each time beside
    its bound (1,979 TOP/s int8, 3.35 TB/s), the plain version's, and as
    yardsticks that the port never calls `torch._int_mm` where it takes
-   the shape and bf16 `F.linear`/`F.conv2d`.
+   the shape and bf16 `F.linear`/`F.conv2d`; each product's device
+   kernel (`quantized.igemm_form`, `INT8_FORMS`) named and its three
+   launches counted on it.
 46. `[int8-bert]`: bert_12_768_12 bf16 at T = 128 fine-tuned on
    `tools/bert_task.py`'s task (60 + 240 Adam steps at batch 32, 12
    row-1b launches a step), quantized by `quantize_net` from 32 held-out
    rows: bf16 accuracy on 256 held-out rows at least 0.9 and int8 within
    0.01 of it; one int8 forward launches `int8_igemm` and
    `int8_quantize` 50 times each (4 a layer, the pooler, the
-   classifier) and row 1 12 times; the quantized net exported
+   classifier, all on `igemm_wgmma`) and row 1 12 times; the
+   quantized net exported
    (`int8.npz`) and served by `ServingRuntime` over HTTP, the launches
    from its load to its last answer counted (the same a forward, for
    the warm-up and each batch), then each answer against a lone
    forward; int8 and bf16 forwards timed at 128 x 128.
 47. `[int8-resnet]`: resnet50_v1b bf16 at batch 256, `quantize_net`
    with dynamic scales (54 int8 layers, one launch of each kernel a
-   layer): two images against the plain versions on the CPU, int8
-   against bf16, both rates.
+   layer; `INT8_RESNET_FORMS`: 34 `igemm_wgmma`, 19 `igemm_conv_wgmma`,
+   the stem's gather): two images against the plain versions on the
+   CPU, int8 against bf16, both rates.
 48. `[quantize-example]`: `example/quantization/quantize_model.py`
    through `python -m incubator_mxnet_torch.run --seed 0` (a copy of it
    in a temporary directory of its own, where it writes its graph): its
@@ -6925,6 +6930,19 @@ INT8_CONVS = (("stem 7x7/2", 3, 224, 64, 7, 2, 3, 1),
               ("stage-1 3x3", 64, 56, 64, 3, 1, 1, 1),
               ("stage-1 1x1", 64, 56, 256, 1, 1, 0, 1),
               ("grouped 3x3 g32", 128, 56, 128, 3, 1, 1, 32))
+# ResNeXt-50 32x4d's stage-3 grouped 3x3 (16 channels a group), checked
+# and not timed: the one [int8-kernels] shape of the NHWC grouped form
+INT8_CHECK_CONVS = (("resnext stage-3 3x3 g32", 512, 14, 512, 3, 1, 1,
+                     32),)
+# the device kernel each [int8-kernels] product must take
+INT8_FORMS = {"stem 7x7/2": "igemm_kernel<1>",
+              "stage-1 3x3": "igemm_conv_wgmma",
+              "stage-1 1x1": "igemm_wgmma",
+              "grouped 3x3 g32": "igemm_kernel<1>",
+              "resnext stage-3 3x3 g32": "igemm_kernel<2>",
+              "ragged dense": "igemm_kernel<0>",
+              "ragged conv": "igemm_kernel<1>",
+              **{name: "igemm_wgmma" for name, _, _ in INT8_DENSE}}
 # BERT-base int8 gate (tests/test_quantization_bert_base.py's recipe)
 INT8_VOCAB = 30522
 INT8_FT_BATCH, INT8_FT_STEPS = 32, 240       # after 60 warm-up steps
@@ -6945,6 +6963,11 @@ INT8_RESNET_CHECK = 2                        # images held to the CPU
 # value moves one int8 step of the classifier's input
 INT8_RESNET_RTOL = 2.0 ** -6
 INT8_RESNET_MIN_COS = 0.99999
+# a forward's int8_igemm launches by device kernel: the 33 pointwise
+# convolutions and the classifier, the 16 3x3 and 3 strided 1x1
+# convolutions, the stem
+INT8_RESNET_FORMS = {"igemm_wgmma": 34, "igemm_conv_wgmma": 19,
+                     "igemm_kernel<1>": 1}
 ONNX_BATCH = 8
 ONNX_RTOL = 1e-4        # float32 both ways, TF32 off, of the largest logit
 
@@ -6997,10 +7020,11 @@ def _int8_quantize_case(what, x, thr, timed):
     return rec
 
 
-def _int8_product_case(what, x, w, conv, timed, gen):
+def _int8_product_case(what, x, w, conv, timed, gen, want_form):
     """One product: the int32 epilogue with a bias, the fused one in
     bfloat16 with relu and in float32 without, each bit for bit its
-    plain version; the bfloat16 form timed when `timed`."""
+    plain version, all three launched on the device kernel `want_form`;
+    the bfloat16 form timed when `timed`."""
     import torch.nn.functional as F
     from incubator_mxnet_torch.ops import quantized as qops
     n_out = w.shape[0]
@@ -7026,6 +7050,11 @@ def _int8_product_case(what, x, w, conv, timed, gen):
         if kernel:
             return qops.int8_conv(q, w, *conv, **kw)
         return qops.igemm_plain(q, w, conv, **kw)
+    form = _int8_form(q, w, conv)
+    if form != want_form:
+        raise AssertionError(f"[int8-kernels] int8_igemm {what}: routed to "
+                             f"{form}, expected {want_form}")
+    before = qops.form_counts[form]
     fused = dict(x_scale=xs, w_scale=ws, bias=bias, out_dtype=torch.bfloat16)
     for label, kw in (("int32 + bias", dict(bias_i32=b32)),
                       ("bf16 fused relu", dict(fused, relu=True)),
@@ -7033,9 +7062,13 @@ def _int8_product_case(what, x, w, conv, timed, gen):
         got, ref = run(True, **kw), run(False, **kw)
         torch.cuda.synchronize()
         _int8_check(f"int8_igemm {what} {label}", got, ref)
+    if qops.form_counts[form] != before + 3:      # the entry ran the form
+        # it was given or refused the shape (csrc/int8_gemm.cu IgemmForm)
+        raise AssertionError(f"[int8-kernels] int8_igemm {what}: the "
+                             f"launches did not take {form}")
     if not timed:
-        log(f"[int8-kernels] int8_igemm {what}: the three epilogues equal "
-            f"their plain versions")
+        log(f"[int8-kernels] int8_igemm {what} ({form}): the three "
+            f"epilogues equal their plain versions")
         return None
     out = run(True, **fused)
     if conv is None:
@@ -7064,22 +7097,41 @@ def _int8_product_case(what, x, w, conv, timed, gen):
         stride, pad, dilate, groups = conv
         bf16_ms = time_ms(lambda: F.conv2d(xb, wb, None, stride, pad,
                                            dilate, groups))
-    log(f"[int8-kernels] int8_igemm {what}: equal (3 epilogues), kernel "
-        f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain (float64) "
+    log(f"[int8-kernels] int8_igemm {what} ({form}): equal (3 epilogues), "
+        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain (float64) "
         f"{plain_ms:.4f} ms, {lib_note}, bf16 "
         f"{'F.linear' if conv is None else 'F.conv2d'} {bf16_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.1f}% of bound")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "bf16_ms": bf16_ms}
+            "bf16_ms": bf16_ms, "form": form}
+
+
+def _int8_form(q, w, conv):
+    """The device kernel `int8_igemm` takes for this product
+    (`quantized.igemm_form` on the wrapper's shapes)."""
+    from incubator_mxnet_torch.ops import quantized as qops
+    if conv is None:
+        return qops.igemm_form(q.shape[-1])
+    stride, pad, _dilate, groups = conv
+    return qops.igemm_form(conv=(q.shape[1], groups, tuple(w.shape[2:]),
+                                 stride, pad))
+
+
+def _int8_forms():
+    """The launches of `int8_igemm` by device kernel since the counts were
+    last set to 0."""
+    from incubator_mxnet_torch.ops import quantized as qops
+    return {k: v for k, v in qops.form_counts.items() if v}
 
 
 def phase_int8_kernels(card):
     """Both int8 kernels against their plain versions on the card, bit
     for bit, at BERT-base's Dense shapes (M = 128 x 128), ResNet-50's
-    stem, stage-1 3x3 and 1x1 and a grouped 3x3 at batch 32, and the
-    ragged M = 1, N = 4, K = 147 dense and convolution; times beside the
+    stem, stage-1 3x3 and 1x1 and a grouped 3x3 at batch 32, ResNeXt-50's
+    stage-3 grouped 3x3 (untimed) and the ragged M = 1, N = 4, K = 147
+    dense and convolution, each on its device kernel; times beside the
     bound, the plain versions and the library yardsticks.  Returns
     {kernel name: the record at the main path's shape, with "shapes"}."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7098,21 +7150,27 @@ def phase_int8_kernels(card):
         if q_rec:
             recs["int8_quantize"]["main"] = q_rec
         recs["int8_igemm"][name] = _int8_product_case(
-            f"{name} {INT8_M}x{K}x{N}", x, w8(N, K), None, True, gen)
-    for name, C, H, O, k, s, p, g in INT8_CONVS:
+            f"{name} {INT8_M}x{K}x{N}", x, w8(N, K), None, True, gen,
+            INT8_FORMS[name])
+    for (name, C, H, O, k, s, p, g), timed in (
+            [(c, True) for c in INT8_CONVS] +
+            [(c, False) for c in INT8_CHECK_CONVS]):
         x = (torch.randn(INT8_CONV_BATCH, C, H, H, generator=gen,
                          device="cuda") * 2).to(torch.bfloat16)
-        recs["int8_igemm"][name] = _int8_product_case(
+        rec = _int8_product_case(
             f"{name} {INT8_CONV_BATCH}x{C}x{H}x{H} -> {O}", x,
-            w8(O, C // g, k, k), ((s, s), (p, p), (1, 1), g), True, gen)
+            w8(O, C // g, k, k), ((s, s), (p, p), (1, 1), g), timed, gen,
+            INT8_FORMS[name])
+        if timed:
+            recs["int8_igemm"][name] = rec
     xr = torch.randn(1, 147, generator=gen, device="cuda")
     _int8_quantize_case("ragged 1x147", xr, 3.0, False)
     _int8_product_case("ragged dense 1x147x4", xr, w8(4, 147), None, False,
-                       gen)
+                       gen, INT8_FORMS["ragged dense"])
     _int8_product_case("ragged conv 1x3x7x7 -> 4 (K = 147)",
                        torch.randn(1, 3, 7, 7, generator=gen, device="cuda"),
                        w8(4, 3, 7, 7), ((1, 1), (0, 0), (1, 1), 1), False,
-                       gen)
+                       gen, INT8_FORMS["ragged conv"])
     main = dict(recs["int8_igemm"]["qkv"])
     main["shapes"] = {n: {k: v for k, v in r.items()}
                       for n, r in recs["int8_igemm"].items()}
@@ -7193,18 +7251,20 @@ def phase_int8_bert(card):
     torch.cuda.synchronize()
     fwd = _all_counts()
     per_fwd = 4 * LAYERS + 2
+    fwd_forms = _int8_forms()
     want = {n: 0 for n in fwd}
     want.update(flash_short_fwd=LAYERS, int8_igemm=per_fwd,
                 int8_quantize=per_fwd)
-    if fwd != want:
+    if fwd != want or fwd_forms != {"igemm_wgmma": per_fwd}:
         raise AssertionError(f"[int8-bert] int8 forward launches {fwd}, "
-                             f"expected {want}")
+                             f"by form {fwd_forms}, expected {want}, all "
+                             f"igemm_wgmma")
     log(f"[int8-bert] quantize_net (naive calibration on "
         f"{INT8_CALIB_ROWS} held-out rows) in {quant_s:.1f} s: one int8 "
         f"forward of {INT8_TEST_ROWS} rows launched int8_igemm "
         f"{fwd['int8_igemm']} times ({LAYERS} layers x 4 + pooler + "
-        f"classifier), int8_quantize {fwd['int8_quantize']}, "
-        f"flash_short_fwd {fwd['flash_short_fwd']}")
+        f"classifier; by form {fwd_forms}), int8_quantize "
+        f"{fwd['int8_quantize']}, flash_short_fwd {fwd['flash_short_fwd']}")
     log(f"[int8-bert] held-out accuracy on {INT8_TEST_ROWS} rows: bf16 "
         f"{a_bf16:.4f}, int8 {a_int8:.4f} (gate: bf16 >= {INT8_MIN_ACC}, "
         f"drop < {INT8_MAX_DROP})")
@@ -7247,6 +7307,7 @@ def phase_int8_bert(card):
                                              np.float32)))
         torch.cuda.synchronize()
         served = _all_counts()
+        served_forms = _int8_forms()
         batches = rt.model_calls - calls0
     finally:
         if rt is not None:
@@ -7279,7 +7340,13 @@ def phase_int8_bert(card):
     if not worst <= LOGIT_ATOL:
         raise AssertionError(f"[int8-bert] served answers differ from lone "
                              f"forwards by {worst}")
-    return {k: fwd[k] + served[k] for k in ("int8_igemm", "int8_quantize")}
+    forms = {k: fwd_forms.get(k, 0) + served_forms.get(k, 0)
+             for k in {**fwd_forms, **served_forms}}
+    log(f"[int8-bert] int8_igemm launches by form, forward and serving: "
+        f"{forms}")
+    return {**{k: fwd[k] + served[k] for k in ("int8_igemm",
+                                                "int8_quantize")},
+            "forms": forms}
 
 
 def _walk_blocks(block):
@@ -7334,12 +7401,14 @@ def phase_int8_resnet(card):
         got = net(x).asnumpy().astype(np.float32)
     torch.cuda.synchronize()
     counts = {k: v for k, v in _all_counts().items() if v}
+    forms = _int8_forms()
     convs = sum(1 for c in _walk_blocks(net)
                 if type(c).__name__ == "_QuantizedLayer")
     if counts != {"int8_igemm": convs, "int8_quantize": convs} or \
-            convs != 54:
+            convs != 54 or forms != INT8_RESNET_FORMS:
         raise AssertionError(f"[int8-resnet] launches {counts} for {convs} "
-                             f"int8 layers (53 convolutions + the Dense)")
+                             f"int8 layers (53 convolutions + the Dense), "
+                             f"by form {forms}, expected {INT8_RESNET_FORMS}")
     with torch.inference_mode():
         int8_ms = time_ms(lambda: net(x), iters=5, warmup=1)
     log_forward_profile(net, [x._data],
@@ -7361,7 +7430,8 @@ def phase_int8_resnet(card):
                 / np.linalg.norm(plain))
     imgs = INT8_RESNET_BATCH
     log(f"[int8-resnet] resnet50_v1b int8 (dynamic scales, {convs} int8 "
-        f"layers, {counts['int8_igemm']} int8_igemm launches a forward): "
+        f"layers, {counts['int8_igemm']} int8_igemm launches a forward, by "
+        f"form {forms}): "
         f"{imgs}x3x{RESNET_SIZE}^2 forward int8 {int8_ms:.2f} ms "
         f"({imgs / int8_ms * 1e3:.0f} img/s), bf16 {bf16_ms:.2f} ms "
         f"({imgs / bf16_ms * 1e3:.0f} img/s), int8/bf16 time "
@@ -7373,7 +7443,7 @@ def phase_int8_resnet(card):
     if not (err <= INT8_RESNET_RTOL and cos >= INT8_RESNET_MIN_COS):
         raise AssertionError("[int8-resnet] the card's int8 forward "
                              "disagrees with the plain versions")
-    return counts
+    return {**counts, "forms": forms}
 
 
 QUANT_PREFIX = '"/tmp/quantize_example"'
@@ -9243,11 +9313,17 @@ def main():
     for name, line in (("int8_igemm", 262), ("int8_quantize", 212)):
         log(f"[done] {name}: {int8_bert[name]} launches [int8-bert], "
             f"{int8_resnet[name]} [int8-resnet]")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"{csrc}/int8_gemm.cu",
-                        "replaces": f"{q_py}:{line}",
-                        "launches": int8_bert[name] + int8_resnet[name],
-                        **int8_recs[name]})
+        rec = {"name": name, "route": "cuda",
+               "source": f"{csrc}/int8_gemm.cu",
+               "replaces": f"{q_py}:{line}",
+               "launches": int8_bert[name] + int8_resnet[name],
+               **int8_recs[name]}
+        if name == "int8_igemm":
+            forms = {**int8_bert["forms"]}
+            for k, v in int8_resnet["forms"].items():
+                forms[k] = forms.get(k, 0) + v
+            rec["launches_by_form"] = forms
+        kernels.append(rec)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,12 +16,21 @@ from torch._subclasses.fake_tensor import FakeTensor as _FakeTensor, \
     is_fake as _is_fake
 
 __all__ = ["MXNetError", "get_env", "torch_dtype", "dtype_name",
-           "numpy_dtype", "traced", "outside_trace"]
+           "numpy_dtype", "traced", "outside_trace", "string_types",
+           "numeric_types", "integer_types", "mx_real_t"]
 
 
 class MXNetError(RuntimeError):
     """Default error thrown by framework functions."""
 
+
+# the type tuples MXNet user code tests values against
+# (`from mxnet.base import numeric_types`), the JAX package's values
+string_types = (str,)
+numeric_types = (float, int, _np.generic)
+integer_types = (int, _np.integer)
+
+mx_real_t = _np.float32
 
 _TRUE = {"1", "true", "yes", "on"}
 _FALSE = {"0", "false", "no", "off", ""}

@@ -11,7 +11,8 @@ import torch
 from ..base import MXNetError
 from ..ndarray import NDArray, array
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -66,3 +67,12 @@ def check_sha1(filename, sha1_hash):
         for block in iter(lambda: f.read(1 << 20), b""):
             sha1.update(block)
     return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Never fetches: the port runs without network access, as the JAX
+    package does, and raises the same error."""
+    raise MXNetError(
+        "download() is unavailable: this environment has no network egress. "
+        "Place files locally and pass their path instead.")

@@ -6,9 +6,10 @@ that device and takes torch autograd for the backward.  The default
 context is the current one (gpu(0) unless a `with cpu():` scope says
 otherwise).  Several contexts split the batch and sum the gradients on
 update; the parameters are NDArrays shared by the executors.  The
-optimizer updates on this process (`kvstore` "local", "device" or
-None); a `dist*` kvstore raises: the parameter server drives
-`gluon.Trainer`, and Module over it is ROADMAP item 10b.
+optimizer updates on this process for every kvstore whose name does not
+start with "dist" ("local", "device", "nccl", None, ...), as the JAX
+Module does; a `dist*` kvstore raises: the parameter server drives
+`gluon.Trainer`, and Module over it is ROADMAP item 10c.
 """
 from __future__ import annotations
 
@@ -226,10 +227,8 @@ class Module(BaseModule):
         if kv_name is not None and kv_name.startswith("dist"):
             raise MXNetError(
                 f"kvstore {kv_name!r}: Module over the parameter server is "
-                "not ported yet (ROADMAP item 10b); use kvstore='local', "
+                "not ported yet (ROADMAP item 10c); use kvstore='local', "
                 "or gluon.Trainer(..., kvstore='dist_sync')")
-        if kv_name not in (None, "local", "device"):
-            raise MXNetError(f"unknown kvstore {kv_name!r}")
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------------

@@ -43,26 +43,68 @@ from ..base import MXNetError
 from .registry import register
 
 __all__ = ["int8_quantize", "int8_dense", "int8_conv", "quantize_plain",
-           "igemm_plain", "launch_counts", "reset_launch_counts"]
+           "igemm_plain", "igemm_form", "IGEMM_FORMS", "launch_counts",
+           "form_counts", "reset_launch_counts"]
 
 INT8_MAX = 127.0
 INT32_MAX = float(2 ** 31 - 1)
 
 _count_lock = threading.Lock()
 launch_counts = {"int8_igemm": 0, "int8_quantize": 0}
+# the device kernels of `int8_igemm`'s forms (csrc/int8_gemm.cu's
+# `IgemmForm`, in its order): the wrapper passes the entry the form's
+# index, and the entry launches that kernel or refuses the shape, so
+# each launch of int8_igemm is counted here too, by the kernel it ran
+IGEMM_FORMS = ("igemm_wgmma", "igemm_conv_wgmma", "igemm_kernel<2>",
+               "igemm_kernel<1>", "igemm_kernel<0>")
+form_counts = dict.fromkeys(IGEMM_FORMS, 0)
 
 
 def reset_launch_counts():
     with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
+        for counts in (launch_counts, form_counts):
+            for k in counts:
+                counts[k] = 0
 
 
-def _launched(name, err):
+def _launched(name, err, form=None):
     if err != 0:
         raise MXNetError(f"{name}: kernel launch failed with cudaError {err}")
     with _count_lock:
         launch_counts[name] += 1
+        if form is not None:
+            form_counts[form] += 1
+
+
+def igemm_form(K=None, conv=None, aligned=True):
+    """The device kernel that `int8_igemm` launches for a dense product
+    of depth K or the convolution `conv`, decided by shape before the
+    launch: the one router (the
+    wrappers pass it to the kernel's entry, which runs no other; the
+    tests call it on the CPU).  `aligned`: the operands as the kernel
+    reads them start 16-byte aligned.
+
+    - dense (`conv` None): "igemm_wgmma" where K is a multiple of 16,
+      else "igemm_kernel<0>" (bytes gathered through registers);
+    - a convolution, `conv` = (C, groups, (kh, kw), stride, pad): where
+      `conv_nhwc(C, groups)`, "igemm_wgmma"
+      for a pointwise one (1 x 1, stride 1, no padding, one group: the
+      dense product of the NHWC rows, written NCHW), "igemm_conv_wgmma"
+      for any other of one group, "igemm_kernel<2>" for more groups;
+      else "igemm_kernel<1>" (ResNet's stem, groups of few channels).
+    """
+    if conv is None:
+        return "igemm_wgmma" if K > 0 and K % 16 == 0 and aligned \
+            else "igemm_kernel<0>"
+    C, groups, kernel, stride, pad = conv
+    if not (conv_nhwc(C, groups) and aligned):
+        return "igemm_kernel<1>"
+    if groups > 1:
+        return "igemm_kernel<2>"
+    if tuple(kernel) == (1, 1) and tuple(stride) == (1, 1) and \
+            tuple(pad) == (0, 0):
+        return "igemm_wgmma"
+    return "igemm_conv_wgmma"
 
 
 def _f32(v, device):
@@ -259,14 +301,14 @@ def int8_dense(q, w, bias_i32=None, x_scale=None, w_scale=None, bias=None,
             out_dtype, bias_i32, x_scale, w_scale, bias, N)
         if out.numel() == 0:
             return out
-        vec = int(K % 16 == 0 and qc.data_ptr() % 16 == 0
-                  and wc.data_ptr() % 16 == 0)
+        form = igemm_form(K, aligned=qc.data_ptr() % 16 == 0
+                          and wc.data_ptr() % 16 == 0)
         fn = entry("int8_gemm", "int8_igemm_dense",
                    [_P] * 3 + [_I] * 4 + [_P] * 4 + [_I] * 2 + [_P])
         _launched("int8_igemm", fn(
             qc.data_ptr(), wc.data_ptr(), out.data_ptr(), M, N, K,
-            _OUT_KIND[out_dtype], bi, bf, xs, ws, int(bool(relu)), vec,
-            stream(q)))
+            _OUT_KIND[out_dtype], bi, bf, xs, ws, int(bool(relu)),
+            IGEMM_FORMS.index(form), stream(q)), form)
         del keep
         return out
     return route("int8_igemm", q, launch, lambda: igemm_plain(
@@ -319,33 +361,34 @@ def int8_conv(q, w, stride, pad, dilate, groups=1, bias_i32=None,
             return out.squeeze(2) if nd == 1 else out
         # NHWC data and OHWI weights; a pointwise one is the dense
         # product of the NHWC rows
-        nhwc = conv_nhwc(C, groups)
-        xr = q4.permute(0, 2, 3, 1).contiguous() if nhwc else q4  # a view
-        # where int8_quantize wrote q channels-last
-        if nhwc and (kh, kw) == (1, 1) and st == (1, 1) and \
-                pd == (0, 0) and groups == 1 and \
-                xr.data_ptr() % 16 == 0 and wc.data_ptr() % 16 == 0:
+        xr = q4.permute(0, 2, 3, 1).contiguous() \
+            if conv_nhwc(C, groups) else q4   # a view where int8_quantize
+        # wrote q channels-last
+        form = igemm_form(conv=(C, groups, (kh, kw), st, pd),
+                          aligned=xr.data_ptr() % 16 == 0
+                          and wc.data_ptr() % 16 == 0)
+        if form == "igemm_wgmma":
             fn = entry("int8_gemm", "int8_igemm_pointwise",
                        [_P] * 3 + [_I] * 5 + [_P] * 4 + [_I, _P])
             _launched("int8_igemm", fn(
                 xr.data_ptr(), wc.data_ptr(), out.data_ptr(), B * H * W, O,
                 C, H * W, _OUT_KIND[out_dtype], bi, bf, xs, ws,
-                int(bool(relu)), stream(q)))
+                int(bool(relu)), stream(q)), form)
             del keep
             return out.squeeze(2) if nd == 1 else out
+        nhwc = form != "igemm_kernel<1>"
         if nhwc:
             q4 = xr                                   # a view if NHWC
             w4 = w4.permute(0, 2, 3, 1).contiguous()
         elif not q4.is_contiguous():
             q4 = q4.contiguous()
-        vec = int(Cg * kh * kw % 16 == 0 and w4.data_ptr() % 16 == 0)
         fn = entry("int8_gemm", "int8_igemm_conv",
-                   [_P] * 3 + [_I] * 17 + [_P] * 4 + [_I] * 3 + [_P])
+                   [_P] * 3 + [_I] * 17 + [_P] * 4 + [_I] * 2 + [_P])
         _launched("int8_igemm", fn(
             q4.data_ptr(), w4.data_ptr(), out.data_ptr(), B, C, H, W, O,
             groups, kh, kw, st[0], st[1], pd[0], pd[1], dl[0], dl[1], OH,
-            OW, _OUT_KIND[out_dtype], bi, bf, xs, ws, int(bool(relu)), vec,
-            int(nhwc), stream(q)))
+            OW, _OUT_KIND[out_dtype], bi, bf, xs, ws, int(bool(relu)),
+            IGEMM_FORMS.index(form), stream(q)), form)
         del keep
         return out.squeeze(2) if nd == 1 else out
     return route("int8_igemm", q, launch, lambda: igemm_plain(

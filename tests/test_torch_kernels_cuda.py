@@ -1174,21 +1174,35 @@ def test_rtc_softmax_head_gradients_match_the_loss(card):
 # plain version's float32 operations in its order, without FMA)
 # ---------------------------------------------------------------------
 # (M, K, N): one row (a served request) against the classifier's two
-# columns, ragged M and N past the 128-wide tiles, K of 147 and 40 (the
-# byte-gather form) and BERT-base's qkv
+# columns (a 128-wide tile, rows not 16-byte multiples: direct stores),
+# ragged M and N past the tiles, K of 147 and 40 (the byte-gather form),
+# BERT-base's qkv and ffn_2 (ffn_2 with an M tail), N = 200 (a partial
+# 128-wide tile) and 300 (a partial 256-wide one) at fewer tiles than
+# SMs, K = 64 and 192 (64-byte K steps)
 INT8_DENSE_SHAPES = [(1, 768, 2), (3, 768, 768), (130, 64, 10),
                      (257, 3072, 1000), (5, 147, 4), (33, 40, 7),
-                     (16384, 768, 2304)]
+                     (16384, 768, 2304), (16385, 3072, 768),
+                     (200, 768, 200), (300, 192, 300), (4099, 64, 256)]
 # (B, C, H, O, kernel, stride, pad, dilate, groups): the stem's gather,
-# NHWC 3 x 3, pointwise (the wgmma form) and strided pointwise, dilated,
-# 16 and 4 channels a group
+# NHWC 3 x 3, pointwise (the wgmma form: 81 positions, direct stores;
+# 400 and 3,136, TMA stores in tiles that end at an image's edge) and
+# strided pointwise, dilated, 16 and 4 channels a group, and the wgmma
+# convolution at O = 64 (stage 1's 3 x 3), O = 130, stride 2, dilation
+# 2 and ResNet's strided 1 x 1 downsample at O = 512
 INT8_CONV_SHAPES = [(2, 3, 30, 8, 7, 2, 3, 1, 1),
                     (2, 32, 13, 48, 3, 1, 1, 1, 1),
                     (3, 64, 9, 130, 1, 1, 0, 1, 1),
                     (2, 32, 9, 16, 1, 2, 0, 1, 1),
                     (1, 16, 12, 16, 3, 1, 2, 2, 1),
                     (2, 64, 10, 64, 3, 1, 1, 1, 4),
-                    (2, 32, 8, 32, 3, 1, 1, 1, 8)]
+                    (2, 32, 8, 32, 3, 1, 1, 1, 8),
+                    (3, 32, 20, 96, 1, 1, 0, 1, 1),
+                    (2, 64, 56, 256, 1, 1, 0, 1, 1),
+                    (2, 64, 56, 64, 3, 1, 1, 1, 1),
+                    (2, 32, 13, 130, 3, 1, 1, 1, 1),
+                    (2, 64, 15, 64, 3, 2, 1, 1, 1),
+                    (2, 32, 14, 48, 3, 1, 2, 2, 1),
+                    (2, 256, 14, 512, 1, 2, 0, 1, 1)]
 
 
 def _int8_epilogue(kind, n, gen, dev):
@@ -1216,10 +1230,13 @@ def test_int8_dense_matches_plain_version(card, shape, kind):
                       dtype=torch.int8)
     kw = _int8_epilogue(kind, N, gen, card)
     before = qops.launch_counts["int8_igemm"]
+    form = qops.igemm_form(K)
+    by_form = qops.form_counts[form]
     got = qops.int8_dense(q, w, **kw)
     ref = qops.igemm_plain(q, w, None, **kw)
     torch.cuda.synchronize()
     assert qops.launch_counts["int8_igemm"] == before + 1
+    assert qops.form_counts[form] == by_form + 1
     assert got.dtype == ref.dtype and torch.equal(got, ref)
 
 
@@ -1244,10 +1261,49 @@ def test_int8_conv_matches_plain_version(card, shape, kind):
                       device=card, dtype=torch.int8)
     conv = ((s, s), (p, p), (d, d), g)
     kw = _int8_epilogue(kind, O, gen, card)
+    form = qops.igemm_form(conv=(C, g, (k, k), (s, s), (p, p)))
+    by_form = qops.form_counts[form]
     got = qops.int8_conv(q, w, *conv, **kw)
     ref = qops.igemm_plain(rq, w, conv, **kw)
     torch.cuda.synchronize()
+    assert qops.form_counts[form] == by_form + 1
     assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,form", [
+    ((4, 147, 8, None), "igemm_wgmma"),
+    ((2, 64, 8, (1, 32)), "igemm_conv_wgmma"),
+    ((2, 3, 8, (7, 1)), "igemm_kernel<2>"),
+    ((2, 64, 8, (1, 1)), "igemm_kernel<0>")],
+    ids=["dense-k147-wgmma", "grouped-conv-wgmma", "3-channel-nhwc",
+         "conv-on-dense-form"])
+def test_int8_entry_refuses_a_form_that_cannot_take_the_shape(
+        card, monkeypatch, shape, form):
+    """The entries launch the form the router names and choose no other:
+    a form that cannot take the shape raises and counts no launch."""
+    from incubator_mxnet_torch.base import MXNetError
+    from incubator_mxnet_torch.ops import quantized as qops
+    M, C, N, conv = shape
+    gen = torch.Generator(device=card).manual_seed(M + C)
+    monkeypatch.setattr(qops, "igemm_form", lambda *a, **k: form)
+    if conv is None:
+        q = torch.randint(-127, 128, (M, C), generator=gen, device=card,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, C), generator=gen, device=card,
+                          dtype=torch.int8)
+        call = lambda: qops.int8_dense(q, w)  # noqa: E731
+    else:
+        k, g = conv
+        q = torch.randint(-127, 128, (M, C, 9, 9), generator=gen,
+                          device=card, dtype=torch.int8)
+        w = torch.randint(-127, 128, (N * g, C // g, k, k), generator=gen,
+                          device=card, dtype=torch.int8)
+        call = lambda: qops.int8_conv(  # noqa: E731
+            q, w, (1, 1), (k // 2, k // 2), (1, 1), g)
+    counts = dict(qops.form_counts)
+    with pytest.raises(MXNetError, match="cudaError"):
+        call()
+    assert qops.form_counts == counts
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

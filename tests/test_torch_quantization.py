@@ -677,3 +677,87 @@ def test_scales_divide_as_the_jax_package_does():
             got = TR.apply_op(name, *[_tx(a) for a in args], **attrs)
             np.testing.assert_array_equal(_outs(got)[0], _outs(ref)[0],
                                           err_msg=f"{name} {attrs} {v!r}")
+
+
+# ---------------------------------------------------------------------
+# the shape router of `int8_igemm` (`quantized.igemm_form`)
+# ---------------------------------------------------------------------
+
+def _forms_of_forward(monkeypatch, net, *inputs):
+    """The device kernel each int8 product of one forward of the
+    quantized `net` would take on the card, by `igemm_form` on the shapes
+    the fused ops hand the wrappers (the CPU runs the plain versions)."""
+    forms = []
+    conv, dense = tqops.int8_conv, tqops.int8_dense
+
+    def rec_conv(q, w, stride, pad, dilate, groups=1, **kw):
+        forms.append(tqops.igemm_form(conv=(
+            q.shape[1], groups, tuple(w.shape[2:]), tuple(stride),
+            tuple(pad))))
+        return conv(q, w, stride, pad, dilate, groups, **kw)
+
+    def rec_dense(q, w, **kw):
+        forms.append(tqops.igemm_form(q.shape[-1]))
+        return dense(q, w, **kw)
+    monkeypatch.setattr(tqops, "int8_conv", rec_conv)
+    monkeypatch.setattr(tqops, "int8_dense", rec_dense)
+    net(*inputs)
+    return {f: forms.count(f) for f in sorted(set(forms))}
+
+
+def test_igemm_router_maps_resnet50_and_bert_base(monkeypatch):
+    """ResNet-50 v1b's 54 int8 layers and BERT-base's 50 products each
+    map to their device kernel: the 33 pointwise convolutions, the
+    classifier and the 50 Dense products to `igemm_wgmma`, the 16 3x3
+    and 3 strided 1x1 convolutions to `igemm_conv_wgmma`, the stem
+    (3 channels) to the byte gather `igemm_kernel<1>`."""
+    from incubator_mxnet_torch import nd
+    from incubator_mxnet_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_torch.models import get_model as get_text_model
+    with mxt.cpu():
+        net = get_model("resnet50_v1b", classes=1000)
+        net.initialize(mxt.init.Xavier())
+        x = nd.array(np.random.RandomState(0).uniform(
+            size=(1, 3, 32, 32)).astype(np.float32))
+        net(x)
+        tq.quantize_net(net)
+        resnet = _forms_of_forward(monkeypatch, net, x)
+        bert = get_text_model("bert_classifier", model_name="bert_12_768_12",
+                              num_classes=2, dropout=0.0, max_length=8)
+        bert.initialize(mxt.init.Normal(0.02))
+        z = nd.array(np.zeros((1, 8), np.float32))
+        bert(z, z)
+        tq.quantize_net(bert)
+        monkeypatch.undo()
+        text = _forms_of_forward(monkeypatch, bert, z, z)
+    assert resnet == {"igemm_conv_wgmma": 19, "igemm_kernel<1>": 1,
+                      "igemm_wgmma": 34}
+    assert text == {"igemm_wgmma": 50}
+
+
+@pytest.mark.parametrize("args,form", [
+    ((147,), "igemm_kernel<0>"),
+    ((768,), "igemm_wgmma"),
+    ((768, None, False), "igemm_kernel<0>"),
+    ((None, (64, 1, (3, 3), (1, 1), (1, 1))), "igemm_conv_wgmma"),
+    ((None, (64, 1, (1, 1), (1, 1), (0, 0))), "igemm_wgmma"),
+    ((None, (64, 1, (1, 1), (1, 1), (0, 0)), False), "igemm_kernel<1>"),
+    ((None, (128, 32, (3, 3), (1, 1), (1, 1))), "igemm_kernel<1>"),
+    ((None, (256, 16, (3, 3), (1, 1), (1, 1))), "igemm_kernel<2>")],
+    ids=["ragged-k", "dense", "unaligned", "3x3", "pointwise",
+         "unaligned-conv", "few-channel-groups", "nhwc-groups"])
+def test_igemm_router_edge_forms(args, form):
+    assert tqops.igemm_form(*args) == form
+
+
+def test_igemm_forms_are_the_entries_form_indices():
+    """The wrappers pass the kernel's entries `IGEMM_FORMS.index(form)`:
+    the order is that of `IgemmForm` in csrc/int8_gemm.cu."""
+    import re
+    src = os.path.join(os.path.dirname(tqops.__file__), os.pardir, "csrc",
+                       "int8_gemm.cu")
+    with open(src) as f:
+        body = re.search(r"enum IgemmForm \{(.*?)\};", f.read(), re.S)[1]
+    forms = re.findall(r"k\w+ = (\d+),\s*// (\S+):", body)
+    assert [(int(i), name) for i, name in forms] == \
+        list(enumerate(tqops.IGEMM_FORMS))

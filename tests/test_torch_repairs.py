@@ -1555,3 +1555,111 @@ def test_updater_state_nbytes_matches_jax(name, kw):
     tu(0, nd.array(g, ctx=mx.cpu()), nd.array(w, ctx=mx.cpu()))
     ju(0, mxj.nd.array(g), mxj.nd.array(w))
     assert tu.state_nbytes() == ju.state_nbytes()
+
+
+# ------------------------------------------------ queue 3's four faults
+
+def _module_pair(kvstore):
+    """A small Module bound and initialized from the same weights in
+    both packages, `init_optimizer(kvstore=...)` called on each, then
+    one forward_backward + update: each package's weights after it."""
+    x = np.random.RandomState(0).randn(8, 6).astype(np.float32)
+    y = (np.arange(8) % 3).astype(np.float32)
+    rng = np.random.RandomState(1)
+    w = {"fc_weight": (rng.randn(3, 6) * 0.3).astype(np.float32),
+         "fc_bias": np.zeros(3, np.float32)}
+    res = []
+    for pkg in (mxj, mx):
+        with pkg.cpu():
+            data = pkg.sym.Variable("data")
+            fc = pkg.sym.FullyConnected(data, name="fc", num_hidden=3)
+            net = pkg.sym.SoftmaxOutput(fc, name="softmax")
+            it = pkg.io.NDArrayIter(x, y, batch_size=8)
+            mod = pkg.mod.Module(net, context=pkg.cpu())
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mod.init_params(arg_params={k: pkg.nd.array(v)
+                                        for k, v in w.items()})
+            mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                               optimizer_params=(("learning_rate", 0.1),))
+            mod.forward_backward(next(iter(it)))
+            mod.update()
+            res.append({k: _numpy(v) for k, v in
+                        mod.get_params()[0].items()})
+    return res
+
+
+@pytest.mark.parametrize("kvstore", ["nccl", "tpu", "local_allreduce_cpu",
+                                     "LOCAL"])
+def test_q3_f1_module_takes_every_local_kvstore_name(kvstore):
+    """F1: `Module.init_optimizer` takes every kvstore name that does not
+    start with "dist" as an update on this process, as the JAX Module
+    does, where the port raised "unknown kvstore"; one SGD step then
+    gives the JAX weights (rtol 1e-6: the same float32 arithmetic)."""
+    ref, got = _module_pair(kvstore)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, atol=1e-7)
+
+
+def test_q3_f1_dist_kvstore_still_raises_naming_item_10c():
+    with mx.cpu():
+        data = mx.sym.Variable("data")
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            data, name="fc", num_hidden=3), name="softmax")
+        mod = mx.mod.Module(net, context=mx.cpu())
+        mod.bind(data_shapes=[("data", (4, 6))],
+                 label_shapes=[("softmax_label", (4,))])
+        mod.init_params()
+        with pytest.raises(mx.MXNetError, match="item 10c"):
+            mod.init_optimizer(kvstore="dist_sync")
+
+
+def test_q3_f2_base_type_tuples_match_jax():
+    """F2: `base.string_types`, `numeric_types`, `integer_types` and
+    `mx_real_t` exist, in `__all__`, with the JAX package's values."""
+    from incubator_mxnet_torch import base
+    from incubator_mxnet_tpu import base as jbase
+    for name in ("string_types", "numeric_types", "integer_types",
+                 "mx_real_t"):
+        assert name in base.__all__ and name in jbase.__all__
+        assert getattr(base, name) == getattr(jbase, name), name
+    assert isinstance(np.float32(1), base.numeric_types)
+    assert isinstance(np.int64(1), base.integer_types)
+
+
+def test_q3_f3_download_raises_as_jax_without_a_socket(monkeypatch):
+    """F3: `gluon.utils.download` exists and raises the JAX function's
+    `MXNetError` with its message; it opens no socket on the way."""
+    import socket
+    from incubator_mxnet_tpu.gluon import utils as jutils
+    from incubator_mxnet_torch.gluon import utils
+
+    def no_socket(*a, **k):
+        raise AssertionError("download opened a socket")
+    monkeypatch.setattr(socket, "socket", no_socket)
+    monkeypatch.setattr(socket, "create_connection", no_socket)
+    msgs = []
+    for mod, err in ((jutils, mxj.MXNetError), (utils, mx.MXNetError)):
+        with pytest.raises(err) as e:
+            mod.download("http://example.invalid/x.params", path=".",
+                         overwrite=True, sha1_hash="0" * 40, retries=1,
+                         verify_ssl=False)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert "download" in utils.__all__
+
+
+def test_q3_f4_ops_reexports_the_registry_api():
+    """F4: `ops` re-exports `register`, `get_op`, `list_ops` and
+    `apply_op` from its registry, as the JAX `ops/__init__.py` does (its
+    `invoke`, the JAX dispatcher, has no counterpart here)."""
+    import incubator_mxnet_tpu.ops as jops
+    import incubator_mxnet_torch.ops as tops
+    for name in ("register", "get_op", "list_ops", "apply_op"):
+        assert getattr(tops, name) is getattr(tops.registry, name)
+        assert callable(getattr(jops, name))
+    assert sorted(tops.list_ops()) == sorted(tops.registry.list_ops())
+    assert tops.get_op("relu") is tops.registry.get_op("relu")
+    got = tops.apply_op("relu", torch.tensor([-1.0, 2.0]))
+    assert got.tolist() == [0.0, 2.0]
